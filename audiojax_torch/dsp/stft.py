@@ -1,0 +1,236 @@
+"""Matmul-DFT STFT / ISTFT in plain PyTorch — the twins of the CUDA kernels.
+
+Counterpart of ``audiojax.dsp.stft``.  These functions are the CPU path and
+the oracle that ``ops.stft_cuda``'s kernels are held against: framing plus
+one (…·T, n_fft) × (n_fft, 2F) product for the STFT, and one
+(…·T, 2F) × (2F, n_fft) product plus overlap-add, COLA reciprocal and
+centre trim for the ISTFT.
+
+Layouts: audio is ``(..., L)``; spectra are time-major packed
+``(..., T, 2F)`` with [real | imag] on the last axis.
+
+Bases, windows and the COLA reciprocal are computed in numpy float64 and
+cached per config; their torch copies are cached per (config, device).
+"""
+from __future__ import annotations
+
+import dataclasses
+from functools import lru_cache
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .windows import padded_window
+
+__all__ = [
+    "StftConfig",
+    "num_frames",
+    "pad_center",
+    "frame_signal",
+    "overlap_add",
+    "stft_packed",
+    "istft_packed",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class StftConfig:
+    """Static STFT/ISTFT geometry; hashable so basis tables can be cached.
+
+    ``input_scale`` / ``output_scale`` are folded into the DFT bases.
+    """
+
+    n_fft: int
+    hop: int
+    win_length: int | None = None
+    window: str = "hann"
+    center: bool = True
+    pad_mode: str = "constant"  # 'constant' | 'reflect'
+    input_scale: float = 1.0
+    output_scale: float = 1.0
+
+    @property
+    def wl(self) -> int:
+        return self.n_fft if self.win_length is None else self.win_length
+
+    @property
+    def half(self) -> int:
+        return self.n_fft // 2
+
+    @property
+    def f_bins(self) -> int:
+        return self.n_fft // 2 + 1
+
+
+def num_frames(cfg: StftConfig, length: int) -> int:
+    """Number of full analysis frames for an input of ``length`` samples."""
+    padded = length + 2 * cfg.half if cfg.center else length
+    return (padded - cfg.n_fft) // cfg.hop + 1
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# Precomputed constants (numpy float64, cached per config)
+# ─────────────────────────────────────────────────────────────────────────────
+
+
+@lru_cache(maxsize=None)
+def _window_np(cfg: StftConfig) -> np.ndarray:
+    return padded_window(cfg.window, cfg.wl, cfg.n_fft)
+
+
+@lru_cache(maxsize=None)
+def _stft_basis_np(cfg: StftConfig) -> np.ndarray:
+    """(n_fft, 2F) windowed forward-DFT basis: [cos | -sin] * window * scale."""
+    n = np.arange(cfg.n_fft, dtype=np.float64)[:, None]
+    f = np.arange(cfg.f_bins, dtype=np.float64)[None, :]
+    omega = 2.0 * np.pi / cfg.n_fft * n * f
+    w = (_window_np(cfg) * cfg.input_scale)[:, None]
+    basis = np.concatenate([np.cos(omega) * w, -np.sin(omega) * w], axis=1)
+    return basis.astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def _istft_basis_np(cfg: StftConfig) -> np.ndarray:
+    """(2F, n_fft) windowed inverse-DFT basis with one-sided 2/N scaling
+    (bins 0 and Nyquist scaled 1/N, interior bins 2/N)."""
+    k = np.arange(cfg.f_bins, dtype=np.float64)[:, None]
+    n = np.arange(cfg.n_fft, dtype=np.float64)[None, :]
+    omega = 2.0 * np.pi / cfg.n_fft * k * n
+    scale = np.full((cfg.f_bins, 1), 2.0)
+    scale[0, 0] = 1.0
+    if cfg.n_fft % 2 == 0:
+        scale[-1, 0] = 1.0
+    w = _window_np(cfg)[None, :] / cfg.n_fft
+    real_rows = scale * np.cos(omega) * w
+    imag_rows = scale * -np.sin(omega) * w
+    return np.concatenate([real_rows, imag_rows], axis=0).astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def _inv_win_sum_np(cfg: StftConfig, n_frames: int, out_length: int | None) -> np.ndarray:
+    """Reciprocal COLA normaliser, pre-sliced to the output region.
+
+    The window² overlap sum is computed in float64 and stored as its
+    reciprocal; zeros map to 1 so silent COLA gaps pass zeros through
+    instead of inf.  ``out_length`` takes exactly that many samples from the
+    output start, reaching into the right centre-pad region where the COLA
+    sum decays.
+    """
+    w2 = _window_np(cfg) ** 2
+    raw = cfg.n_fft + cfg.hop * (n_frames - 1)
+    acc = np.zeros(raw)
+    for t in range(n_frames):
+        acc[t * cfg.hop : t * cfg.hop + cfg.n_fft] += w2
+    start = cfg.half if cfg.center else 0
+    end = start + out_length if out_length is not None else (raw - start)
+    acc = acc[start:end]
+    inv = np.where(acc == 0.0, 1.0, 1.0 / np.maximum(acc, 1e-300))
+    return (inv * cfg.output_scale).astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def _on_device(fn, device: torch.device, *args) -> torch.Tensor:
+    """Device copy of a cached numpy table (one host→device copy per table)."""
+    return torch.from_numpy(fn(*args)).to(device)
+
+
+def stft_basis(cfg: StftConfig, device) -> torch.Tensor:
+    return _on_device(_stft_basis_np, torch.device(device), cfg)
+
+
+def istft_basis(cfg: StftConfig, device) -> torch.Tensor:
+    return _on_device(_istft_basis_np, torch.device(device), cfg)
+
+
+def inv_win_sum(cfg: StftConfig, n_frames: int, out_length: int | None, device) -> torch.Tensor:
+    return _on_device(_inv_win_sum_np, torch.device(device), cfg, n_frames, out_length)
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# Framing / overlap-add
+# ─────────────────────────────────────────────────────────────────────────────
+
+
+def pad_center(x: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
+    """Centre-pad ``half`` samples each side, reflect or constant."""
+    if not cfg.center:
+        return x
+    h = cfg.half
+    if cfg.pad_mode == "reflect":
+        if x.shape[-1] < h + 1:
+            # a short reflect pad would desynchronise the frame count from
+            # num_frames()
+            raise ValueError(
+                f"reflect center-pad of {h} needs at least {h + 1} samples, "
+                f"got {x.shape[-1]}")
+        left = torch.flip(x[..., 1 : h + 1], dims=(-1,))
+        right = torch.flip(x[..., -(h + 1) : -1], dims=(-1,))
+        return torch.cat([left, x, right], dim=-1)
+    return F.pad(x, (h, h))
+
+
+def frame_signal(x: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
+    """Slice ``(..., L)`` into ``(..., T, n_fft)`` frames with stride ``hop``
+    (a strided view of the centre-padded signal)."""
+    x = pad_center(x, cfg)
+    padded = x.shape[-1]
+    if padded < cfg.n_fft:
+        raise ValueError(f"input too short for STFT: {padded} < n_fft={cfg.n_fft}")
+    return x.unfold(-1, cfg.n_fft, cfg.hop)
+
+
+def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
+    """Overlap-add ``(..., T, N)`` frames at stride ``hop`` → ``(..., N + hop*(T-1))``.
+
+    K = ceil(N/hop) shifted adds on a ``(T+K-1, hop)`` grid.
+    """
+    *lead, n_t, n = frames.shape
+    k_seg = -(-n // hop)
+    pad = k_seg * hop - n
+    if pad:
+        frames = F.pad(frames, (0, pad))
+    fr = frames.reshape(*lead, n_t, k_seg, hop)
+    out = frames.new_zeros((*lead, n_t + k_seg - 1, hop))
+    for k in range(k_seg):
+        out[..., k : k + n_t, :] += fr[..., :, k, :]
+    raw = out.reshape(*lead, (n_t + k_seg - 1) * hop)
+    return raw[..., : n + hop * (n_t - 1)]
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# Public STFT / ISTFT
+# ─────────────────────────────────────────────────────────────────────────────
+
+
+def stft_packed(x: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
+    """STFT of ``(..., L)`` → packed ``(..., T, 2F)`` with [real | imag] lanes."""
+    frames = frame_signal(x, cfg)
+    return torch.matmul(frames, stft_basis(cfg, x.device))
+
+
+def _out_end(cfg: StftConfig, n_t: int, raw_len: int, out_length: int | None) -> int:
+    start = cfg.half if cfg.center else 0
+    if out_length is None:
+        return raw_len - start
+    end = start + out_length
+    if end > raw_len:
+        # a silent short return would break static-shape consumers
+        raise ValueError(
+            f"out_length={out_length} exceeds the overlap-added signal: "
+            f"{n_t} frames cover only {raw_len - start} output samples")
+    return end
+
+
+def istft_packed(spec: torch.Tensor, cfg: StftConfig, out_length: int | None = None) -> torch.Tensor:
+    """ISTFT of packed ``(..., T, 2F)`` → ``(..., L_out)``.
+
+    iDFT matmul → overlap-add → COLA reciprocal → centre trim; ``out_length``
+    takes exactly that many samples from the output start.
+    """
+    n_t = spec.shape[-2]
+    frames = torch.matmul(spec, istft_basis(cfg, spec.device))
+    raw = overlap_add(frames, cfg.hop)
+    start = cfg.half if cfg.center else 0
+    end = _out_end(cfg, n_t, raw.shape[-1], out_length)
+    return raw[..., start:end] * inv_win_sum(cfg, n_t, out_length, spec.device)

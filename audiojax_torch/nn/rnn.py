@@ -1,0 +1,94 @@
+"""GRU layers in PyTorch (torch cell semantics, gate order r|z|n).
+
+Counterpart of ``audiojax.nn.rnn``.  The input projection for all time steps
+is hoisted into one matmul before the loop; the loop carries only
+``h @ w_h``.  Grouped GRUs run every group in one batched matmul over
+stacked ``(G, in, 3H)`` weights.
+
+Weight layout (right-multiplication, as in the JAX package):
+  w_i: (in, 3H), w_h: (H, 3H), b_i / b_h: (3H,); stacked groups add a
+  leading G axis.
+
+On the card the time loop is a Python loop of small launches; that cost is
+recorded in PERF.md and is left to a later CUDA graph or fused recurrence.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["gru", "grouped_gru", "grouped_gru_bidir"]
+
+
+def _scan(xp: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor, h: torch.Tensor,
+          reverse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Recurrence over axis -2 of ``xp (..., T, 3H)``; ``h (..., H)``."""
+    hidden = w_h.shape[-2]
+    n_t = xp.shape[-2]
+    ys = []
+    for t in (range(n_t - 1, -1, -1) if reverse else range(n_t)):
+        xt = xp[..., t, :]
+        gh = torch.matmul(h, w_h) + b_h
+        rz = torch.sigmoid(xt[..., : 2 * hidden] + gh[..., : 2 * hidden])
+        r, z = rz[..., :hidden], rz[..., hidden:]
+        n = torch.tanh(xt[..., 2 * hidden :] + r * gh[..., 2 * hidden :])
+        h = (1.0 - z) * n + z * h
+        ys.append(h)
+    if reverse:
+        ys.reverse()
+    return torch.stack(ys, dim=-2), h
+
+
+def gru(p, x: torch.Tensor, h0: torch.Tensor | None = None, *, reverse: bool = False,
+        return_state: bool = False):
+    """GRU over ``x (B, T, in)`` → ``(B, T, H)``."""
+    hidden = p["w_h"].shape[0]
+    xp = torch.matmul(x, p["w_i"]) + p["b_i"]
+    if h0 is None:
+        h0 = x.new_zeros(x.shape[:-2] + (hidden,))
+    ys, h_last = _scan(xp, p["w_h"], p["b_h"], h0, reverse)
+    return (ys, h_last) if return_state else ys
+
+
+def _group_split(x: torch.Tensor, groups: int) -> torch.Tensor:
+    b, t, c = x.shape
+    return x.reshape(b, t, groups, c // groups).permute(2, 0, 1, 3)  # (G, B, T, C/G)
+
+
+def _group_merge(y: torch.Tensor) -> torch.Tensor:
+    g, b, t, h = y.shape
+    return y.permute(1, 2, 0, 3).reshape(b, t, g * h)
+
+
+def _stacked_scan(p, xs: torch.Tensor, h0: torch.Tensor | None, reverse=False):
+    """One batched recurrence for stacked params over ``xs (G, B, T, in)``."""
+    g, b = xs.shape[:2]
+    hidden = p["w_h"].shape[-2]
+    xp = torch.matmul(xs, p["w_i"][:, None]) + p["b_i"][:, None, None]
+    if h0 is None:
+        h0 = xs.new_zeros((g, b, hidden))
+    return _scan(xp, p["w_h"], p["b_h"][:, None], h0, reverse)
+
+
+def grouped_gru(p, x: torch.Tensor, *, groups: int, h0: torch.Tensor | None = None,
+                return_state: bool = False):
+    """Independent per-group GRUs over ``x (B, T, C)``; params stacked on G.
+
+    ``h0`` (G, B, H) threads state through the groups.
+    """
+    y, h_last = _stacked_scan(p, _group_split(x, groups), h0)
+    out = _group_merge(y)
+    return (out, h_last) if return_state else out
+
+
+def grouped_gru_bidir(p_fwd, p_bwd, x: torch.Tensor, *, groups: int) -> torch.Tensor:
+    """Grouped bidirectional GRU.
+
+    Per-group output is [fwd_g ‖ bwd_g]; groups concatenate after.  The
+    backward direction runs on the time-reversed input, so both directions
+    of every group share one loop of 2G stacked recurrences.
+    """
+    xs = _group_split(x, groups)
+    both = {k: torch.cat([p_fwd[k], p_bwd[k]]) for k in ("w_i", "w_h", "b_i", "b_h")}
+    y, _ = _stacked_scan(both, torch.cat([xs, torch.flip(xs, dims=(2,))]), None)
+    yf, yb = y[:groups], torch.flip(y[groups:], dims=(2,))
+    return _group_merge(torch.cat([yf, yb], dim=-1))

@@ -1,0 +1,46 @@
+"""Parameter conversion: the JAX package's parameter tree → the port's tensors.
+
+The input is a nested dict of numpy arrays, as ``jax.tree.map(np.asarray,
+params)`` gives it; the output has the same keys.  Every layout change
+happens here, once:
+
+  * a 4-D ``w`` is a conv2d kernel stored HWIO ``(kh, kw, in/groups, out)``
+    and becomes torch's ``(out, in/groups, kh, kw)``.  Transposed convs are
+    stored by the JAX package as their equivalent forward kernel, and the
+    port runs them as forward convs on the stride-dilated input, so they
+    convert the same way.
+  * every other leaf (dense ``(in, out)``, GRU ``(…, in, 3H)``, biases,
+    PReLU slopes, LayerNorm gains) keeps its layout.
+
+A 3-D ``w`` (a conv1d kernel) has no port yet and is refused.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+
+__all__ = ["params_from_numpy"]
+
+
+def _leaf(key: str, a, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype != np.float32:
+        raise TypeError(f"parameter {key!r} is {a.dtype}; the port takes float32 trees")
+    if key == "w" and a.ndim == 4:
+        a = np.transpose(a, (3, 2, 0, 1))
+    elif key == "w" and a.ndim not in (2, 4):
+        raise ValueError(f"no port layout for a {a.ndim}-D weight {a.shape}")
+    return torch.from_numpy(np.array(a, order="C")).to(device)  # a writable copy
+
+
+def params_from_numpy(tree: dict, device=None) -> dict:
+    """Convert a nested dict of numpy arrays to the port's tensors on ``device``
+    (default: the card)."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        return {k: conv(v) if isinstance(v, dict) else _leaf(k, v, dev) for k, v in node.items()}
+
+    return conv(tree)

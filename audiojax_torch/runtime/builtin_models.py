@@ -1,0 +1,44 @@
+"""Built-in model registrations (grows as model families are ported)."""
+from __future__ import annotations
+
+from .manifest import Manifest
+from .registry import ModelSpec, register
+
+
+def _gtcrn_manifest(cfg):
+    return Manifest(
+        model_name="gtcrn",
+        task="denoise",
+        model_family="GTCRN",
+        in_sample_rate=cfg.in_sample_rate,
+        out_sample_rate=cfg.out_sample_rate,
+        model_sample_rate=cfg.sample_rate,
+        input_audio_length=32000 * cfg.in_sample_rate // 16000,
+        window_type=cfg.window,
+        nfft=cfg.n_fft,
+        window_length=cfg.n_fft,
+        hop_length=cfg.hop,
+        pad_mode=cfg.pad_mode,
+        center_pad=True,
+        fold_window_length=cfg.fold_window,
+        batch_fold_inference_default=bool(cfg.fold_window),
+        batch_window_seconds=1.5 if cfg.fold_window else 0.0,
+    )
+
+
+def _register_gtcrn():
+    from ..models.gtcrn import GTCRN, GtcrnConfig, init_gtcrn
+
+    register(
+        ModelSpec(
+            name="gtcrn",
+            task="denoise",
+            make_config=GtcrnConfig,
+            init_params=init_gtcrn,
+            make_module=GTCRN,
+            make_manifest=_gtcrn_manifest,
+        )
+    )
+
+
+_register_gtcrn()

@@ -1,0 +1,403 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``audiojax_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises (non-zero exit) on failure:
+
+1. Card: name and power limit from nvidia-smi.
+2. Build: ``audiojax_torch/csrc/stft.cu`` with nvcc (sm_90a).
+3. Kernels: the STFT (B1) and ISTFT (B2) kernels against their plain PyTorch
+   versions and against a float64 numpy DFT, at four geometries and at the
+   GTCRN serving shapes, with kernel / plain / torch.stft-istft timings and
+   the card's bound for the same function (an FFT's operations, or the bytes
+   read and written, whichever takes longer).
+4. Serving: ``Session`` for ``gtcrn`` at full width (random parameters from
+   seed 0) answers three requests of about 1.3 s, 7 s and 30 s; the launch
+   counters must show both kernels on that path, and the 7 s answer must be
+   within 40 dB SNR of the same port on the CPU.
+
+The last line is ``{"ok": true, "device": {...}}``; the line before it lists
+every kernel as JSON.  Without CUDA the script exits non-zero and prints no
+result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+# H100 SXM published peaks (NVIDIA data sheet): float32 outside the tensor
+# cores, and HBM3 bandwidth.
+PEAK_F32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+TOL_VS_PLAIN = 3e-4  # × max|ref|: the tolerance of the JAX package's Pallas tests
+MIN_SNR_DB = 40.0
+SR = 16000
+SERVE_REPEATS = 5
+# ~1 ms at the H100's clock: longer than the host takes to issue any timed call
+SPIN_CYCLES = 2_000_000
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_rows(fn, expect: dict[str, int], calls: int = 1) -> list:
+    """torch.profiler's per-kernel rows (device side) for one call of ``fn``,
+    which makes ``calls`` identical calls of the function measured.
+
+    The profiler has been seen to drop device records on the H100 (a whole
+    trace, or most of one), so a trace counts only when it holds a multiple of
+    ``calls`` launches, every kernel named in ``expect`` appears exactly that
+    many times and the total launch count agrees with the previous attempt's;
+    otherwise it is taken again."""
+    previous = None
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        launches = sum(e.count for e in rows)
+        named = {k: sum(e.count for e in rows if k in e.key) for k in expect}
+        if launches and launches % calls == 0 and named == expect and launches == previous:
+            return rows
+        previous = launches
+    fail(f"torch.profiler gave no two consistent traces ({named}, {launches} launches)")
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call: CUDA events around it, queued behind a spin
+    kernel long enough for the host to issue the whole call before the card
+    reaches it, so host gaps do not count.  Median over ``iters``.  Not for a
+    call that waits on the host inside: the events would count the wait."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(iters):
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def kernel_sum_ms(fn, iters: int = 20) -> float:
+    """Device time of one call as the sum of its kernels' device times in a
+    torch.profiler trace of ``iters`` calls, for a call that waits on the host
+    inside (torch.istft reads its window envelope's minimum back to check it),
+    where CUDA events would count the wait.  Gaps between kernels do not count."""
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(iters):
+            fn()
+
+    rows = cuda_rows(run, {}, calls=iters)
+    return sum(e.self_device_time_total for e in rows) / 1e3 / iters
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def fft_flops(n: int) -> float:
+    """Operations of one length-``n`` FFT, the classic 5/2·n·log2(n) count (an
+    over-count for real input, which needs about half)."""
+    return 2.5 * n * np.log2(n)
+
+
+# ── float64 references, independent of the port's code ─────────────────────
+
+
+def ref_stft64(x: np.ndarray, cfg, win: np.ndarray) -> np.ndarray:
+    h = cfg.half
+    mode = "reflect" if cfg.pad_mode == "reflect" else "constant"
+    xp = np.pad(x, [(0, 0), (h, h)], mode=mode) if cfg.center else x
+    frames = np.lib.stride_tricks.sliding_window_view(xp, cfg.n_fft, axis=-1)[:, :: cfg.hop]
+    spec = np.fft.rfft(frames * win, axis=-1)
+    return np.concatenate([spec.real, spec.imag], axis=-1)
+
+
+def ref_istft64(packed: np.ndarray, cfg, win: np.ndarray) -> np.ndarray:
+    fb = cfg.f_bins
+    frames = np.fft.irfft(packed[..., :fb] + 1j * packed[..., fb:], n=cfg.n_fft, axis=-1) * win
+    b, n_t, _ = frames.shape
+    raw_len = cfg.n_fft + cfg.hop * (n_t - 1)
+    raw = np.zeros((b, raw_len))
+    env = np.zeros(raw_len)
+    for t in range(n_t):
+        raw[:, t * cfg.hop : t * cfg.hop + cfg.n_fft] += frames[:, t]
+        env[t * cfg.hop : t * cfg.hop + cfg.n_fft] += win ** 2
+    start = cfg.half if cfg.center else 0
+    sl = slice(start, raw_len - start)
+    env = env[sl]
+    return raw[:, sl] * np.where(env == 0.0, 1.0, 1.0 / np.maximum(env, 1e-300))
+
+
+def rel_err(a: np.ndarray, ref: np.ndarray) -> float:
+    return float(np.abs(a.astype(np.float64) - ref).max() / np.abs(ref).max())
+
+
+# ── phase 3 ────────────────────────────────────────────────────────────────
+
+
+def check_kernels(dev) -> dict:
+    from audiojax_torch.dsp.stft import StftConfig, _window_np
+    from audiojax_torch.ops import stft_cuda as K
+
+    gtcrn = StftConfig(512, 256, window="hann_sqrt", pad_mode="reflect")
+    cases = [  # (label, config, batch, length)
+        ("gtcrn 512/256 hann_sqrt reflect", gtcrn, 16, 32000),  # serving shape, 30 s request
+        ("gtcrn 512/256 hann_sqrt reflect", gtcrn, 4, 32000),   # 7 s request
+        ("gtcrn 512/256 hann_sqrt reflect", gtcrn, 1, 32000),   # 1.3 s request
+        ("zipenhancer 400/100 hann reflect", StftConfig(400, 100, window="hann",
+                                                        pad_mode="reflect"), 4, 32000),
+        ("odd 319/160 hamming constant", StftConfig(319, 160, window="hamming",
+                                                    pad_mode="constant"), 4, 16000),
+        ("melband 2048/441 hann reflect", StftConfig(2048, 441, window="hann",
+                                                     pad_mode="reflect"), 2, 88200),
+    ]
+    rng = np.random.default_rng(0)
+    serving = {}
+    for label, cfg, b, length in cases:
+        x64 = rng.standard_normal((b, length))
+        x = torch.from_numpy(x64.astype(np.float32)).to(dev)
+        win = _window_np(cfg)
+        win_t = torch.from_numpy(win.astype(np.float32)).to(dev)
+        n_t = (length + 2 * cfg.half - cfg.n_fft) // cfg.hop + 1
+        f2 = 2 * cfg.f_bins
+
+        # B1: STFT
+        ref = ref_stft64(x64.astype(np.float32).astype(np.float64), cfg, win)
+        ker = K.stft_packed_cuda(x, cfg)
+        plain = K.plain_stft_packed(x, cfg)
+        torch.cuda.synchronize()
+        k_np, p_np = ker.cpu().numpy(), plain.cpu().numpy()
+        if k_np.shape != p_np.shape or not np.isfinite(k_np).all():
+            fail(f"stft {label}: shape {k_np.shape} vs {p_np.shape} or non-finite")
+        e_plain = float(np.abs(k_np - p_np).max() / np.abs(p_np).max())
+        e64_k, e64_p = rel_err(k_np, ref), rel_err(p_np, ref)
+        stft_row = {"err_vs_plain": e_plain, "max_abs_err": float(np.abs(k_np - p_np).max()),
+                    "err64_kernel": e64_k, "err64_plain": e64_p}
+
+        # B2: ISTFT of the kernel's spectrum
+        spec = ker
+        ref_i = ref_istft64(k_np.astype(np.float64), cfg, win)
+        iker = K.istft_packed_cuda(spec, cfg)
+        iplain = K.plain_istft_packed(spec, cfg)
+        torch.cuda.synchronize()
+        ik_np, ip_np = iker.cpu().numpy(), iplain.cpu().numpy()
+        if ik_np.shape != ip_np.shape or not np.isfinite(ik_np).all():
+            fail(f"istft {label}: shape {ik_np.shape} vs {ip_np.shape} or non-finite")
+        ie_plain = float(np.abs(ik_np - ip_np).max() / np.abs(ip_np).max())
+        ie64_k, ie64_p = rel_err(ik_np, ref_i), rel_err(ip_np, ref_i)
+        istft_row = {"err_vs_plain": ie_plain, "max_abs_err": float(np.abs(ik_np - ip_np).max()),
+                     "err64_kernel": ie64_k, "err64_plain": ie64_p}
+
+        # out_length: the exact-length contract
+        out_len = length - cfg.hop // 2
+        ol_k = K.istft_packed_cuda(spec, cfg, out_length=out_len).cpu().numpy()
+        ol_p = K.plain_istft_packed(spec, cfg, out_length=out_len).cpu().numpy()
+        if ol_k.shape != (b, out_len) or np.abs(ol_k - ol_p).max() > TOL_VS_PLAIN * np.abs(ol_p).max():
+            fail(f"istft out_length {label}: {ol_k.shape}, err {np.abs(ol_k - ol_p).max()}")
+
+        for name, row in (("stft_packed", stft_row), ("istft_packed", istft_row)):
+            if not row["err_vs_plain"] <= TOL_VS_PLAIN:
+                fail(f"{name} {label} ({b}, {length}): kernel vs plain {row['err_vs_plain']:.3e}")
+            if not row["err64_kernel"] <= 2.0 * row["err64_plain"]:
+                fail(f"{name} {label}: f64 error {row['err64_kernel']:.3e} > 2 × plain "
+                     f"{row['err64_plain']:.3e}")
+
+        # device time per call at this shape (kernel: the wrapper's whole call,
+        # centre pad or COLA trim included)
+        spec_c = torch.view_as_complex(
+            torch.stack([spec[..., : cfg.f_bins], spec[..., cfg.f_bins:]], dim=-1)
+        ).transpose(1, 2).contiguous()
+        stft_row["ms"] = device_ms(lambda: K.stft_packed_cuda(x, cfg))
+        stft_row["plain_ms"] = device_ms(lambda: K.plain_stft_packed(x, cfg))
+        stft_row["library_ms"] = device_ms(lambda: torch.stft(
+            x, cfg.n_fft, cfg.hop, window=win_t, center=cfg.center, pad_mode=cfg.pad_mode,
+            return_complex=True))
+        istft_row["ms"] = device_ms(lambda: K.istft_packed_cuda(spec, cfg))
+        istft_row["plain_ms"] = device_ms(lambda: K.plain_istft_packed(spec, cfg))
+        istft_row["library_ms"] = kernel_sum_ms(lambda: torch.istft(
+            spec_c, cfg.n_fft, cfg.hop, window=win_t, center=cfg.center))
+        # the wrapper by the same method as the library, for a like-for-like comparison
+        wrapper_sum_ms = kernel_sum_ms(lambda: K.istft_packed_cuda(spec, cfg))
+
+        # The least work of each function: per frame one FFT plus the window
+        # product (and, for the ISTFT, the overlap-add sum and the COLA
+        # scaling), against its input read once and its output written once.
+        # The kernels compute the DFT as a dense product, 2·n_fft·2F
+        # operations per frame; that design's own f32 floor is printed apart.
+        out_len_full = ik_np.shape[-1]
+        spec_bytes, win_bytes = 4.0 * b * n_t * f2, 4.0 * cfg.n_fft
+        stft_row["bound_ms"], stft_row["bound_by"] = bound(
+            b * n_t * (fft_flops(cfg.n_fft) + cfg.n_fft),
+            4.0 * b * length + win_bytes + spec_bytes)
+        istft_row["bound_ms"], istft_row["bound_by"] = bound(
+            b * n_t * (fft_flops(cfg.n_fft) + 2 * cfg.n_fft) + b * out_len_full,
+            spec_bytes + win_bytes + 4.0 * b * out_len_full)
+        dft_floor_ms = 2.0 * b * n_t * cfg.n_fft * f2 / PEAK_F32_FLOPS * 1e3
+
+        for name, row in (("stft_packed", stft_row), ("istft_packed", istft_row)):
+            if row["ms"] < row["bound_ms"]:  # faster than the card can be: a timing fault
+                fail(f"{name} {label}: {row['ms']:.4f} ms is below its bound "
+                     f"{row['bound_ms']:.4f} ms")
+            print(f"kernel {name:12s} {label:34s} ({b:2d}, {length}): "
+                  f"err/max|ref| vs plain {row['err_vs_plain']:.2e}, "
+                  f"vs f64 kernel {row['err64_kernel']:.2e} plain {row['err64_plain']:.2e}; "
+                  f"device ms: kernel (wrapper) {row['ms']:.4f}, "
+                  f"plain {row['plain_ms']:.4f}, torch.{name.split('_')[0]} "
+                  f"{row['library_ms']:.4f}; bound {row['bound_ms'] * 1e3:.3f} us "
+                  f"({row['bound_by']}); dense-DFT f32 floor {dft_floor_ms * 1e3:.3f} us",
+                  flush=True)
+        print(f"kernel istft_packed {label:34s} ({b:2d}, {length}): sum of kernel device "
+              f"times per call: wrapper {wrapper_sum_ms:.4f} ms, torch.istft "
+              f"{istft_row['library_ms']:.4f} ms", flush=True)
+        if cfg == gtcrn and b == 16:
+            serving = {"stft_packed": stft_row, "istft_packed": istft_row}
+    return serving
+
+
+# ── phase 4 ────────────────────────────────────────────────────────────────
+
+
+def noisy_speech(n: int, seed: int) -> np.ndarray:
+    """Synthetic speech-band int16 audio: a gliding harmonic voice under a
+    syllable-rate envelope, plus white noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / SR
+    f0 = 140.0 + 30.0 * np.sin(2 * np.pi * 0.5 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / SR
+    voiced = sum(np.sin(k * phase) / k for k in range(1, 11))
+    voiced *= (0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t)) ** 2
+    x = 0.3 * voiced / np.abs(voiced).max() + 0.05 * rng.standard_normal(n)
+    return np.clip(np.round(x * 32767), -32768, 32767).astype(np.int16)
+
+
+def snr_db(ref: np.ndarray, out: np.ndarray) -> float:
+    ref, out = ref.astype(np.float64), out.astype(np.float64)
+    err = float(np.sum((ref - out) ** 2))
+    return float("inf") if err == 0.0 else 10.0 * np.log10(float(np.sum(ref * ref)) / err)
+
+
+def serve(card: str) -> dict:
+    """Phase 4; returns the kernels' launch counts over the measured requests."""
+    from audiojax_torch.ops import stft_cuda as K
+    from audiojax_torch.runtime import registry
+    from audiojax_torch.runtime.session import Session
+
+    spec = registry.get("gtcrn")
+    cfg = spec.make_config()
+    manifest = spec.make_manifest(cfg)
+    session = Session(spec.make_module(spec.init_params(0, cfg, "cuda"), cfg), manifest,
+                      device="cuda")
+    requests = [("1.3 s", noisy_speech(20800, 1)), ("7 s", noisy_speech(7 * SR, 2)),
+                ("30 s", noisy_speech(30 * SR, 3))]
+    session.process(requests[0][1])  # warm-up: cuDNN and allocator set-up
+
+    K.reset_launches()
+    runs = {label: [] for label, _ in requests}
+    for _ in range(SERVE_REPEATS):  # the three requests in turn, SERVE_REPEATS times
+        for label, audio in requests:
+            runs[label].append(session.process(audio))
+    counts = dict(K.launches)
+    for name, n in counts.items():
+        if n <= 0:
+            fail(f"serving did not launch {name}")
+
+    for label, audio in requests:
+        for r in runs[label]:
+            if r.audio.dtype != np.int16 or r.audio.shape != audio.shape:
+                fail(f"request {label}: {r.audio.dtype} {r.audio.shape}, expected int16 "
+                     f"{audio.shape}")
+            if not np.any(r.audio):
+                fail(f"request {label}: all-zero output")
+        ms = sorted(r.elapsed_s * 1e3 for r in runs[label])
+        med = float(np.median(ms))
+        dur = runs[label][0].audio_duration_s
+        print(f"serve gtcrn {label:6s} ({audio.size} samples, {-(-audio.size // 32000)} windows): "
+              f"elapsed ms median {med:.3f} (min {ms[0]:.3f}, max {ms[-1]:.3f}, "
+              f"n={len(ms)}), RTF median {med / 1e3 / dur:.6f}  [{card}]", flush=True)
+    print(f"serve launches over {SERVE_REPEATS} x 3 requests: {counts}", flush=True)
+
+    label, audio = requests[1]
+    elapsed_ms = float(np.median([r.elapsed_s * 1e3 for r in runs[label]]))
+    rows = cuda_rows(lambda: session.process(audio),
+                     {"::stft_kernel": 1, "::istft_kernel": 1})
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"profile gtcrn {label}: {sum(e.count for e in rows)} device launches, device busy "
+          f"{busy_ms:.3f} ms of {elapsed_ms:.3f} ms median elapsed unprofiled (idle share "
+          f"{1.0 - busy_ms / elapsed_ms:.4f})  [{card}]", flush=True)
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}", flush=True)
+
+    cpu_model = spec.make_module(spec.init_params(0, cfg, "cpu"), cfg)
+    cpu = Session(cpu_model, manifest, device="cpu").process(audio)
+    snr = snr_db(cpu.audio, runs[label][0].audio)
+    print(f"serve gtcrn {label} card vs CPU: SNR {snr:.2f} dB", flush=True)
+    if not snr >= MIN_SNR_DB:
+        fail(f"card vs CPU SNR {snr:.2f} dB < {MIN_SNR_DB}")
+    return counts
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    from audiojax_torch.device import resolve_device
+    from audiojax_torch.ops import _build
+
+    dev = resolve_device("cuda")
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}",
+          flush=True)
+
+    t0 = time.perf_counter()
+    _build.load("stft")
+    print(f"build: csrc/stft.cu in {time.perf_counter() - t0:.2f} s into {_build.BUILD_DIR}",
+          flush=True)
+
+    serving_rows = check_kernels(dev)
+    counts = serve(card)
+
+    sources = {"stft_packed": ("audiojax/ops/stft_pallas.py:207"),
+               "istft_packed": ("audiojax/ops/stft_pallas.py:361")}
+    kernels = []
+    for name, replaces in sources.items():
+        row = serving_rows[name]
+        kernels.append({"name": name, "route": "cuda", "source": "audiojax_torch/csrc/stft.cu",
+                        "replaces": replaces, "launches": counts[name],
+                        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,187 @@
+"""The port's package boundary and serving runtime on the CPU.
+
+Isolation (the port never imports JAX or the JAX package), entry points that
+default to the card and refuse to fall back, the kernel build's failure path,
+the CLI, the manifest and the stitch.
+"""
+import ast
+import os
+import subprocess
+import sys
+import wave
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from audiojax.runtime.manifest import Manifest as JManifest
+from audiojax.runtime.session import Session as JSession
+
+from audiojax_torch.models.gtcrn import GTCRN, GtcrnConfig, init_gtcrn, init_gtcrn_numpy
+from audiojax_torch.ops import _build
+from audiojax_torch.params import params_from_numpy
+from audiojax_torch.runtime import cli, registry
+from audiojax_torch.runtime.manifest import Manifest
+from audiojax_torch.runtime.session import Session
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "audiojax_torch"
+
+
+def test_import_pulls_in_no_jax():
+    """Every module of the port imports in a fresh interpreter without putting
+    jax or audiojax (or any of their submodules) into sys.modules."""
+    code = (
+        "import importlib, pkgutil, sys, audiojax_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(audiojax_torch.__path__, 'audiojax_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "assert len(mods) > 15, mods\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'audiojax'))\n"
+        "assert not bad, bad\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_sources_import_no_jax():
+    """A scan of every import statement in the port and in chip_smoke.py."""
+    files = [p for p in PORT.rglob("*.py") if "_build" not in p.parts] + [REPO / "chip_smoke.py"]
+    assert len(files) > 15
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                roots = [node.module.split(".")[0]]
+            else:
+                continue
+            assert not set(roots) & {"jax", "jaxlib", "audiojax"}, (path, roots)
+
+
+# ── the card by default, no quiet fallback ─────────────────────────────────
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _gtcrn_module():
+    return GTCRN(init_gtcrn(0, device="cpu"))
+
+
+def test_entry_points_default_to_the_card(no_cuda):
+    cfg = GtcrnConfig()
+    manifest = registry.get("gtcrn").make_manifest(cfg)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Session(_gtcrn_module(), manifest)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        init_gtcrn(0, cfg)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        params_from_numpy(init_gtcrn_numpy(0, cfg))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Session(_gtcrn_module(), manifest, device="cuda")
+    Session(_gtcrn_module(), manifest, device="cpu")  # asked for: fine
+
+
+def test_kernel_build_failure_raises(monkeypatch, tmp_path):
+    """A failed nvcc raises; nothing falls back to the plain versions."""
+    monkeypatch.setattr(_build, "_nvcc", lambda: "false")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    _build.load.cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _build.load("stft")
+    with pytest.raises(RuntimeError, match="nvcc failed"):  # a failure is not cached
+        _build.load("stft")
+    assert not list(tmp_path.iterdir())  # no half-written library left behind
+
+
+def test_params_refuse_unknown_layouts():
+    with pytest.raises(ValueError, match="3-D weight"):
+        params_from_numpy({"conv1d": {"w": np.zeros((3, 4, 5), np.float32)}}, device="cpu")
+    with pytest.raises(TypeError, match="float32"):
+        params_from_numpy({"w": np.zeros((3, 4), np.float64)}, device="cpu")
+
+
+# ── CLI ────────────────────────────────────────────────────────────────────
+
+
+def _write_wav(path, audio, rate=16000):
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(audio.astype("<i2").tobytes())
+
+
+def test_cli_denoises_on_cpu(tmp_path, capsys):
+    rng = np.random.default_rng(0)
+    audio = np.round(rng.standard_normal(24000) * 2000).astype(np.int16)
+    src, dst = tmp_path / "noisy.wav", tmp_path / "clean.wav"
+    _write_wav(src, audio)
+    rc = cli.main(["--model", "gtcrn", "--input", str(src), "--output", str(dst),
+                   "--device", "cpu", "--seed", "3"])
+    assert rc == 0
+    with wave.open(str(dst), "rb") as w:
+        assert (w.getnchannels(), w.getsampwidth(), w.getframerate()) == (1, 2, 16000)
+        out = np.frombuffer(w.readframes(w.getnframes()), "<i2")
+    assert out.shape == audio.shape and np.any(out)
+    assert "RTF" in capsys.readouterr().out
+
+
+def test_cli_list_and_default_device(no_cuda, tmp_path, capsys):
+    assert cli.main(["--list"]) == 0
+    assert capsys.readouterr().out.split() == ["gtcrn"]
+    src = tmp_path / "in.wav"
+    _write_wav(src, np.zeros(16000, np.int16))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        cli.main(["--model", "gtcrn", "--input", str(src)])
+
+
+# ── manifest and stitch against the JAX package ────────────────────────────
+
+
+def test_manifest_contract():
+    data = {k: v for k, v in vars(JManifest("m", "denoise", "f", 16000, 16000, 16000, 32000)).items()}
+    assert Manifest.from_dict(dict(data)).runtime_config() == JManifest.from_dict(dict(data)).runtime_config()
+    del data["model_family"]
+    with pytest.raises(KeyError, match="model_family"):
+        Manifest.from_dict(data)
+    with pytest.raises(ValueError, match="unknown task"):
+        Manifest("m", "karaoke", "f", 16000, 16000, 16000, 32000)
+
+
+@pytest.mark.parametrize("overlap", [0, 4000])
+def test_stitch_matches_jax(overlap):
+    """Butt-join, and the Hann-taper overlap-add used by overlapped manifests."""
+    kw = dict(model_name="m", task="denoise", model_family="f", in_sample_rate=16000,
+              out_sample_rate=16000, model_sample_rate=16000, input_audio_length=16000,
+              overlap_length=overlap)
+    windows = np.random.default_rng(1).standard_normal((5, 16000)).astype(np.float32)
+    stride = 16000 - overlap
+    ref = JSession(lambda p, a: a, None, JManifest(**kw), jit=False)._stitch(windows, stride, 1.0)
+    port = Session(torch.nn.Identity(), Manifest(**kw), device="cpu")
+    out = port._stitch(windows, stride, 1.0)
+    assert out.dtype == ref.dtype
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
+
+
+def test_session_window_geometry_and_pad_head():
+    """Power-of-two bucketing, PAD_HEAD prefix and trim, through an identity model."""
+    kw = dict(model_name="m", task="denoise", model_family="f", in_sample_rate=16000,
+              out_sample_rate=16000, model_sample_rate=16000, input_audio_length=1000)
+    seen = []
+
+    class Echo(torch.nn.Module):
+        def forward(self, a):
+            seen.append(tuple(a.shape))
+            return a
+
+    audio = np.arange(4500, dtype=np.int16)
+    for pad_head in (0, 300):
+        r = Session(Echo(), Manifest(**kw, pad_head=pad_head), device="cpu").process(audio)
+        np.testing.assert_array_equal(r.audio, audio)
+    assert seen == [(8, 1000), (8, 1000)]  # 5 windows → 8
