@@ -6,6 +6,7 @@ port module has exactly one counterpart in the JAX package.  It imports
 torch and numpy only: never ``jax`` and nothing of ``audiojax``.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
-``device="cpu"``; see :mod:`audiojax_torch.device`.  The STFT/ISTFT kernels
-are hand-written CUDA C++ under ``csrc/``, built with ``nvcc`` at first use.
+``device="cpu"``; see :mod:`audiojax_torch.device`.  The kernels (STFT,
+ISTFT, depthwise conv1d, relu² attention) are hand-written CUDA C++ under
+``csrc/``, built with ``nvcc`` at first use.
 """

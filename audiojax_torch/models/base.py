@@ -1,0 +1,67 @@
+"""What the port's model modules share: parameters held as buffers, and the
+numpy draws of random parameters in the JAX package's layouts."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+__all__ = ["ParamModule", "glorot_np", "dense_np", "conv_np"]
+
+
+class ParamModule(nn.Module):
+    """A model whose converted parameter tree is held as buffers.
+
+    ``params`` is the nested dict view that the functional API takes; the
+    buffers move with ``.to(device)``.  A subclass defines ``forward``."""
+
+    _SEP = "__"
+
+    def __init__(self, params: dict, cfg):
+        super().__init__()
+        self.cfg = cfg
+        for path, leaf in _flatten(params):
+            self.register_buffer(self._SEP.join(path), leaf)
+
+    @property
+    def params(self) -> dict:
+        tree: dict = {}
+        for name, leaf in self.named_buffers():
+            *outer, last = name.split(self._SEP)
+            node = tree
+            for k in outer:
+                node = node.setdefault(k, {})
+            node[last] = leaf
+        return tree
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def glorot_np(rng: np.random.Generator, shape) -> np.ndarray:
+    """``audiojax.nn.core.glorot``'s distribution: fan-in is the product of
+    all but the last axis, fan-out the last."""
+    fan_in, fan_out = int(np.prod(shape[:-1])), shape[-1]
+    lim = np.sqrt(6.0 / (fan_in + fan_out))
+    return rng.uniform(-lim, lim, shape).astype(np.float32)
+
+
+def dense_np(rng: np.random.Generator, din: int, dout: int, bias: bool = True) -> dict:
+    p = {"w": glorot_np(rng, (din, dout))}
+    if bias:
+        p["b"] = np.zeros((dout,), np.float32)
+    return p
+
+
+def conv_np(rng: np.random.Generator, kernel: tuple, cin: int, cout: int, groups: int = 1,
+            bias: bool = True) -> dict:
+    """A conv1d (``kernel=(k,)``, WIO) or conv2d (``kernel=(kh, kw)``, HWIO) kernel."""
+    p = {"w": glorot_np(rng, (*kernel, cin // groups, cout))}
+    if bias:
+        p["b"] = np.zeros((cout,), np.float32)
+    return p

@@ -17,7 +17,6 @@ from functools import partial
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from ..dsp.pcm import fold_windows, pcm_in, pcm_out, remove_dc, resample_linear, unfold_windows
 from ..dsp.stft import StftConfig
@@ -25,6 +24,7 @@ from ..nn import core, rnn
 from ..nn.erb import erb_compress, erb_expand
 from ..ops.stft_cuda import fast_istft_packed, fast_stft_packed
 from ..params import params_from_numpy
+from .base import ParamModule, conv_np, dense_np
 
 __all__ = [
     "GtcrnConfig",
@@ -222,7 +222,7 @@ def make_gtcrn(cfg: GtcrnConfig = GtcrnConfig()):
     return partial(gtcrn_forward, cfg=cfg)
 
 
-class GTCRN(nn.Module):
+class GTCRN(ParamModule):
     """GTCRN with its converted parameters as buffers.
 
     ``forward(audio)`` takes int16 PCM ``(B, L)`` on the module's device and
@@ -230,54 +230,16 @@ class GTCRN(nn.Module):
     that the functional API takes.
     """
 
-    _SEP = "__"
-
     def __init__(self, params, cfg: GtcrnConfig = GtcrnConfig()):
-        super().__init__()
-        self.cfg = cfg
-        for path, leaf in _flatten(params):
-            self.register_buffer(self._SEP.join(path), leaf)
-
-    @property
-    def params(self) -> dict:
-        tree: dict = {}
-        for name, leaf in self.named_buffers():
-            *outer, last = name.split(self._SEP)
-            node = tree
-            for k in outer:
-                node = node.setdefault(k, {})
-            node[last] = leaf
-        return tree
+        super().__init__(params, cfg)
 
     def forward(self, audio: torch.Tensor) -> torch.Tensor:
         return gtcrn_forward(self.params, audio, self.cfg)
 
 
-def _flatten(tree, prefix=()):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _flatten(v, prefix + (k,))
-        else:
-            yield prefix + (k,), v
-
-
 # ─────────────────────────────────────────────────────────────────────────────
 # Random init (numpy draw in the JAX package's layout, then converted)
 # ─────────────────────────────────────────────────────────────────────────────
-
-
-def _glorot(rng, shape):
-    fan_in, fan_out = int(np.prod(shape[:-1])), shape[-1]
-    lim = np.sqrt(6.0 / (fan_in + fan_out))
-    return rng.uniform(-lim, lim, shape).astype(np.float32)
-
-
-def _dense_np(rng, din, dout):
-    return {"w": _glorot(rng, (din, dout)), "b": np.zeros((dout,), np.float32)}
-
-
-def _conv2d_np(rng, kh, kw, cin, cout, groups=1):
-    return {"w": _glorot(rng, (kh, kw, cin // groups, cout)), "b": np.zeros((cout,), np.float32)}
 
 
 def _gru_np(rng, din, hidden, stack=()):
@@ -292,7 +254,7 @@ def _alpha(c):
 
 
 def _conv_block_np(rng, cin, cout, groups=1, last=False):
-    p = {"conv": _conv2d_np(rng, 1, 5, cin, cout, groups=groups)}
+    p = {"conv": conv_np(rng, (1, 5), cin, cout, groups=groups)}
     if not last:
         p["alpha"] = _alpha(cout)
     return p
@@ -301,11 +263,11 @@ def _conv_block_np(rng, cin, cout, groups=1, last=False):
 def _gt_block_np(rng, c):
     half, hid = c // 2, c
     return {
-        "pc1": {**_conv2d_np(rng, 1, 1, half * 3, hid), "alpha": _alpha(hid)},
-        "depth": _conv2d_np(rng, 3, 3, hid, hid, groups=hid),
+        "pc1": {**conv_np(rng, (1, 1), half * 3, hid), "alpha": _alpha(hid)},
+        "depth": conv_np(rng, (3, 3), hid, hid, groups=hid),
         "depth_a": {"alpha": _alpha(hid)},
-        "pc2": _conv2d_np(rng, 1, 1, hid, half),
-        "tra": {"gru": _gru_np(rng, half, 2 * half), "fc": _dense_np(rng, 2 * half, half)},
+        "pc2": conv_np(rng, (1, 1), hid, half),
+        "tra": {"gru": _gru_np(rng, half, 2 * half), "fc": dense_np(rng, 2 * half, half)},
     }
 
 
@@ -314,10 +276,10 @@ def _dpgrnn_np(rng, c, width):
     return {
         "intra_fwd": _gru_np(rng, c // 2, c // 4, stack=(2,)),
         "intra_bwd": _gru_np(rng, c // 2, c // 4, stack=(2,)),
-        "intra_fc": _dense_np(rng, c, c),
+        "intra_fc": dense_np(rng, c, c),
         "intra_ln": ln(),
         "inter": _gru_np(rng, c // 2, c // 2, stack=(2,)),
-        "inter_fc": _dense_np(rng, c, c),
+        "inter_fc": dense_np(rng, c, c),
         "inter_ln": ln(),
     }
 

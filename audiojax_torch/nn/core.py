@@ -1,24 +1,33 @@
 """Core NN building blocks in PyTorch — functional, channel-last.
 
-Counterpart of ``audiojax.nn.core``, with only what GTCRN uses.  Functions
-take a parameter dict and tensors; feature maps are channel-last
-``(B, T, F, C)`` at every function's boundary, as in the JAX package, so the
-tests compare like with like.
+Counterpart of ``audiojax.nn.core``, with what GTCRN and MossFormerGAN use.
+Functions take a parameter dict and tensors; feature maps are channel-last
+``(B, T, C)`` or ``(B, T, F, C)`` at every function's boundary, as in the JAX
+package, so the tests compare like with like.
 
 Weight layouts (set once by ``audiojax_torch.params.params_from_numpy``):
   dense             w: (in, out), b: (out,)
+  conv1d            w: (out, in/groups, k)       — torch's Conv1d layout
   conv2d            w: (out, in/groups, kh, kw)  — torch's Conv2d layout
-  conv2d_transpose  w: the equivalent forward kernel in the same layout;
+  conv*_transpose   w: the equivalent forward kernel in the same layout;
                     the transposed conv runs as a forward conv on the
                     stride-dilated (zero-inserted) input, as in the JAX
                     package, so no groups are needed to convert it.
+
+Routing goes by contract, not by shape: every true depthwise conv1d (one
+input channel per group, ``groups == C``, stride 1) runs on the depthwise
+kernel B4 (``ops.dwconv_cuda``) at any width, length and dilation; every
+other conv runs on ``F.conv1d`` / ``F.conv2d``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["dense", "prelu", "conv2d", "conv2d_transpose", "layer_norm"]
+from ..ops.dwconv_cuda import fast_dwconv1d
+
+__all__ = ["dense", "prelu", "conv1d", "conv1d_transpose", "conv2d", "conv2d_transpose",
+           "layer_norm"]
 
 
 def dense(p, x: torch.Tensor) -> torch.Tensor:
@@ -46,6 +55,49 @@ def _conv(p, x_nchw: torch.Tensor, pads, dilation, groups, stride=(1, 1)) -> tor
     y = F.conv2d(x_nchw, p["w"], p.get("b"), stride=tuple(stride), padding=(hl, wl),
                  dilation=tuple(dilation), groups=groups)
     return y.permute(0, 2, 3, 1)
+
+
+def conv1d(p, x: torch.Tensor, *, stride: int = 1, padding=0, dilation: int = 1,
+           groups: int = 1) -> torch.Tensor:
+    """Channel-last 1-D convolution: x (B, T, Cin) → (B, T', Cout).
+
+    ``padding`` is an int or ``(lo, hi)``; a negative entry crops."""
+    w = p["w"]
+    lo, hi = _pair(padding)
+    if min(lo, hi) < 0:  # crop first, so both routes see non-negative pads
+        x = x[:, max(0, -lo): x.shape[1] - max(0, -hi)]
+        lo, hi = max(0, lo), max(0, hi)
+    c = x.shape[-1]
+    if w.shape[1] == 1 and w.shape[0] == groups == c and stride == 1:
+        y = fast_dwconv1d(x.contiguous(), w[:, 0, :].t().contiguous(), pads=(lo, hi),
+                          dilation=dilation)
+        return y + p["b"] if "b" in p else y
+    xc = x.transpose(1, 2)
+    if lo != hi:
+        xc = F.pad(xc, (lo, hi))
+        lo = 0
+    y = F.conv1d(xc, w, p.get("b"), stride=stride, padding=lo, dilation=dilation,
+                 groups=groups)
+    return y.transpose(1, 2)
+
+
+def conv1d_transpose(p, x: torch.Tensor, *, stride: int = 1, padding=0, dilation: int = 1,
+                     groups: int = 1, output_padding: int = 0) -> torch.Tensor:
+    """Channel-last transposed 1-D conv with torch ``ConvTranspose1d`` geometry,
+    as a forward conv on the stride-dilated input (so a depthwise one runs on
+    B4 too).
+
+    out = (in - 1)·stride - 2·padding + dilation·(k - 1) + 1 + output_padding.
+    """
+    k = p["w"].shape[2]
+    if stride != 1:
+        b, t, c = x.shape
+        z = x.new_zeros((b, (t - 1) * stride + 1, c))
+        z[:, ::stride] = x
+        x = z
+    pad = padding if isinstance(padding, int) else padding[0]
+    eff = dilation * (k - 1) - pad
+    return conv1d(p, x, padding=(eff, eff + output_padding), dilation=dilation, groups=groups)
 
 
 def conv2d(p, x: torch.Tensor, *, stride=(1, 1), padding=(0, 0), dilation=(1, 1),

@@ -5,14 +5,16 @@ params)`` gives it; the output has the same keys.  Every layout change
 happens here, once:
 
   * a 4-D ``w`` is a conv2d kernel stored HWIO ``(kh, kw, in/groups, out)``
-    and becomes torch's ``(out, in/groups, kh, kw)``.  Transposed convs are
-    stored by the JAX package as their equivalent forward kernel, and the
-    port runs them as forward convs on the stride-dilated input, so they
-    convert the same way.
+    and becomes torch's ``(out, in/groups, kh, kw)``.
+  * a 3-D ``w`` is a conv1d kernel stored WIO ``(k, in/groups, out)`` and
+    becomes torch's ``(out, in/groups, k)``.
+  * Transposed convs (1-D and 2-D) are stored by the JAX package as their
+    equivalent forward kernel, and the port runs them as forward convs on
+    the stride-dilated input, so they convert the same way.
   * every other leaf (dense ``(in, out)``, GRU ``(…, in, 3H)``, biases,
     PReLU slopes, LayerNorm gains) keeps its layout.
 
-A 3-D ``w`` (a conv1d kernel) has no port yet and is refused.
+A ``w`` of any other rank has no port layout and is refused.
 """
 from __future__ import annotations
 
@@ -30,7 +32,9 @@ def _leaf(key: str, a, device: torch.device) -> torch.Tensor:
         raise TypeError(f"parameter {key!r} is {a.dtype}; the port takes float32 trees")
     if key == "w" and a.ndim == 4:
         a = np.transpose(a, (3, 2, 0, 1))
-    elif key == "w" and a.ndim not in (2, 4):
+    elif key == "w" and a.ndim == 3:
+        a = np.transpose(a, (2, 1, 0))
+    elif key == "w" and a.ndim != 2:
         raise ValueError(f"no port layout for a {a.ndim}-D weight {a.shape}")
     return torch.from_numpy(np.array(a, order="C")).to(device)  # a writable copy
 

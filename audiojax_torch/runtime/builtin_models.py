@@ -26,6 +26,43 @@ def _gtcrn_manifest(cfg):
     )
 
 
+def _mossformergan_manifest(cfg):
+    return Manifest(
+        model_name="mossformergan_se",
+        task="denoise",
+        model_family="mossformer_gan_se",
+        in_sample_rate=cfg.in_sample_rate,
+        out_sample_rate=cfg.out_sample_rate,
+        model_sample_rate=cfg.sample_rate,
+        input_audio_length=96000 * cfg.in_sample_rate // 16000,
+        window_type=cfg.window,
+        nfft=cfg.n_fft,
+        window_length=cfg.n_fft,
+        hop_length=cfg.hop,
+        pad_mode=cfg.pad_mode,
+        center_pad=True,
+        fold_window_length=cfg.fold_window,
+        batch_fold_inference_default=bool(cfg.fold_window),
+        batch_window_seconds=1.5 if cfg.fold_window else 0.0,
+        extra={"compress_factor": cfg.compress, "emb_dim": cfg.emb_dim},
+    )
+
+
+def _register_mossformergan():
+    from ..models.mossformergan_se import MossFormerGAN, MossFormerGanConfig, init_mossformergan
+
+    register(
+        ModelSpec(
+            name="mossformergan_se",
+            task="denoise",
+            make_config=MossFormerGanConfig,
+            init_params=init_mossformergan,
+            make_module=MossFormerGAN,
+            make_manifest=_mossformergan_manifest,
+        )
+    )
+
+
 def _register_gtcrn():
     from ..models.gtcrn import GTCRN, GtcrnConfig, init_gtcrn
 
@@ -42,3 +79,4 @@ def _register_gtcrn():
 
 
 _register_gtcrn()
+_register_mossformergan()

@@ -2,6 +2,7 @@
 
     python -m audiojax_torch.runtime.cli --model gtcrn --input noisy.wav --output clean.wav
     python -m audiojax_torch.runtime.cli --model gtcrn --input noisy.wav --device cpu --seed 3
+    python -m audiojax_torch.runtime.cli --model mossformergan_se --input noisy.wav --output clean.wav
     python -m audiojax_torch.runtime.cli --list
 
 Parameters are drawn at random from ``--seed`` (no checkpoint importer has
@@ -61,7 +62,8 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         from ..ops import _build
 
-        _build.load("stft")  # set-up, outside the timed call
+        for src in sorted(_build.CSRC.glob("*.cu")):  # set-up, outside the timed call
+            _build.load(src.stem)
     model = spec.make_module(spec.init_params(args.seed, cfg, device), cfg)
     result = Session(model, manifest, device=device).process(*audios)
 

@@ -6,20 +6,32 @@
 Phases, each of which raises (non-zero exit) on failure:
 
 1. Card: name and power limit from nvidia-smi.
-2. Build: ``audiojax_torch/csrc/stft.cu`` with nvcc (sm_90a).
-3. Kernels: the STFT (B1) and ISTFT (B2) kernels against their plain PyTorch
-   versions and against a float64 numpy DFT, at four geometries and at the
-   GTCRN serving shapes, with kernel / plain / torch.stft-istft timings and
-   the card's bound for the same function (an FFT's operations, or the bytes
-   read and written, whichever takes longer).
-4. Serving: ``Session`` for ``gtcrn`` at full width (random parameters from
-   seed 0) answers three requests of about 1.3 s, 7 s and 30 s; the launch
-   counters must show both kernels on that path, and the 7 s answer must be
-   within 40 dB SNR of the same port on the CPU.
+2. Build: every ``audiojax_torch/csrc/*.cu`` with nvcc (sm_90a), one nvcc per
+   source, all started together; each one's build time.
+3. Kernels B1/B2: the STFT and ISTFT kernels against their plain PyTorch
+   versions and against a float64 numpy DFT, at the MossFormerGAN and GTCRN
+   serving shapes and three further geometries, with kernel / plain /
+   torch.stft-istft timings and the card's bound for the same function (an
+   FFT's operations, or the bytes read and written, whichever takes longer).
+4. Kernels B4/B6: the depthwise conv1d and relu² attention kernels against
+   their plain versions (1e-5 × max|ref|) and against float64 numpy
+   references (error at most 2 × the plain version's), at the MossFormerGAN
+   serving shapes, with kernel / plain / library timings and the card's
+   bound (f32 operations at 67 TFLOP/s or bytes at 3.35 TB/s).
+5. Serving GTCRN: ``Session`` for ``gtcrn`` at full width (random parameters
+   from seed 0) answers three requests of about 1.3 s, 7 s and 30 s; the
+   launch counters must show B1 and B2 on that path, and the 7 s answer must
+   be within 40 dB SNR of the same port on the CPU.
+6. Serving MossFormerGAN-SE: ``Session`` for ``mossformergan_se`` at full
+   width and depth (random parameters from seed 0) answers a 6 s and a 30 s
+   request; every forward must launch B1 and B2 once, B4 48 times and B6 24
+   times; one 6 s request is profiled (top kernels, and each ported kernel's
+   device time in that trace), and one 1.5 s fold through the module
+   must be within 40 dB SNR of the same port on the CPU.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
-every kernel as JSON.  Without CUDA the script exits non-zero and prints no
-result.
+every kernel as JSON, and the line before that the card.  Without CUDA the
+script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -27,6 +39,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -38,9 +51,17 @@ from torch.profiler import ProfilerActivity, profile
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 TOL_VS_PLAIN = 3e-4  # × max|ref|: the tolerance of the JAX package's Pallas tests
+# × max|ref|: B4/B6 against their plain versions, float32 sums of at most a few
+# hundred terms in another order
+TOL_B4_B6 = 1e-5
+F64_ROWS = 64  # batch rows (evenly spaced) held against the float64 references
 MIN_SNR_DB = 40.0
 SR = 16000
-SERVE_REPEATS = 5
+SERVE_REPEATS = 3
+# MossFormerGAN launches per forward: 4 depthwise convs (uv, FSMN memory, GAU
+# in_conv and out_conv) and 2 GAU attentions (local, cross) per SyncANet path,
+# 2 paths per block, 6 blocks
+GAN_PER_FORWARD = {"stft_packed": 1, "istft_packed": 1, "dwconv1d": 48, "quad_attention": 24}
 # ~1 ms at the H100's clock: longer than the host takes to issue any timed call
 SPIN_CYCLES = 2_000_000
 
@@ -160,11 +181,18 @@ def rel_err(a: np.ndarray, ref: np.ndarray) -> float:
 
 
 def check_kernels(dev) -> dict:
+    """Phase 3; returns each kernel's row at the MossFormerGAN 30 s serving shape."""
     from audiojax_torch.dsp.stft import StftConfig, _window_np
+    from audiojax_torch.models.mossformergan_se import MossFormerGanConfig
     from audiojax_torch.ops import stft_cuda as K
 
     gtcrn = StftConfig(512, 256, window="hann_sqrt", pad_mode="reflect")
+    gan = MossFormerGanConfig().stft
+    gan_fold = MossFormerGanConfig().fold_window
     cases = [  # (label, config, batch, length)
+        # MossFormerGAN serving shapes: 30 s request (8 windows, 32 folds), 6 s (4 folds)
+        ("mossformergan 400/100 hamming reflect", gan, 32, gan_fold),
+        ("mossformergan 400/100 hamming reflect", gan, 4, gan_fold),
         ("gtcrn 512/256 hann_sqrt reflect", gtcrn, 16, 32000),  # serving shape, 30 s request
         ("gtcrn 512/256 hann_sqrt reflect", gtcrn, 4, 32000),   # 7 s request
         ("gtcrn 512/256 hann_sqrt reflect", gtcrn, 1, 32000),   # 1.3 s request
@@ -262,7 +290,7 @@ def check_kernels(dev) -> dict:
             if row["ms"] < row["bound_ms"]:  # faster than the card can be: a timing fault
                 fail(f"{name} {label}: {row['ms']:.4f} ms is below its bound "
                      f"{row['bound_ms']:.4f} ms")
-            print(f"kernel {name:12s} {label:34s} ({b:2d}, {length}): "
+            print(f"kernel {name:12s} {label:37s} ({b:2d}, {length}): "
                   f"err/max|ref| vs plain {row['err_vs_plain']:.2e}, "
                   f"vs f64 kernel {row['err64_kernel']:.2e} plain {row['err64_plain']:.2e}; "
                   f"device ms: kernel (wrapper) {row['ms']:.4f}, "
@@ -270,15 +298,135 @@ def check_kernels(dev) -> dict:
                   f"{row['library_ms']:.4f}; bound {row['bound_ms'] * 1e3:.3f} us "
                   f"({row['bound_by']}); dense-DFT f32 floor {dft_floor_ms * 1e3:.3f} us",
                   flush=True)
-        print(f"kernel istft_packed {label:34s} ({b:2d}, {length}): sum of kernel device "
+        print(f"kernel istft_packed {label:37s} ({b:2d}, {length}): sum of kernel device "
               f"times per call: wrapper {wrapper_sum_ms:.4f} ms, torch.istft "
               f"{istft_row['library_ms']:.4f} ms", flush=True)
-        if cfg == gtcrn and b == 16:
+        if not serving:  # the first case
             serving = {"stft_packed": stft_row, "istft_packed": istft_row}
     return serving
 
 
 # ── phase 4 ────────────────────────────────────────────────────────────────
+
+
+def ref_dwconv64(x: np.ndarray, w: np.ndarray, pads, dilation: int) -> np.ndarray:
+    xp = np.pad(x, [(0, 0), tuple(pads), (0, 0)])
+    t_out = xp.shape[1] - dilation * (w.shape[0] - 1)
+    return sum(xp[:, i * dilation : i * dilation + t_out] * w[i] for i in range(w.shape[0]))
+
+
+def ref_quad64(q: np.ndarray, k: np.ndarray, v: np.ndarray, scale: float,
+               mask_diag: bool) -> np.ndarray:
+    attn = np.square(np.maximum(np.matmul(q, np.swapaxes(k, 1, 2)) * scale, 0.0))
+    if mask_diag:
+        attn[:, np.arange(q.shape[1]), np.arange(q.shape[1])] = 0.0
+    return np.matmul(attn, v)
+
+
+# (label, (B, T, C), k, (lo, hi), dilation): the MossFormerGAN serving shapes
+# at one 6 s window (4 folds of 241 frames, 101 sub-bands), the 30 s request's
+# largest (32 folds), and one long dilated shape for B5's contract.
+B4_CASES = [
+    ("intra uv", (964, 98, 256), 31, (15, 15), 1),
+    ("intra fsmn", (964, 98, 128), 39, (19, 19), 1),
+    ("intra gau in_conv", (964, 101, 256), 31, (15, 15), 1),
+    ("intra gau out_conv", (964, 101, 64), 31, (15, 15), 1),
+    ("inter uv", (404, 238, 256), 31, (15, 15), 1),
+    ("inter fsmn", (404, 238, 128), 39, (19, 19), 1),
+    ("inter gau in_conv", (404, 241, 256), 31, (15, 15), 1),
+    ("inter gau out_conv", (404, 241, 64), 31, (15, 15), 1),
+    ("30 s intra gau in_conv", (7712, 101, 256), 31, (15, 15), 1),
+    ("B5 dilated", (4, 4000, 256), 39, (38, 38), 2),
+]
+# (label, N, S, mask_diag), K = V = 128
+B6_CASES = [
+    ("intra local", 964, 101, False),
+    ("intra cross", 404, 241, True),
+    ("inter local", 404, 241, False),
+    ("inter cross", 964, 101, True),
+    ("30 s intra local", 7712, 101, False),
+    ("30 s intra cross", 3232, 241, True),
+]
+
+
+def _hold(name: str, label: str, ker: torch.Tensor, plain: torch.Tensor, ref64_fn,
+          rows: torch.Tensor) -> dict:
+    """Kernel vs plain on every element; both vs a float64 reference on ``rows``."""
+    torch.cuda.synchronize()
+    if ker.shape != plain.shape or not bool(torch.isfinite(ker).all()):
+        fail(f"{name} {label}: shape {tuple(ker.shape)} vs {tuple(plain.shape)} or non-finite")
+    diff = float((ker - plain).abs().max())
+    e_plain = diff / float(plain.abs().max())
+    ref = ref64_fn(rows)
+    e64_k = rel_err(ker[rows].cpu().numpy(), ref)
+    e64_p = rel_err(plain[rows].cpu().numpy(), ref)
+    if not e_plain <= TOL_B4_B6:
+        fail(f"{name} {label}: kernel vs plain {e_plain:.3e} > {TOL_B4_B6}")
+    if not e64_k <= 2.0 * e64_p:
+        fail(f"{name} {label}: f64 error {e64_k:.3e} > 2 × plain {e64_p:.3e}")
+    return {"err_vs_plain": e_plain, "max_abs_err": diff, "err64_kernel": e64_k,
+            "err64_plain": e64_p}
+
+
+def _report(name: str, label: str, shape: str, row: dict) -> None:
+    if row["ms"] < row["bound_ms"]:  # faster than the card can be: a timing fault
+        fail(f"{name} {label}: {row['ms']:.4f} ms is below its bound {row['bound_ms']:.4f} ms")
+    lib = "—" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+    print(f"kernel {name:14s} {label:22s} {shape:32s}: err/max|ref| vs plain "
+          f"{row['err_vs_plain']:.2e}, vs f64 kernel {row['err64_kernel']:.2e} plain "
+          f"{row['err64_plain']:.2e}; device ms: kernel {row['ms']:.4f}, plain "
+          f"{row['plain_ms']:.4f}, library {lib}; bound {row['bound_ms']:.4f} "
+          f"({row['bound_by']})", flush=True)
+
+
+def check_gan_kernels(dev) -> dict:
+    """Phase 4; returns each kernel's row at its first serving shape."""
+    import torch.nn.functional as F
+
+    from audiojax_torch.ops import attention_cuda as A
+    from audiojax_torch.ops import dwconv_cuda as D
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    serving = {}
+    for label, (b, t, c), k, pads, dil in B4_CASES:
+        x = torch.randn((b, t, c), generator=gen, device=dev)
+        w = torch.randn((k, c), generator=gen, device=dev) / k ** 0.5
+        rows = torch.linspace(0, b - 1, min(b, F64_ROWS), device=dev).long().unique()
+        run = lambda: D.dwconv1d_cuda(x, w, pads=pads, dilation=dil)  # noqa: E731
+        plain = lambda: D.dwconv1d_plain(x, w, pads=pads, dilation=dil)  # noqa: E731
+        w64 = w.double().cpu().numpy()
+        row = _hold("dwconv1d", label, run(), plain(), lambda r: ref_dwconv64(
+            x[r].double().cpu().numpy(), w64, pads, dil), rows)
+        # cuDNN's depthwise conv on a contiguous (B, C, T) tensor (TF32 off);
+        # the layout change is made before the timing and left out of it
+        xt = F.pad(x.transpose(1, 2), pads).contiguous()
+        wt = w.t().contiguous()[:, None, :]
+        row["ms"], row["plain_ms"] = device_ms(run), device_ms(plain)
+        row["library_ms"] = device_ms(lambda: F.conv1d(xt, wt, dilation=dil, groups=c))
+        t_out = t + sum(pads) - dil * (k - 1)
+        row["bound_ms"], row["bound_by"] = bound(2.0 * b * t_out * c * k,
+                                                 4.0 * (b * t * c + k * c + b * t_out * c))
+        _report("dwconv1d", label, f"({b}, {t}, {c}) k{k} pads {pads} d{dil}", row)
+        serving.setdefault("dwconv1d", row)
+        del x, xt
+
+    for label, n, s, mask in B6_CASES:
+        q, kk, v = (torch.randn((n, s, 128), generator=gen, device=dev) for _ in range(3))
+        rows = torch.linspace(0, n - 1, min(n, F64_ROWS), device=dev).long().unique()
+        run = lambda: A.quad_attention_cuda(q, kk, v, scale=1.0 / s, mask_diag=mask)  # noqa: E731
+        plain = lambda: A.quad_attention_plain(q, kk, v, scale=1.0 / s, mask_diag=mask)  # noqa: E731
+        row = _hold("quad_attention", label, run(), plain(), lambda r: ref_quad64(
+            *(a[r].double().cpu().numpy() for a in (q, kk, v)), 1.0 / s, mask), rows)
+        row["ms"], row["plain_ms"], row["library_ms"] = device_ms(run), device_ms(plain), None
+        row["bound_ms"], row["bound_by"] = bound(n * s * s * (2.0 * 128 + 2.0 * 128),
+                                                 4.0 * (n * s * 3 * 128 + n * s * 128))
+        _report("quad_attention", label, f"({n}, {s}, 128){' mask' if mask else ''}", row)
+        serving.setdefault("quad_attention", row)
+        del q, kk, v
+    return serving
+
+
+# ── phase 5 ────────────────────────────────────────────────────────────────
 
 
 def noisy_speech(n: int, seed: int) -> np.ndarray:
@@ -300,8 +448,8 @@ def snr_db(ref: np.ndarray, out: np.ndarray) -> float:
     return float("inf") if err == 0.0 else 10.0 * np.log10(float(np.sum(ref * ref)) / err)
 
 
-def serve(card: str) -> dict:
-    """Phase 4; returns the kernels' launch counts over the measured requests."""
+def serve(card: str) -> None:
+    """Phase 5."""
     from audiojax_torch.ops import stft_cuda as K
     from audiojax_torch.runtime import registry
     from audiojax_torch.runtime.session import Session
@@ -338,7 +486,7 @@ def serve(card: str) -> dict:
         print(f"serve gtcrn {label:6s} ({audio.size} samples, {-(-audio.size // 32000)} windows): "
               f"elapsed ms median {med:.3f} (min {ms[0]:.3f}, max {ms[-1]:.3f}, "
               f"n={len(ms)}), RTF median {med / 1e3 / dur:.6f}  [{card}]", flush=True)
-    print(f"serve launches over {SERVE_REPEATS} x 3 requests: {counts}", flush=True)
+    print(f"serve gtcrn launches over {SERVE_REPEATS} x 3 requests: {counts}", flush=True)
 
     label, audio = requests[1]
     elapsed_ms = float(np.median([r.elapsed_s * 1e3 for r in runs[label]]))
@@ -357,7 +505,112 @@ def serve(card: str) -> dict:
     print(f"serve gtcrn {label} card vs CPU: SNR {snr:.2f} dB", flush=True)
     if not snr >= MIN_SNR_DB:
         fail(f"card vs CPU SNR {snr:.2f} dB < {MIN_SNR_DB}")
+
+
+# ── phase 6 ────────────────────────────────────────────────────────────────
+
+
+def serve_gan(card: str) -> dict:
+    """Phase 6; returns the kernels' launch counts over the measured requests."""
+    from audiojax_torch.ops import attention_cuda, dwconv_cuda, stft_cuda
+    from audiojax_torch.runtime import registry
+    from audiojax_torch.runtime.session import Session
+
+    kernel_modules = (stft_cuda, dwconv_cuda, attention_cuda)
+
+    spec = registry.get("mossformergan_se")
+    cfg = spec.make_config()
+    manifest = spec.make_manifest(cfg)
+    window = manifest.input_audio_length
+    model = spec.make_module(spec.init_params(0, cfg, "cuda"), cfg)
+    session = Session(model, manifest, device="cuda")
+    requests = [("6 s", noisy_speech(6 * SR, 11)), ("30 s", noisy_speech(30 * SR, 12))]
+    t0 = time.perf_counter()
+    session.process(requests[0][1])  # warm-up: cuBLAS, cuDNN and allocator set-up
+    print(f"serve mossformergan_se warm-up (6 s request): "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms  [{card}]", flush=True)
+
+    for mod in kernel_modules:
+        mod.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    runs = {label: [] for label, _ in requests}
+    for _ in range(SERVE_REPEATS):  # the two requests in turn, SERVE_REPEATS times
+        for label, audio in requests:
+            runs[label].append(session.process(audio))
+    counts = {name: n for mod in kernel_modules for name, n in mod.launches.items()}
+    forwards = SERVE_REPEATS * len(requests)  # one forward per request
+    expect = {name: forwards * n for name, n in GAN_PER_FORWARD.items()}
+    if counts != expect:
+        fail(f"mossformergan_se serving launched {counts}, expected {expect}")
+
+    for label, audio in requests:
+        for r in runs[label]:
+            if r.audio.dtype != np.int16 or r.audio.shape != audio.shape:
+                fail(f"request {label}: {r.audio.dtype} {r.audio.shape}, expected int16 "
+                     f"{audio.shape}")
+            if not np.any(r.audio):
+                fail(f"request {label}: all-zero output")
+        ms = sorted(r.elapsed_s * 1e3 for r in runs[label])
+        med = float(np.median(ms))
+        n_win = -(-audio.size // window)
+        print(f"serve mossformergan_se {label:5s} ({audio.size} samples, {n_win} windows → "
+              f"{1 << (n_win - 1).bit_length()}, {4 * (1 << (n_win - 1).bit_length())} folds): "
+              f"elapsed ms median {med:.3f} (min {ms[0]:.3f}, max {ms[-1]:.3f}, n={len(ms)}), "
+              f"RTF median {med / 1e3 / runs[label][0].audio_duration_s:.6f}  [{card}]",
+              flush=True)
+    print(f"serve mossformergan_se launches over {SERVE_REPEATS} x {len(requests)} requests: "
+          f"{counts}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+
+    label, audio = requests[0]
+    elapsed_ms = float(np.median([r.elapsed_s * 1e3 for r in runs[label]]))
+    rows = cuda_rows(lambda: session.process(audio),
+                     {"::stft_kernel": 1, "::istft_kernel": 1, "dwconv_kernel": 48,
+                      "quad_attention_kernel": 24})
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"profile mossformergan_se {label}: {sum(e.count for e in rows)} device launches, "
+          f"device busy {busy_ms:.3f} ms of {elapsed_ms:.3f} ms median elapsed unprofiled "
+          f"(idle share {1.0 - busy_ms / elapsed_ms:.4f})  [{card}]", flush=True)
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}", flush=True)
+    for key in ("::stft_kernel", "::istft_kernel", "dwconv_kernel", "quad_attention_kernel"):
+        mine = [e for e in rows if key in e.key]
+        print(f"profile mossformergan_se {label}: {key.lstrip(':')} "
+              f"{sum(e.self_device_time_total for e in mine) / 1e3:.3f} ms device time over "
+              f"{sum(e.count for e in mine)} launches (same trace)", flush=True)
+
+    # card vs CPU on one 1.5 s fold window, through the module
+    clip = torch.from_numpy(noisy_speech(cfg.fold_window, 13)[None])
+    cpu_model = spec.make_module(spec.init_params(0, cfg, "cpu"), cfg)
+    with torch.inference_mode():
+        card_out = model(clip.cuda()).cpu().numpy()
+        t0 = time.perf_counter()
+        cpu_out = cpu_model(clip).numpy()
+    snr = snr_db(cpu_out, card_out)
+    print(f"serve mossformergan_se 1.5 s fold card vs CPU: SNR {snr:.2f} dB (CPU forward "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    if not snr >= MIN_SNR_DB:
+        fail(f"mossformergan_se card vs CPU SNR {snr:.2f} dB < {MIN_SNR_DB}")
     return counts
+
+
+def build_all() -> None:
+    """Phase 2: one nvcc per source, all started together."""
+    from audiojax_torch.ops import _build
+
+    def one(name: str) -> float:
+        t0 = time.perf_counter()
+        _build.load(name)
+        return time.perf_counter() - t0
+
+    names = [src.stem for src in sorted(_build.CSRC.glob("*.cu"))]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        seconds = list(pool.map(one, names))
+    for name, sec in zip(names, seconds):
+        print(f"build: csrc/{name}.cu in {sec:.2f} s", flush=True)
+    print(f"build: {len(names)} sources in {time.perf_counter() - t0:.2f} s into "
+          f"{_build.BUILD_DIR}", flush=True)
 
 
 def main() -> int:
@@ -365,32 +618,37 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     from audiojax_torch.device import resolve_device
-    from audiojax_torch.ops import _build
 
+    t_start = time.perf_counter()
     dev = resolve_device("cuda")
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
 
-    t0 = time.perf_counter()
-    _build.load("stft")
-    print(f"build: csrc/stft.cu in {time.perf_counter() - t0:.2f} s into {_build.BUILD_DIR}",
-          flush=True)
+    build_all()
+    rows = check_kernels(dev)
+    rows.update(check_gan_kernels(dev))
+    serve(card)
+    # every kernel reports its launches on the MossFormerGAN path, which runs all four
+    counts = serve_gan(card)
 
-    serving_rows = check_kernels(dev)
-    counts = serve(card)
-
-    sources = {"stft_packed": ("audiojax/ops/stft_pallas.py:207"),
-               "istft_packed": ("audiojax/ops/stft_pallas.py:361")}
+    sources = {
+        "stft_packed": ("audiojax_torch/csrc/stft.cu", "audiojax/ops/stft_pallas.py:207"),
+        "istft_packed": ("audiojax_torch/csrc/stft.cu", "audiojax/ops/stft_pallas.py:361"),
+        "dwconv1d": ("audiojax_torch/csrc/dwconv.cu", "audiojax/ops/dwconv_pallas.py:52"),
+        "quad_attention": ("audiojax_torch/csrc/quad_attention.cu",
+                           "audiojax/ops/attention_pallas.py:61"),
+    }
     kernels = []
-    for name, replaces in sources.items():
-        row = serving_rows[name]
-        kernels.append({"name": name, "route": "cuda", "source": "audiojax_torch/csrc/stft.cu",
+    for name, (source, replaces) in sources.items():
+        row = rows[name]
+        kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": counts[name],
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -22,10 +22,12 @@ from audiojax_torch.dsp import windows as twin
 from audiojax_torch.dsp.stft import StftConfig, istft_packed, num_frames, stft_packed
 from audiojax_torch.ops import stft_cuda
 
-# The geometries chip_smoke.py holds the kernels to: GTCRN, ZipEnhancer,
-# odd n_fft, and Mel-Band's large basis.  (n_fft, hop, window, pad_mode, length)
+# The geometries chip_smoke.py holds the kernels to: GTCRN, MossFormerGAN,
+# ZipEnhancer, odd n_fft, and Mel-Band's large basis.
+# (n_fft, hop, window, pad_mode, length)
 GEOMETRIES = [
     (512, 256, "hann_sqrt", "reflect", 8000),
+    (400, 100, "hamming", "reflect", 4000),
     (400, 100, "hann", "reflect", 4000),
     (319, 160, "hamming", "constant", 4000),
     (2048, 441, "hann", "reflect", 11025),

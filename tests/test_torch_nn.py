@@ -1,4 +1,5 @@
-"""The port's nn layer (core, rnn, erb) against audiojax.nn on the same weights.
+"""The port's nn layer (core, rnn, erb, mossformer tables) against audiojax.nn
+on the same weights.
 
 Weights are drawn with numpy in the JAX package's layout and go to the port
 through ``params_from_numpy``, so every case also checks that conversion.
@@ -11,12 +12,16 @@ import torch
 
 import jax.numpy as jnp
 
+from audiojax.models.zipenhancer import instance_norm_tf as j_instance_norm_tf
 from audiojax.nn import core as jcore
 from audiojax.nn import erb as jerb
+from audiojax.nn import mossformer as jmossformer
 from audiojax.nn import rnn as jrnn
 
+from audiojax_torch.models.zipenhancer import instance_norm_tf as t_instance_norm_tf
 from audiojax_torch.nn import core as tcore
 from audiojax_torch.nn import erb as terb
+from audiojax_torch.nn import mossformer as tmossformer
 from audiojax_torch.nn import rnn as trnn
 from audiojax_torch.params import params_from_numpy
 
@@ -99,6 +104,64 @@ def test_conv2d_transpose(case):
     # torch ConvTranspose2d geometry: (in - 1)·stride - 2·pad + dil·(k - 1) + 1
     assert out.shape[1] == (11 - 1) * stride[0] - 2 * padding[0] + dilation[0] * (kh - 1) + 1
     assert out.shape[2] == (17 - 1) * stride[1] - 2 * padding[1] + dilation[1] * (kw - 1) + 1
+
+
+# (k, cin, cout, groups, stride, padding, dilation): MossFormerGAN's convs
+# (depthwise k=31, the grouped unfold conv with 4 outputs per group) and the
+# contract's other corners.  Depthwise cases run on the port's B4 route.
+CONV1D_CASES = [
+    (31, 64, 64, 64, 1, 15, 1),         # depthwise, 'same'
+    (5, 32, 32, 32, 1, (4, 2), 2),      # depthwise, asymmetric pads, dilated
+    (3, 8, 8, 1, 1, (-1, 2), 1),        # a negative pad crops
+    (4, 16, 64, 16, 1, 0, 1),           # grouped, 4 outputs per group (unfold)
+    (3, 8, 12, 1, 2, 1, 1),             # strided
+    (3, 8, 8, 1, 1, 2, 2),              # dilated dense
+]
+
+
+@pytest.mark.parametrize("case", CONV1D_CASES,
+                         ids=lambda c: f"k{c[0]}-g{c[3]}-s{c[4]}-p{c[5]}-d{c[6]}")
+def test_conv1d(case):
+    k, cin, cout, groups, stride, padding, dilation = case
+    rng = np.random.default_rng(7)
+    x = _rand(rng, 3, 40, cin)
+    jp, tp = _both({"w": _rand(rng, k, cin // groups, cout, scale=0.3), "b": _rand(rng, cout)})
+    kw_ = dict(stride=stride, padding=padding, dilation=dilation, groups=groups)
+    _close(tcore.conv1d(tp, torch.from_numpy(x), **kw_), jcore.conv1d(jp, jnp.asarray(x), **kw_))
+
+
+# (k, cin, cout, groups, stride, padding, output_padding): the refold conv
+# (stride 1) and strided forms with output_padding
+DECONV1D_CASES = [
+    (4, 16, 8, 1, 1, 0, 0),
+    (4, 8, 8, 1, 2, 1, 1),
+    (5, 8, 8, 8, 2, 2, 0),  # depthwise: runs on the B4 route
+    (3, 8, 6, 2, 3, 0, 2),
+]
+
+
+@pytest.mark.parametrize("case", DECONV1D_CASES,
+                         ids=lambda c: f"k{c[0]}-g{c[3]}-s{c[4]}-p{c[5]}-op{c[6]}")
+def test_conv1d_transpose(case):
+    k, cin, cout, groups, stride, padding, output_padding = case
+    rng = np.random.default_rng(8)
+    x = _rand(rng, 2, 13, cin)
+    jp, tp = _both({"w": _rand(rng, k, cin // groups, cout, scale=0.3), "b": _rand(rng, cout)})
+    kw_ = dict(stride=stride, padding=padding, groups=groups, output_padding=output_padding)
+    out = tcore.conv1d_transpose(tp, torch.from_numpy(x), **kw_)
+    _close(out, jcore.conv1d_transpose(jp, jnp.asarray(x), **kw_))
+    # torch ConvTranspose1d geometry
+    assert out.shape[1] == (13 - 1) * stride - 2 * padding + (k - 1) + 1 + output_padding
+
+
+def test_instance_norm_and_rope_tables():
+    rng = np.random.default_rng(9)
+    x = _rand(rng, 2, 7, 11, 5)
+    jp, tp = _both({"g": _rand(rng, 5), "b": _rand(rng, 5)})
+    _close(t_instance_norm_tf(tp, torch.from_numpy(x)), j_instance_norm_tf(jp, jnp.asarray(x)))
+    for out, ref in zip(tmossformer.rope_mm_tables(101, 32, 128, torch.device("cpu")),
+                        jmossformer.rope_mm_tables(101, 32, 128)):
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
 def _gru_np(rng, din, hidden, stack=()):

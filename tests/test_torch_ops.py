@@ -1,0 +1,101 @@
+"""The plain versions of the port's kernels B4 and B6 against the JAX package.
+
+``dwconv1d_plain`` and ``quad_attention_plain`` are what the port runs on the
+CPU and what ``chip_smoke.py`` holds the CUDA kernels to on the card.  Here
+they meet the JAX package's reference paths (``dwconv1d_jnp``,
+``quad_attention_jnp``) and its Pallas kernels run in interpret mode, on the
+same numpy inputs.  Tolerance: 1e-5 × max|ref|, float32 sums of at most a
+few hundred terms in another order.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from audiojax.ops.attention_pallas import quad_attention_jnp, quad_attention_pallas
+from audiojax.ops.dwconv_pallas import dwconv1d_jnp, dwconv1d_pallas, dwconv1d_pallas_tiled
+
+from audiojax_torch.ops import attention_cuda, dwconv_cuda
+
+TOL = 1e-5
+
+
+def _rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _close(out: torch.Tensor, ref, tol=TOL):
+    ref = np.asarray(ref)
+    assert tuple(out.shape) == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref, atol=tol * np.abs(ref).max(), rtol=0)
+
+
+# ── B4: depthwise conv1d ───────────────────────────────────────────────────
+
+
+@pytest.mark.parametrize("pads", [(0, 0), (3, 3), (5, 1)])
+def test_dwconv1d_plain_matches_jnp_and_pallas(pads):
+    rng = np.random.default_rng(1)
+    x, w = _rand(rng, 3, 40, 128), _rand(rng, 7, 128)
+    out = dwconv_cuda.dwconv1d_plain(torch.from_numpy(x), torch.from_numpy(w), pads=pads)
+    _close(out, dwconv1d_jnp(jnp.asarray(x), jnp.asarray(w), pads=pads))
+    _close(out, dwconv1d_pallas(jnp.asarray(x), jnp.asarray(w), pads=pads, block_rows=2,
+                                interpret=True))
+
+
+def test_dwconv1d_plain_dilated_matches_pallas_tiled():
+    """Dilation 2, the contract of the TPU's time-tiled kernel (B5)."""
+    rng = np.random.default_rng(2)
+    x, w = _rand(rng, 2, 300, 128), _rand(rng, 9, 128)
+    out = dwconv_cuda.dwconv1d_plain(torch.from_numpy(x), torch.from_numpy(w), pads=(8, 8),
+                                     dilation=2)
+    ref = dwconv1d_pallas_tiled(jnp.asarray(x), jnp.asarray(w), pads=(8, 8), tile=128,
+                                dilation=2, interpret=True)
+    _close(out, ref)
+
+
+def test_dwconv1d_output_length_checks():
+    x, w = torch.zeros(1, 5, 4), torch.zeros(7, 4)
+    with pytest.raises(ValueError, match="non-positive output length"):
+        dwconv_cuda.dwconv1d_plain(x, w)
+    with pytest.raises(ValueError, match="dilation"):
+        dwconv_cuda.dwconv1d_plain(x, w, pads=(3, 3), dilation=0)
+
+
+# ── B6: relu² attention ────────────────────────────────────────────────────
+
+
+@pytest.mark.parametrize("n,s,k,v,mask", [(7, 33, 16, 24, False), (4, 20, 8, 8, True)])
+def test_quad_attention_plain_matches_jnp_and_pallas(n, s, k, v, mask):
+    rng = np.random.default_rng(0)
+    q, kk, vv = _rand(rng, n, s, k), _rand(rng, n, s, k), _rand(rng, n, s, v)
+    out = attention_cuda.quad_attention_plain(torch.from_numpy(q), torch.from_numpy(kk),
+                                              torch.from_numpy(vv), scale=1.0 / s, mask_diag=mask)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(kk), jnp.asarray(vv)
+    _close(out, quad_attention_jnp(jq, jk, jv, scale=1.0 / s, mask_diag=mask))
+    _close(out, quad_attention_pallas(jq, jk, jv, scale=1.0 / s, mask_diag=mask, block_rows=4,
+                                      interpret=True))
+
+
+# ── the kernel modules on the CPU ──────────────────────────────────────────
+
+
+def test_fast_paths_take_plain_on_cpu():
+    rng = np.random.default_rng(3)
+    x, w = torch.from_numpy(_rand(rng, 2, 30, 8)), torch.from_numpy(_rand(rng, 5, 8))
+    q, k, v = (torch.from_numpy(_rand(rng, 3, 11, 8)) for _ in range(3))
+    before = (dict(dwconv_cuda.launches), dict(attention_cuda.launches))
+    y = dwconv_cuda.fast_dwconv1d(x, w, pads=(2, 2), dilation=2)
+    o = attention_cuda.fast_quad_attention(q, k, v, scale=0.5, mask_diag=True)
+    assert (dwconv_cuda.launches, attention_cuda.launches) == before  # no kernel launched
+    assert torch.equal(y, dwconv_cuda.dwconv1d_plain(x, w, pads=(2, 2), dilation=2))
+    assert torch.equal(o, attention_cuda.quad_attention_plain(q, k, v, scale=0.5, mask_diag=True))
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        dwconv_cuda.dwconv1d_cuda(torch.zeros(1, 8, 4), torch.zeros(3, 4))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        attention_cuda.quad_attention_cuda(torch.zeros(1, 8, 4), torch.zeros(1, 8, 4),
+                                           torch.zeros(1, 8, 4), scale=1.0)

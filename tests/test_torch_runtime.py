@@ -19,6 +19,8 @@ from audiojax.runtime.manifest import Manifest as JManifest
 from audiojax.runtime.session import Session as JSession
 
 from audiojax_torch.models.gtcrn import GTCRN, GtcrnConfig, init_gtcrn, init_gtcrn_numpy
+from audiojax_torch.models.mossformergan_se import (MossFormerGAN, MossFormerGanConfig,
+                                                    init_mossformergan)
 from audiojax_torch.ops import _build
 from audiojax_torch.params import params_from_numpy
 from audiojax_torch.runtime import cli, registry
@@ -86,6 +88,15 @@ def test_entry_points_default_to_the_card(no_cuda):
         Session(_gtcrn_module(), manifest, device="cuda")
     Session(_gtcrn_module(), manifest, device="cpu")  # asked for: fine
 
+    gan_cfg = MossFormerGanConfig(n_blocks=1)
+    gan_manifest = registry.get("mossformergan_se").make_manifest(gan_cfg)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        init_mossformergan(0, gan_cfg)
+    gan = MossFormerGAN(init_mossformergan(0, gan_cfg, device="cpu"), gan_cfg)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Session(gan, gan_manifest)
+    Session(gan, gan_manifest, device="cpu")
+
 
 def test_kernel_build_failure_raises(monkeypatch, tmp_path):
     """A failed nvcc raises; nothing falls back to the plain versions."""
@@ -100,8 +111,14 @@ def test_kernel_build_failure_raises(monkeypatch, tmp_path):
 
 
 def test_params_refuse_unknown_layouts():
-    with pytest.raises(ValueError, match="3-D weight"):
-        params_from_numpy({"conv1d": {"w": np.zeros((3, 4, 5), np.float32)}}, device="cpu")
+    for shape in ((3,), (1, 2, 3, 4, 5)):
+        with pytest.raises(ValueError, match=f"{len(shape)}-D weight"):
+            params_from_numpy({"conv": {"w": np.zeros(shape, np.float32)}}, device="cpu")
+    # a 3-D conv1d kernel: WIO (k, in/groups, out) → torch's (out, in/groups, k)
+    w = np.arange(3 * 4 * 5, dtype=np.float32).reshape(3, 4, 5)
+    out = params_from_numpy({"conv1d": {"w": w}}, device="cpu")["conv1d"]["w"]
+    assert out.shape == (5, 4, 3) and out.is_contiguous()
+    np.testing.assert_array_equal(out.numpy(), w.transpose(2, 1, 0))
     with pytest.raises(TypeError, match="float32"):
         params_from_numpy({"w": np.zeros((3, 4), np.float64)}, device="cpu")
 
@@ -134,7 +151,7 @@ def test_cli_denoises_on_cpu(tmp_path, capsys):
 
 def test_cli_list_and_default_device(no_cuda, tmp_path, capsys):
     assert cli.main(["--list"]) == 0
-    assert capsys.readouterr().out.split() == ["gtcrn"]
+    assert capsys.readouterr().out.split() == ["gtcrn", "mossformergan_se"]
     src = tmp_path / "in.wav"
     _write_wav(src, np.zeros(16000, np.int16))
     with pytest.raises(RuntimeError, match='device="cpu"'):
