@@ -7,6 +7,6 @@ torch and numpy only: never ``jax`` and nothing of ``audiojax``.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 ``device="cpu"``; see :mod:`audiojax_torch.device`.  The kernels (STFT,
-ISTFT, depthwise conv1d, relu² attention) are hand-written CUDA C++ under
-``csrc/``, built with ``nvcc`` at first use.
+ISTFT, depthwise conv1d, relu² attention, rel-pos attention scores) are
+hand-written CUDA C++ under ``csrc/``, built with ``nvcc`` at first use.
 """

@@ -1,9 +1,9 @@
 """Core NN building blocks in PyTorch — functional, channel-last.
 
-Counterpart of ``audiojax.nn.core``, with what GTCRN and MossFormerGAN use.
-Functions take a parameter dict and tensors; feature maps are channel-last
-``(B, T, C)`` or ``(B, T, F, C)`` at every function's boundary, as in the JAX
-package, so the tests compare like with like.
+Counterpart of ``audiojax.nn.core``, with what GTCRN, MossFormerGAN and
+ZipEnhancer use.  Functions take a parameter dict and tensors; feature maps
+are channel-last ``(B, T, C)`` or ``(B, T, F, C)`` at every function's
+boundary, as in the JAX package, so the tests compare like with like.
 
 Weight layouts (set once by ``audiojax_torch.params.params_from_numpy``):
   dense             w: (in, out), b: (out,)

@@ -63,6 +63,44 @@ def _register_mossformergan():
     )
 
 
+def _zipenhancer_manifest(cfg):
+    return Manifest(
+        model_name="zipenhancer",
+        task="denoise",
+        model_family="zipenhancer",
+        in_sample_rate=cfg.in_sample_rate,
+        out_sample_rate=cfg.out_sample_rate,
+        model_sample_rate=cfg.sample_rate,
+        input_audio_length=96000 * cfg.in_sample_rate // 16000,
+        window_type=cfg.window,
+        nfft=cfg.n_fft,
+        window_length=cfg.n_fft,
+        hop_length=cfg.hop,
+        pad_mode=cfg.pad_mode,
+        center_pad=True,
+        fold_window_length=cfg.fold_window,
+        batch_fold_inference_default=bool(cfg.fold_window),
+        batch_window_seconds=1.5 if cfg.fold_window else 0.0,
+        normalize_audio_default=True,
+        extra={"compress_factor": cfg.compress, "channels": cfg.channels},
+    )
+
+
+def _register_zipenhancer():
+    from ..models.zipenhancer import ZipEnhancer, ZipEnhancerConfig, init_zipenhancer
+
+    register(
+        ModelSpec(
+            name="zipenhancer",
+            task="denoise",
+            make_config=ZipEnhancerConfig,
+            init_params=init_zipenhancer,
+            make_module=ZipEnhancer,
+            make_manifest=_zipenhancer_manifest,
+        )
+    )
+
+
 def _register_gtcrn():
     from ..models.gtcrn import GTCRN, GtcrnConfig, init_gtcrn
 
@@ -80,3 +118,4 @@ def _register_gtcrn():
 
 _register_gtcrn()
 _register_mossformergan()
+_register_zipenhancer()

@@ -9,15 +9,15 @@ Phases, each of which raises (non-zero exit) on failure:
 2. Build: every ``audiojax_torch/csrc/*.cu`` with nvcc (sm_90a), one nvcc per
    source, all started together; each one's build time.
 3. Kernels B1/B2: the STFT and ISTFT kernels against their plain PyTorch
-   versions and against a float64 numpy DFT, at the MossFormerGAN and GTCRN
-   serving shapes and three further geometries, with kernel / plain /
+   versions and against a float64 numpy DFT, at the MossFormerGAN, GTCRN and
+   ZipEnhancer serving shapes and two further geometries, with kernel / plain /
    torch.stft-istft timings and the card's bound for the same function (an
    FFT's operations, or the bytes read and written, whichever takes longer).
 4. Kernels B4/B6: the depthwise conv1d and relu² attention kernels against
    their plain versions (1e-5 × max|ref|) and against float64 numpy
    references (error at most 2 × the plain version's), at the MossFormerGAN
-   serving shapes, with kernel / plain / library timings and the card's
-   bound (f32 operations at 67 TFLOP/s or bytes at 3.35 TB/s).
+   and ZipEnhancer serving shapes, with kernel / plain / library timings and
+   the card's bound (f32 operations at 67 TFLOP/s or bytes at 3.35 TB/s).
 5. Serving GTCRN: ``Session`` for ``gtcrn`` at full width (random parameters
    from seed 0) answers three requests of about 1.3 s, 7 s and 30 s; the
    launch counters must show B1 and B2 on that path, and the 7 s answer must
@@ -28,10 +28,26 @@ Phases, each of which raises (non-zero exit) on failure:
    times; one 6 s request is profiled (top kernels, and each ported kernel's
    device time in that trace), and one 1.5 s fold through the module
    must be within 40 dB SNR of the same port on the CPU.
+7. Kernel B3: the rel-pos attention-scores kernel against its plain version
+   (1e-5 × max|ref|) and a float64 numpy reference (error at most 2 × the
+   plain version's), at ZipEnhancer's six serving shapes, the 30 s request's
+   two largest and one long row (S = 601) for its two-pass route, with kernel
+   / plain timings and the card's bound.
+8. Serving ZipEnhancer: ``Session`` for ``zipenhancer`` at full width and
+   depth (random parameters from seed 0) answers a 6 s and a 30 s request;
+   every forward must launch B1 and B2 once, B4 16 times, B3 8 times and B6
+   never; one 6 s request is profiled (top kernels, idle share, and each
+   ported kernel's device time in that trace), and one 1.5 s fold through the
+   module must be within 40 dB SNR of the same port on the CPU.  That fold
+   starts with 201 silent samples (its first frame's phase feature is
+   otherwise the sign of rounding noise); without them, the card given the
+   CPU's first STFT frame must pass the same gate.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
-every kernel as JSON, and the line before that the card.  Without CUDA the
-script exits non-zero and prints no result.
+every kernel as JSON (its launches summed over the three served paths, with
+the count of each path beside it, and its times at its first serving shape),
+and the line before that the card.  Without CUDA the script exits non-zero
+and prints no result.
 """
 from __future__ import annotations
 
@@ -61,7 +77,13 @@ SERVE_REPEATS = 3
 # MossFormerGAN launches per forward: 4 depthwise convs (uv, FSMN memory, GAU
 # in_conv and out_conv) and 2 GAU attentions (local, cross) per SyncANet path,
 # 2 paths per block, 6 blocks
-GAN_PER_FORWARD = {"stft_packed": 1, "istft_packed": 1, "dwconv1d": 48, "quad_attention": 24}
+GAN_PER_FORWARD = {"stft_packed": 1, "istft_packed": 1, "dwconv1d": 48, "quad_attention": 24,
+                   "relpos_scores": 0}
+# ZipEnhancer launches per forward: 8 Zipformer2 layers (4 encoders × a
+# frequency and a time layer), each with one score stage (B3) and two conv
+# modules (B4)
+ZIP_PER_FORWARD = {"stft_packed": 1, "istft_packed": 1, "dwconv1d": 16, "quad_attention": 0,
+                   "relpos_scores": 8}
 # ~1 ms at the H100's clock: longer than the host takes to issue any timed call
 SPIN_CYCLES = 2_000_000
 
@@ -81,9 +103,10 @@ def cuda_rows(fn, expect: dict[str, int], calls: int = 1) -> list:
     which makes ``calls`` identical calls of the function measured.
 
     The profiler has been seen to drop device records on the H100 (a whole
-    trace, or most of one), so a trace counts only when it holds a multiple of
-    ``calls`` launches, every kernel named in ``expect`` appears exactly that
-    many times and the total launch count agrees with the previous attempt's;
+    trace, or most of one, or a few of ~12k), so a trace counts only when every
+    kernel named in ``expect`` appears exactly that many times and the total
+    launch count agrees with the previous attempt's, to a thousandth (exactly
+    below 1,000 launches, where it must also be a multiple of ``calls``);
     otherwise it is taken again."""
     previous = None
     for _ in range(5):
@@ -93,7 +116,8 @@ def cuda_rows(fn, expect: dict[str, int], calls: int = 1) -> list:
         rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         launches = sum(e.count for e in rows)
         named = {k: sum(e.count for e in rows if k in e.key) for k in expect}
-        if launches and launches % calls == 0 and named == expect and launches == previous:
+        agrees = previous is not None and abs(launches - previous) <= launches // 1000
+        if launches and named == expect and agrees and (launches >= 1000 or launches % calls == 0):
             return rows
         previous = launches
     fail(f"torch.profiler gave no two consistent traces ({named}, {launches} launches)")
@@ -184,11 +208,13 @@ def check_kernels(dev) -> dict:
     """Phase 3; returns each kernel's row at the MossFormerGAN 30 s serving shape."""
     from audiojax_torch.dsp.stft import StftConfig, _window_np
     from audiojax_torch.models.mossformergan_se import MossFormerGanConfig
+    from audiojax_torch.models.zipenhancer import ZipEnhancerConfig
     from audiojax_torch.ops import stft_cuda as K
 
     gtcrn = StftConfig(512, 256, window="hann_sqrt", pad_mode="reflect")
     gan = MossFormerGanConfig().stft
     gan_fold = MossFormerGanConfig().fold_window
+    zip_cfg = ZipEnhancerConfig()
     cases = [  # (label, config, batch, length)
         # MossFormerGAN serving shapes: 30 s request (8 windows, 32 folds), 6 s (4 folds)
         ("mossformergan 400/100 hamming reflect", gan, 32, gan_fold),
@@ -196,8 +222,9 @@ def check_kernels(dev) -> dict:
         ("gtcrn 512/256 hann_sqrt reflect", gtcrn, 16, 32000),  # serving shape, 30 s request
         ("gtcrn 512/256 hann_sqrt reflect", gtcrn, 4, 32000),   # 7 s request
         ("gtcrn 512/256 hann_sqrt reflect", gtcrn, 1, 32000),   # 1.3 s request
-        ("zipenhancer 400/100 hann reflect", StftConfig(400, 100, window="hann",
-                                                        pad_mode="reflect"), 4, 32000),
+        # ZipEnhancer serving shapes: 30 s request (32 folds), 6 s (4 folds)
+        ("zipenhancer 400/100 hann reflect", zip_cfg.stft, 32, zip_cfg.fold_window),
+        ("zipenhancer 400/100 hann reflect", zip_cfg.stft, 4, zip_cfg.fold_window),
         ("odd 319/160 hamming constant", StftConfig(319, 160, window="hamming",
                                                     pad_mode="constant"), 4, 16000),
         ("melband 2048/441 hann reflect", StftConfig(2048, 441, window="hann",
@@ -325,7 +352,10 @@ def ref_quad64(q: np.ndarray, k: np.ndarray, v: np.ndarray, scale: float,
 
 # (label, (B, T, C), k, (lo, hi), dilation): the MossFormerGAN serving shapes
 # at one 6 s window (4 folds of 241 frames, 101 sub-bands), the 30 s request's
-# largest (32 folds), and one long dilated shape for B5's contract.
+# largest (32 folds); ZipEnhancer's conv modules (C=64, k31) at a 6 s window,
+# whose ts0/ts3 shapes are the GAN's out_conv ones, on the downsampled
+# encoders' ragged T, and at the 30 s request; one long dilated shape for B5's
+# contract.
 B4_CASES = [
     ("intra uv", (964, 98, 256), 31, (15, 15), 1),
     ("intra fsmn", (964, 98, 128), 39, (19, 19), 1),
@@ -336,6 +366,12 @@ B4_CASES = [
     ("inter gau in_conv", (404, 241, 256), 31, (15, 15), 1),
     ("inter gau out_conv", (404, 241, 64), 31, (15, 15), 1),
     ("30 s intra gau in_conv", (7712, 101, 256), 31, (15, 15), 1),
+    ("zip ts1 f conv", (484, 51, 64), 31, (15, 15), 1),
+    ("zip ts1 t conv", (204, 121, 64), 31, (15, 15), 1),
+    ("zip ts2 f conv", (244, 26, 64), 31, (15, 15), 1),
+    ("zip ts2 t conv", (104, 61, 64), 31, (15, 15), 1),
+    ("zip 30 s f conv", (7712, 101, 64), 31, (15, 15), 1),
+    ("zip 30 s t conv", (3232, 241, 64), 31, (15, 15), 1),
     ("B5 dilated", (4, 4000, 256), 39, (38, 38), 2),
 ]
 # (label, N, S, mask_diag), K = V = 128
@@ -448,8 +484,14 @@ def snr_db(ref: np.ndarray, out: np.ndarray) -> float:
     return float("inf") if err == 0.0 else 10.0 * np.log10(float(np.sum(ref * ref)) / err)
 
 
-def serve(card: str) -> None:
-    """Phase 5."""
+def kernel_modules() -> tuple:
+    from audiojax_torch.ops import attention_cuda, dwconv_cuda, stft_cuda
+
+    return stft_cuda, dwconv_cuda, attention_cuda
+
+
+def serve(card: str) -> dict:
+    """Phase 5; returns the kernels' launch counts over the measured requests."""
     from audiojax_torch.ops import stft_cuda as K
     from audiojax_torch.runtime import registry
     from audiojax_torch.runtime.session import Session
@@ -463,14 +505,15 @@ def serve(card: str) -> None:
                 ("30 s", noisy_speech(30 * SR, 3))]
     session.process(requests[0][1])  # warm-up: cuDNN and allocator set-up
 
-    K.reset_launches()
+    for mod in kernel_modules():
+        mod.reset_launches()
     runs = {label: [] for label, _ in requests}
     for _ in range(SERVE_REPEATS):  # the three requests in turn, SERVE_REPEATS times
         for label, audio in requests:
             runs[label].append(session.process(audio))
-    counts = dict(K.launches)
-    for name, n in counts.items():
-        if n <= 0:
+    counts = {name: n for mod in kernel_modules() for name, n in mod.launches.items()}
+    for name in K.launches:
+        if counts[name] <= 0:
             fail(f"serving did not launch {name}")
 
     for label, audio in requests:
@@ -505,43 +548,51 @@ def serve(card: str) -> None:
     print(f"serve gtcrn {label} card vs CPU: SNR {snr:.2f} dB", flush=True)
     if not snr >= MIN_SNR_DB:
         fail(f"card vs CPU SNR {snr:.2f} dB < {MIN_SNR_DB}")
+    return counts
 
 
-# ── phase 6 ────────────────────────────────────────────────────────────────
+# ── phases 6 and 8 ─────────────────────────────────────────────────────────
+
+# each kernel's name in a torch.profiler trace (a substring of its symbol)
+PROFILE_KEYS = {"stft_packed": "::stft_kernel", "istft_packed": "::istft_kernel",
+                "dwconv1d": "dwconv_kernel", "quad_attention": "quad_attention_kernel",
+                "relpos_scores": "relpos"}
 
 
-def serve_gan(card: str) -> dict:
-    """Phase 6; returns the kernels' launch counts over the measured requests."""
-    from audiojax_torch.ops import attention_cuda, dwconv_cuda, stft_cuda
+def serve_folded(card: str, name: str, per_forward: dict, seeds: tuple,
+                 lead_silence: int = 0) -> dict:
+    """Phases 6 and 8: serve ``name`` (6 s windows, each folded into 1.5 s fold
+    windows) at full width and depth; returns the kernels' launch counts over
+    the measured requests.  The clip held card against CPU starts with
+    ``lead_silence`` zero samples."""
     from audiojax_torch.runtime import registry
     from audiojax_torch.runtime.session import Session
 
-    kernel_modules = (stft_cuda, dwconv_cuda, attention_cuda)
-
-    spec = registry.get("mossformergan_se")
+    spec = registry.get(name)
     cfg = spec.make_config()
     manifest = spec.make_manifest(cfg)
     window = manifest.input_audio_length
+    folds = window // cfg.fold_window
     model = spec.make_module(spec.init_params(0, cfg, "cuda"), cfg)
     session = Session(model, manifest, device="cuda")
-    requests = [("6 s", noisy_speech(6 * SR, 11)), ("30 s", noisy_speech(30 * SR, 12))]
+    requests = [("6 s", noisy_speech(6 * SR, seeds[0])), ("30 s", noisy_speech(30 * SR, seeds[1]))]
     t0 = time.perf_counter()
     session.process(requests[0][1])  # warm-up: cuBLAS, cuDNN and allocator set-up
-    print(f"serve mossformergan_se warm-up (6 s request): "
+    print(f"serve {name} warm-up (6 s request): "
           f"{(time.perf_counter() - t0) * 1e3:.3f} ms  [{card}]", flush=True)
 
-    for mod in kernel_modules:
+    for mod in kernel_modules():
         mod.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     runs = {label: [] for label, _ in requests}
     for _ in range(SERVE_REPEATS):  # the two requests in turn, SERVE_REPEATS times
         for label, audio in requests:
             runs[label].append(session.process(audio))
-    counts = {name: n for mod in kernel_modules for name, n in mod.launches.items()}
+    counts = {k: n for mod in kernel_modules() for k, n in mod.launches.items()}
     forwards = SERVE_REPEATS * len(requests)  # one forward per request
-    expect = {name: forwards * n for name, n in GAN_PER_FORWARD.items()}
+    expect = {k: forwards * n for k, n in per_forward.items()}
     if counts != expect:
-        fail(f"mossformergan_se serving launched {counts}, expected {expect}")
+        fail(f"{name} serving launched {counts}, expected {expect}")
 
     for label, audio in requests:
         for r in runs[label]:
@@ -553,45 +604,146 @@ def serve_gan(card: str) -> dict:
         ms = sorted(r.elapsed_s * 1e3 for r in runs[label])
         med = float(np.median(ms))
         n_win = -(-audio.size // window)
-        print(f"serve mossformergan_se {label:5s} ({audio.size} samples, {n_win} windows → "
-              f"{1 << (n_win - 1).bit_length()}, {4 * (1 << (n_win - 1).bit_length())} folds): "
+        bucket = 1 << (n_win - 1).bit_length()
+        print(f"serve {name} {label:5s} ({audio.size} samples, {n_win} windows → "
+              f"{bucket}, {folds * bucket} folds): "
               f"elapsed ms median {med:.3f} (min {ms[0]:.3f}, max {ms[-1]:.3f}, n={len(ms)}), "
               f"RTF median {med / 1e3 / runs[label][0].audio_duration_s:.6f}  [{card}]",
               flush=True)
-    print(f"serve mossformergan_se launches over {SERVE_REPEATS} x {len(requests)} requests: "
+    print(f"serve {name} launches over {SERVE_REPEATS} x {len(requests)} requests: "
           f"{counts}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
 
     label, audio = requests[0]
     elapsed_ms = float(np.median([r.elapsed_s * 1e3 for r in runs[label]]))
     rows = cuda_rows(lambda: session.process(audio),
-                     {"::stft_kernel": 1, "::istft_kernel": 1, "dwconv_kernel": 48,
-                      "quad_attention_kernel": 24})
+                     {PROFILE_KEYS[k]: n for k, n in per_forward.items()})
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    print(f"profile mossformergan_se {label}: {sum(e.count for e in rows)} device launches, "
+    print(f"profile {name} {label}: {sum(e.count for e in rows)} device launches, "
           f"device busy {busy_ms:.3f} ms of {elapsed_ms:.3f} ms median elapsed unprofiled "
           f"(idle share {1.0 - busy_ms / elapsed_ms:.4f})  [{card}]", flush=True)
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}", flush=True)
-    for key in ("::stft_kernel", "::istft_kernel", "dwconv_kernel", "quad_attention_kernel"):
-        mine = [e for e in rows if key in e.key]
-        print(f"profile mossformergan_se {label}: {key.lstrip(':')} "
+    for k, n in per_forward.items():
+        if not n:
+            continue
+        mine = [e for e in rows if PROFILE_KEYS[k] in e.key]
+        print(f"profile {name} {label}: {k} "
               f"{sum(e.self_device_time_total for e in mine) / 1e3:.3f} ms device time over "
               f"{sum(e.count for e in mine)} launches (same trace)", flush=True)
 
     # card vs CPU on one 1.5 s fold window, through the module
-    clip = torch.from_numpy(noisy_speech(cfg.fold_window, 13)[None])
+    clip_np = noisy_speech(cfg.fold_window, seeds[2])
+    clip_np[:lead_silence] = 0
+    clip = torch.from_numpy(clip_np[None])
     cpu_model = spec.make_module(spec.init_params(0, cfg, "cpu"), cfg)
     with torch.inference_mode():
         card_out = model(clip.cuda()).cpu().numpy()
         t0 = time.perf_counter()
         cpu_out = cpu_model(clip).numpy()
     snr = snr_db(cpu_out, card_out)
-    print(f"serve mossformergan_se 1.5 s fold card vs CPU: SNR {snr:.2f} dB (CPU forward "
+    print(f"serve {name} 1.5 s fold card vs CPU: SNR {snr:.2f} dB (CPU forward "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
     if not snr >= MIN_SNR_DB:
-        fail(f"mossformergan_se card vs CPU SNR {snr:.2f} dB < {MIN_SNR_DB}")
+        fail(f"{name} card vs CPU SNR {snr:.2f} dB < {MIN_SNR_DB}")
+    if lead_silence:
+        frame0_witness(name, model, cpu_model, noisy_speech(cfg.fold_window, seeds[2]))
     return counts
+
+
+def frame0_witness(name: str, model, cpu_model, clip_np: np.ndarray) -> None:
+    """The fold without its leading silence: card and CPU may part at the first
+    STFT frame only, whose phase feature is the sign of rounding noise
+    (``tests/test_torch_zipenhancer.py``).  With the CPU's frame 0 put into its
+    own STFT, the card must pass the SNR gate."""
+    mod = sys.modules[type(model).__module__]
+    kernel_stft, cpu_frame0, swap = mod.fast_stft_packed, [], [False]
+
+    def stft(x, stft_cfg):
+        pk = kernel_stft(x, stft_cfg)
+        if not pk.is_cuda:
+            cpu_frame0.append(pk[:, 0].clone())
+        elif swap[0]:
+            pk[:, 0] = cpu_frame0[0].to(pk.device)
+        return pk
+
+    clip = torch.from_numpy(clip_np[None])
+    mod.fast_stft_packed = stft
+    try:
+        with torch.inference_mode():
+            cpu_out = cpu_model(clip).numpy()
+            card_out = model(clip.cuda()).cpu().numpy()
+            swap[0] = True
+            swapped = model(clip.cuda()).cpu().numpy()
+    finally:
+        mod.fast_stft_packed = kernel_stft
+    snr, snr_swapped = snr_db(cpu_out, card_out), snr_db(cpu_out, swapped)
+    print(f"serve {name} 1.5 s fold without the silence: card vs CPU SNR {snr:.2f} dB; "
+          f"card with the CPU's frame 0 {snr_swapped:.2f} dB", flush=True)
+    if not snr_swapped >= MIN_SNR_DB:
+        fail(f"{name} card with the CPU's frame 0 vs CPU SNR {snr_swapped:.2f} dB < {MIN_SNR_DB}")
+
+
+# ── phase 7 ────────────────────────────────────────────────────────────────
+
+
+def ref_relpos64(q: np.ndarray, k: np.ndarray, pp: np.ndarray, pe: np.ndarray) -> np.ndarray:
+    h, n_pos = pe.shape[:2]
+    n, s, hd = q.shape
+    qh = q.reshape(n, s, h, hd // h).transpose(0, 2, 1, 3)
+    kh = k.reshape(n, s, h, hd // h).transpose(0, 2, 3, 1)
+    pph = pp.reshape(n, s, h, -1)[..., :n_pos]
+    scores = np.matmul(qh, kh) + np.einsum("nihp,hpij->nhij", pph, pe, optimize=True)
+    e = np.exp(scores - scores.max(-1, keepdims=True))
+    return e / e.sum(-1, keepdims=True)
+
+
+# (label, N, S): ZipEnhancer's serving shapes at one 6 s window (4 folds of
+# 241 frames, 101 bins after the encoder's strided conv; encoder 1 pools 2×2,
+# encoder 2 4×4), the 30 s request's two largest (32 folds), and one row
+# longer than 256 keys for the two-pass route.  H = 4, D = 32, P = 4 (stride 8).
+B3_CASES = [
+    ("ts0/ts3 f path", 964, 101),
+    ("ts0/ts3 t path", 404, 241),
+    ("ts1 f path", 484, 51),
+    ("ts1 t path", 204, 121),
+    ("ts2 f path", 244, 26),
+    ("ts2 t path", 104, 61),
+    ("30 s f path", 7712, 101),
+    ("30 s t path", 3232, 241),
+    ("two-pass", 16, 601),
+]
+
+
+def check_zip_kernels(dev) -> dict:
+    """Phase 7; returns B3's row at its first serving shape."""
+    from audiojax_torch.ops import attention_cuda as A
+
+    h, d, n_pos = 4, 32, 4
+    stride = A.pos_stride(n_pos)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    serving = {}
+    for label, n, s in B3_CASES:
+        # q, k and pp as lane slices of one packed projection, as the model has them
+        proj = 0.5 * torch.randn((n, s, 2 * h * d + h * stride), generator=gen, device=dev)
+        q, k, pp = proj[..., : h * d], proj[..., h * d : 2 * h * d], proj[..., 2 * h * d :]
+        pe = 0.5 * torch.randn((h, n_pos, s, s), generator=gen, device=dev)
+        rows = torch.linspace(0, n - 1, min(n, F64_ROWS), device=dev).long().unique()
+        run = lambda: A.relpos_scores_cuda(q, k, pp, pe, num_heads=h)  # noqa: E731
+        plain = lambda: A.relpos_scores_plain(q, k, pp, pe, num_heads=h)  # noqa: E731
+        pe64 = pe.double().cpu().numpy()
+        row = _hold("relpos_scores", label, run(), plain(), lambda r: ref_relpos64(
+            *(a[r].double().cpu().numpy() for a in (q, k, pp)), pe64), rows)
+        row["ms"], row["plain_ms"], row["library_ms"] = device_ms(run), device_ms(plain), None
+        # per probability: D-term dot product, P-term bias, max, subtract,
+        # exp, sum, divide; bytes: q, k, pp and pe read once, probs written once
+        row["bound_ms"], row["bound_by"] = bound(
+            n * h * s * s * (2.0 * d + 2.0 * n_pos + 5.0),
+            4.0 * (n * s * proj.shape[-1] + h * n_pos * s * s + n * h * s * s))
+        _report("relpos_scores", label, f"({n}, {s}) H{h} D{d} P{n_pos}", row)
+        serving.setdefault("relpos_scores", row)
+        del proj, q, k, pp, pe
+    return serving
 
 
 def build_all() -> None:
@@ -629,9 +781,16 @@ def main() -> int:
     build_all()
     rows = check_kernels(dev)
     rows.update(check_gan_kernels(dev))
-    serve(card)
-    # every kernel reports its launches on the MossFormerGAN path, which runs all four
-    counts = serve_gan(card)
+    by_path = {"gtcrn": serve(card)}
+    by_path["mossformergan_se"] = serve_folded(card, "mossformergan_se", GAN_PER_FORWARD,
+                                               (11, 12, 13))
+    rows.update(check_zip_kernels(dev))
+    # the first frame of a reflect-padded fold window is symmetric and its
+    # phase feature the sign of rounding noise: the clip held card against CPU
+    # starts with that frame's 201 samples silent (frame0_witness holds the
+    # cause on the same clip without them)
+    by_path["zipenhancer"] = serve_folded(card, "zipenhancer", ZIP_PER_FORWARD, (21, 22, 23),
+                                          lead_silence=201)
 
     sources = {
         "stft_packed": ("audiojax_torch/csrc/stft.cu", "audiojax/ops/stft_pallas.py:207"),
@@ -639,12 +798,18 @@ def main() -> int:
         "dwconv1d": ("audiojax_torch/csrc/dwconv.cu", "audiojax/ops/dwconv_pallas.py:52"),
         "quad_attention": ("audiojax_torch/csrc/quad_attention.cu",
                            "audiojax/ops/attention_pallas.py:61"),
+        "relpos_scores": ("audiojax_torch/csrc/relpos_scores.cu",
+                          "audiojax/ops/attention_pallas.py:195"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
         row = rows[name]
+        paths = {path: counts[name] for path, counts in by_path.items()}
+        if not any(paths.values()):
+            fail(f"{name} was launched on no served path")
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": counts[name],
+                        "replaces": replaces, "launches": sum(paths.values()),
+                        "launches_by_path": paths,
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

@@ -1,11 +1,13 @@
-"""The plain versions of the port's kernels B4 and B6 against the JAX package.
+"""The plain versions of the port's kernels B3, B4 and B6 against the JAX package.
 
-``dwconv1d_plain`` and ``quad_attention_plain`` are what the port runs on the
-CPU and what ``chip_smoke.py`` holds the CUDA kernels to on the card.  Here
-they meet the JAX package's reference paths (``dwconv1d_jnp``,
-``quad_attention_jnp``) and its Pallas kernels run in interpret mode, on the
-same numpy inputs.  Tolerance: 1e-5 × max|ref|, float32 sums of at most a
-few hundred terms in another order.
+``relpos_scores_plain``, ``dwconv1d_plain`` and ``quad_attention_plain`` are
+what the port runs on the CPU and what ``chip_smoke.py`` holds the CUDA
+kernels to on the card.  Here they meet the JAX package's reference paths
+(``relpos_scores_jnp``, ``dwconv1d_jnp``, ``quad_attention_jnp``) and its
+Pallas kernels run in interpret mode, on the same numpy inputs.  Tolerance:
+1e-5 × max|ref|, float32 sums of at most a few hundred terms in another
+order; B3's probabilities to atol 2e-5, the tolerance of the JAX package's
+own rel-pos test (``tests/test_ops_pallas.py``).
 """
 import numpy as np
 import pytest
@@ -13,7 +15,9 @@ import torch
 
 import jax.numpy as jnp
 
-from audiojax.ops.attention_pallas import quad_attention_jnp, quad_attention_pallas
+from audiojax.ops.attention_pallas import pos_stride as j_pos_stride
+from audiojax.ops.attention_pallas import (quad_attention_jnp, quad_attention_pallas,
+                                           relpos_scores_jnp, relpos_scores_pallas)
 from audiojax.ops.dwconv_pallas import dwconv1d_jnp, dwconv1d_pallas, dwconv1d_pallas_tiled
 
 from audiojax_torch.ops import attention_cuda, dwconv_cuda
@@ -78,6 +82,62 @@ def test_quad_attention_plain_matches_jnp_and_pallas(n, s, k, v, mask):
                                       interpret=True))
 
 
+# ── B3: rel-pos attention scores ───────────────────────────────────────────
+
+
+def _relpos_inputs(rng, n, h, s, d, p):
+    """q, k (N, S, H·D) and pp (N, S, H·stride) as lane slices of one packed
+    projection, as ``attention_weights`` makes them; pe (H, P, S, S)."""
+    stride = attention_cuda.pos_stride(p)
+    pp = _rand(rng, n, s, h, stride)
+    pp[..., p:] = 0.0  # slot tails are zero-padded by the producer
+    proj = np.concatenate([_rand(rng, n, s, 2 * h * d), pp.reshape(n, s, h * stride)], axis=-1)
+    pe = _rand(rng, h, p, s, s)
+    return proj[..., : h * d], proj[..., h * d : 2 * h * d], proj[..., 2 * h * d :], pe
+
+
+@pytest.mark.parametrize("n,h,s,d,p", [
+    (7, 2, 33, 16, 4),
+    (4, 4, 50, 32, 4),   # zipformer frequency-path geometry (scaled down)
+    (3, 2, 21, 8, 2),
+    (3, 2, 21, 8, 9),    # pos dim past one 8-lane stride slot
+])
+def test_relpos_scores_plain_matches_jnp(n, h, s, d, p):
+    """The four shapes of the JAX package's rel-pos test, with float32 pe."""
+    rng = np.random.default_rng(3)
+    q, k, pp, pe = _relpos_inputs(rng, n, h, s, d, p)
+    assert attention_cuda.pos_stride(p) == j_pos_stride(p)
+    ref = np.asarray(relpos_scores_jnp(*(jnp.asarray(a) for a in (q, k, pp, pe)), num_heads=h))
+    out = attention_cuda.relpos_scores_plain(*(torch.from_numpy(a) for a in (q, k, pp, pe)),
+                                             num_heads=h)
+    assert tuple(out.shape) == ref.shape == (n, h, s, s) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=0)
+    np.testing.assert_allclose(out.sum(-1).numpy(), 1.0, atol=1e-5)
+
+
+def test_relpos_scores_plain_matches_pallas():
+    """Against the Pallas kernel in interpret mode, with pe pre-rounded to
+    bf16 (that kernel keeps its table in bf16; here both see the same values)."""
+    rng = np.random.default_rng(4)
+    q, k, pp, pe = _relpos_inputs(rng, 5, 2, 19, 8, 4)
+    pe16 = jnp.asarray(pe).astype(jnp.bfloat16)
+    ref = np.asarray(relpos_scores_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(pp), pe16,
+                                          interpret=True))
+    out = attention_cuda.relpos_scores_plain(
+        *(torch.from_numpy(a) for a in (q, k, pp)),
+        torch.from_numpy(np.array(pe16.astype(jnp.float32))), num_heads=2)
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=0)
+
+
+def test_relpos_scores_checks():
+    rng = np.random.default_rng(5)
+    q, k, pp, pe = (torch.from_numpy(a) for a in _relpos_inputs(rng, 2, 2, 6, 4, 4))
+    with pytest.raises(ValueError, match="do not fit"):
+        attention_cuda.relpos_scores_plain(q, k, pp, pe, num_heads=3)
+    with pytest.raises(ValueError, match="slot holds"):
+        attention_cuda.relpos_scores_plain(q, k, pp[..., :6], pe, num_heads=2)
+
+
 # ── the kernel modules on the CPU ──────────────────────────────────────────
 
 
@@ -93,9 +153,22 @@ def test_fast_paths_take_plain_on_cpu():
     assert torch.equal(o, attention_cuda.quad_attention_plain(q, k, v, scale=0.5, mask_diag=True))
 
 
+def test_fast_relpos_scores_takes_plain_on_cpu():
+    attention_cuda.reset_launches()
+    q, k, pp, pe = (torch.from_numpy(a)
+                    for a in _relpos_inputs(np.random.default_rng(6), 3, 2, 10, 8, 4))
+    out = attention_cuda.fast_relpos_scores(q, k, pp, pe, num_heads=2)
+    assert attention_cuda.launches["relpos_scores"] == 0  # no kernel launched
+    assert torch.equal(out, attention_cuda.relpos_scores_plain(q, k, pp, pe, num_heads=2))
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         dwconv_cuda.dwconv1d_cuda(torch.zeros(1, 8, 4), torch.zeros(3, 4))
     with pytest.raises(ValueError, match="CUDA tensor"):
         attention_cuda.quad_attention_cuda(torch.zeros(1, 8, 4), torch.zeros(1, 8, 4),
                                            torch.zeros(1, 8, 4), scale=1.0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        attention_cuda.relpos_scores_cuda(torch.zeros(1, 8, 8), torch.zeros(1, 8, 8),
+                                          torch.zeros(1, 8, 16), torch.zeros(2, 4, 8, 8),
+                                          num_heads=2)

@@ -21,6 +21,7 @@ from audiojax.runtime.session import Session as JSession
 from audiojax_torch.models.gtcrn import GTCRN, GtcrnConfig, init_gtcrn, init_gtcrn_numpy
 from audiojax_torch.models.mossformergan_se import (MossFormerGAN, MossFormerGanConfig,
                                                     init_mossformergan)
+from audiojax_torch.models.zipenhancer import ZipEnhancerConfig, init_zipenhancer
 from audiojax_torch.ops import _build
 from audiojax_torch.params import params_from_numpy
 from audiojax_torch.runtime import cli, registry
@@ -38,6 +39,7 @@ def test_import_pulls_in_no_jax():
         "import importlib, pkgutil, sys, audiojax_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(audiojax_torch.__path__, 'audiojax_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
+        "assert {'audiojax_torch.nn.zipformer', 'audiojax_torch.models.zipenhancer'} <= set(mods)\n"
         "assert len(mods) > 15, mods\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'audiojax'))\n"
         "assert not bad, bad\n"
@@ -96,6 +98,8 @@ def test_entry_points_default_to_the_card(no_cuda):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         Session(gan, gan_manifest)
     Session(gan, gan_manifest, device="cpu")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        init_zipenhancer(0, ZipEnhancerConfig())
 
 
 def test_kernel_build_failure_raises(monkeypatch, tmp_path):
@@ -151,7 +155,7 @@ def test_cli_denoises_on_cpu(tmp_path, capsys):
 
 def test_cli_list_and_default_device(no_cuda, tmp_path, capsys):
     assert cli.main(["--list"]) == 0
-    assert capsys.readouterr().out.split() == ["gtcrn", "mossformergan_se"]
+    assert capsys.readouterr().out.split() == ["gtcrn", "mossformergan_se", "zipenhancer"]
     src = tmp_path / "in.wav"
     _write_wav(src, np.zeros(16000, np.int16))
     with pytest.raises(RuntimeError, match='device="cpu"'):
