@@ -12,35 +12,40 @@ __all__ = ["ParamModule", "glorot_np", "dense_np", "conv_np"]
 class ParamModule(nn.Module):
     """A model whose converted parameter tree is held as buffers.
 
-    ``params`` is the nested dict view that the functional API takes; the
-    buffers move with ``.to(device)``.  A subclass defines ``forward``."""
+    ``params`` is the nested view that the functional API takes, rebuilt from
+    the tree's own shape (which nodes are dicts and which lists), as recorded
+    when the module was made; the buffers move with ``.to(device)``.  A
+    subclass defines ``forward``."""
 
     _SEP = "__"
 
     def __init__(self, params: dict, cfg):
         super().__init__()
         self.cfg = cfg
-        for path, leaf in _flatten(params):
-            self.register_buffer(self._SEP.join(path), leaf)
+        self._skeleton = self._register(params, ())
+
+    def _register(self, node, path: tuple):
+        """Hold ``node``'s leaves as buffers; return ``node`` with each leaf
+        replaced by its buffer's name."""
+        if isinstance(node, dict):
+            return {k: self._register(v, path + (str(k),)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [self._register(v, path + (str(i),)) for i, v in enumerate(node)]
+        name = self._SEP.join(path)
+        self.register_buffer(name, node)
+        return name
 
     @property
     def params(self) -> dict:
-        tree: dict = {}
-        for name, leaf in self.named_buffers():
-            *outer, last = name.split(self._SEP)
-            node = tree
-            for k in outer:
-                node = node.setdefault(k, {})
-            node[last] = leaf
-        return tree
+        return _fill(self._skeleton, dict(self.named_buffers()))
 
 
-def _flatten(tree, prefix=()):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _flatten(v, prefix + (k,))
-        else:
-            yield prefix + (k,), v
+def _fill(node, buffers: dict):
+    if isinstance(node, dict):
+        return {k: _fill(v, buffers) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_fill(v, buffers) for v in node]
+    return buffers[node]
 
 
 def glorot_np(rng: np.random.Generator, shape) -> np.ndarray:

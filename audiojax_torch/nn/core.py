@@ -1,7 +1,7 @@
 """Core NN building blocks in PyTorch — functional, channel-last.
 
-Counterpart of ``audiojax.nn.core``, with what GTCRN, MossFormerGAN and
-ZipEnhancer use.  Functions take a parameter dict and tensors; feature maps
+Counterpart of ``audiojax.nn.core``, with what GTCRN, MossFormerGAN,
+ZipEnhancer and MossFormer2-SS use.  Functions take a parameter dict and tensors; feature maps
 are channel-last ``(B, T, C)`` or ``(B, T, F, C)`` at every function's
 boundary, as in the JAX package, so the tests compare like with like.
 
@@ -17,14 +17,16 @@ Weight layouts (set once by ``audiojax_torch.params.params_from_numpy``):
 Routing goes by contract, not by shape: every true depthwise conv1d (one
 input channel per group, ``groups == C``, stride 1) runs on the depthwise
 kernel B4 (``ops.dwconv_cuda``) at any width, length and dilation; every
-other conv runs on ``F.conv1d`` / ``F.conv2d``.
+grouped conv1d with two input channels and one output channel per group
+(torch weight ``(G, 2, k)``, ``groups == G``, ``C == 2G``, stride 1) runs on
+the grouped kernel B5; every other conv runs on ``F.conv1d`` / ``F.conv2d``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..ops.dwconv_cuda import fast_dwconv1d
+from ..ops.dwconv_cuda import fast_dwconv1d, fast_dwconv1d_grouped
 
 __all__ = ["dense", "prelu", "conv1d", "conv1d_transpose", "conv2d", "conv2d_transpose",
            "layer_norm"]
@@ -71,6 +73,10 @@ def conv1d(p, x: torch.Tensor, *, stride: int = 1, padding=0, dilation: int = 1,
     if w.shape[1] == 1 and w.shape[0] == groups == c and stride == 1:
         y = fast_dwconv1d(x.contiguous(), w[:, 0, :].t().contiguous(), pads=(lo, hi),
                           dilation=dilation)
+        return y + p["b"] if "b" in p else y
+    if w.shape[1] == 2 and w.shape[0] == groups and c == 2 * groups and stride == 1:
+        y = fast_dwconv1d_grouped(x.contiguous(), w.permute(2, 1, 0).contiguous(),
+                                  pads=(lo, hi), dilation=dilation)
         return y + p["b"] if "b" in p else y
     xc = x.transpose(1, 2)
     if lo != hi:

@@ -1,7 +1,9 @@
 """Parameter conversion: the JAX package's parameter tree → the port's tensors.
 
 The input is a nested dict of numpy arrays, as ``jax.tree.map(np.asarray,
-params)`` gives it; the output has the same keys.  Every layout change
+params)`` gives it; lists (MossFormer2-SS's ``mem_stack``, a list of dicts)
+stay lists in the same order, and their items are converted as leaves of the
+list's key.  The output has the same keys.  Every layout change
 happens here, once:
 
   * a 4-D ``w`` is a conv2d kernel stored HWIO ``(kh, kw, in/groups, out)``
@@ -14,7 +16,8 @@ happens here, once:
   * every other leaf (dense ``(in, out)``, GRU ``(…, in, 3H)``, biases,
     PReLU slopes, LayerNorm gains) keeps its layout.
 
-A ``w`` of any other rank has no port layout and is refused.
+A ``w`` of any other rank has no port layout and is refused, and so is a
+leaf that is not float32 (an object array among them).
 """
 from __future__ import annotations
 
@@ -26,25 +29,30 @@ from .device import resolve_device
 __all__ = ["params_from_numpy"]
 
 
-def _leaf(key: str, a, device: torch.device) -> torch.Tensor:
+def _leaf(path: str, key: str, a, device: torch.device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype != np.float32:
-        raise TypeError(f"parameter {key!r} is {a.dtype}; the port takes float32 trees")
+        raise TypeError(f"parameter {path!r} is {a.dtype}; the port takes float32 trees "
+                        "(dicts and lists of float32 arrays)")
     if key == "w" and a.ndim == 4:
         a = np.transpose(a, (3, 2, 0, 1))
     elif key == "w" and a.ndim == 3:
         a = np.transpose(a, (2, 1, 0))
     elif key == "w" and a.ndim != 2:
-        raise ValueError(f"no port layout for a {a.ndim}-D weight {a.shape}")
+        raise ValueError(f"no port layout for a {a.ndim}-D weight {a.shape} at {path!r}")
     return torch.from_numpy(np.array(a, order="C")).to(device)  # a writable copy
 
 
 def params_from_numpy(tree: dict, device=None) -> dict:
-    """Convert a nested dict of numpy arrays to the port's tensors on ``device``
-    (default: the card)."""
+    """Convert a nested dict (and list) tree of numpy arrays to the port's
+    tensors on ``device`` (default: the card)."""
     dev = resolve_device(device)
 
-    def conv(node):
-        return {k: conv(v) if isinstance(v, dict) else _leaf(k, v, dev) for k, v in node.items()}
+    def conv(node, path: str, key: str):
+        if isinstance(node, dict):
+            return {k: conv(v, f"{path}/{k}" if path else k, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v, f"{path}/{i}", key) for i, v in enumerate(node)]
+        return _leaf(path, key, node, dev)
 
-    return conv(tree)
+    return conv(tree, "", "")

@@ -101,6 +101,38 @@ def _register_zipenhancer():
     )
 
 
+def _mossformer2_ss_manifest(cfg):
+    return Manifest(
+        model_name="mossformer2_ss",
+        task="separation",
+        model_family="mossformer2_ss",
+        in_sample_rate=cfg.in_sample_rate,
+        out_sample_rate=cfg.out_sample_rate,
+        model_sample_rate=cfg.sample_rate,
+        input_audio_length=32000 * cfg.in_sample_rate // 16000,
+        max_dynamic_audio_seconds=6,
+        output_sources=cfg.num_spks,
+        pad_head=8000,
+        enc_stride=cfg.enc_stride,
+        extra={"num_spks": cfg.num_spks, "depth": cfg.depth},
+    )
+
+
+def _register_mossformer2_ss():
+    from ..models.mossformer2_ss import MossFormer2SS, MossFormer2SsConfig, init_mossformer2_ss
+
+    register(
+        ModelSpec(
+            name="mossformer2_ss",
+            task="separation",
+            make_config=MossFormer2SsConfig,
+            init_params=init_mossformer2_ss,
+            make_module=MossFormer2SS,
+            make_manifest=_mossformer2_ss_manifest,
+        )
+    )
+
+
 def _register_gtcrn():
     from ..models.gtcrn import GTCRN, GtcrnConfig, init_gtcrn
 
@@ -119,3 +151,4 @@ def _register_gtcrn():
 _register_gtcrn()
 _register_mossformergan()
 _register_zipenhancer()
+_register_mossformer2_ss()

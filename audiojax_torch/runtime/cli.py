@@ -4,6 +4,8 @@
     python -m audiojax_torch.runtime.cli --model gtcrn --input noisy.wav --device cpu --seed 3
     python -m audiojax_torch.runtime.cli --model mossformergan_se --input noisy.wav --output clean.wav
     python -m audiojax_torch.runtime.cli --model zipenhancer --input noisy.wav --output clean.wav
+    python -m audiojax_torch.runtime.cli --model mossformer2_ss --input mix.wav --output spk.wav
+        (writes spk_0.wav and spk_1.wav)
     python -m audiojax_torch.runtime.cli --list
 
 Parameters are drawn at random from ``--seed`` (no checkpoint importer has
@@ -20,8 +22,8 @@ from pathlib import Path
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="audiojax_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--model", help="model name: gtcrn, mossformergan_se or zipenhancer "
-                    "(see --list)")
+    ap.add_argument("--model", help="model name: gtcrn, mossformergan_se, zipenhancer or "
+                    "mossformer2_ss (see --list)")
     ap.add_argument("--input", nargs="*", default=[], help="input wav path(s)")
     ap.add_argument("--output", help="output wav path (multi-source models append _0, _1, …)")
     ap.add_argument("--seed", type=int, default=0, help="random-parameter seed")

@@ -42,9 +42,23 @@ Phases, each of which raises (non-zero exit) on failure:
    starts with 201 silent samples (its first frame's phase feature is
    otherwise the sign of rounding noise); without them, the card given the
    CPU's first STFT frame must pass the same gate.
+9. Kernels B5/B4/B6 at the MossFormer2-SS serving shapes: the grouped
+   2-in/1-out conv (B5) at a 6 s and a 30 s request's (B, 3999, 512→256),
+   k39, dilation 2; B4 at the FLASH and FSMN depthwise shapes; B6 at the
+   FLASH group attention (B·16, 256, K=128, V=2048).  Each against its plain
+   version (1e-5 × max|ref|) and a float64 numpy reference on a few batch
+   rows (error at most 2 × the plain version's), with kernel / plain /
+   library (cuDNN's grouped or depthwise conv) timings and the card's bound.
+10. Serving MossFormer2-SS: ``Session`` for ``mossformer2_ss`` at full width
+   and depth (random parameters from seed 0; 2 s windows after an 8,000-sample
+   head, two int16 sources out) answers a 6 s and a 30 s request (4 and 16
+   windows); every forward must launch B4 96 times, B5 24 times, B6 24 times
+   and B1/B2/B3 never; one 6 s request is profiled, and one 2 s window through
+   the module must be within 40 dB SNR of the same port on the CPU, each
+   source.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
-every kernel as JSON (its launches summed over the three served paths, with
+every kernel as JSON (its launches summed over the four served paths, with
 the count of each path beside it, and its times at its first serving shape),
 and the line before that the card.  Without CUDA the script exits non-zero
 and prints no result.
@@ -77,13 +91,19 @@ SERVE_REPEATS = 3
 # MossFormerGAN launches per forward: 4 depthwise convs (uv, FSMN memory, GAU
 # in_conv and out_conv) and 2 GAU attentions (local, cross) per SyncANet path,
 # 2 paths per block, 6 blocks
-GAN_PER_FORWARD = {"stft_packed": 1, "istft_packed": 1, "dwconv1d": 48, "quad_attention": 24,
-                   "relpos_scores": 0}
+GAN_PER_FORWARD = {"stft_packed": 1, "istft_packed": 1, "dwconv1d": 48, "dwconv1d_tiled": 0,
+                   "quad_attention": 24, "relpos_scores": 0}
 # ZipEnhancer launches per forward: 8 Zipformer2 layers (4 encoders × a
 # frequency and a time layer), each with one score stage (B3) and two conv
 # modules (B4)
-ZIP_PER_FORWARD = {"stft_packed": 1, "istft_packed": 1, "dwconv1d": 16, "quad_attention": 0,
-                   "relpos_scores": 8}
+ZIP_PER_FORWARD = {"stft_packed": 1, "istft_packed": 1, "dwconv1d": 16, "dwconv1d_tiled": 0,
+                   "quad_attention": 0, "relpos_scores": 8}
+# MossFormer2-SS launches per forward: in each of 24 layers, 4 depthwise convs
+# (FLASH in_conv and out_conv, FSMN uv_conv, the first memory level) on B4,
+# the grouped 2-in/1-out second memory level on B5, the FLASH group attention
+# on B6; no STFT
+SS_PER_FORWARD = {"stft_packed": 0, "istft_packed": 0, "dwconv1d": 96, "dwconv1d_tiled": 24,
+                  "quad_attention": 24, "relpos_scores": 0}
 # ~1 ms at the H100's clock: longer than the host takes to issue any timed call
 SPIN_CYCLES = 2_000_000
 
@@ -415,67 +435,92 @@ def _report(name: str, label: str, shape: str, row: dict) -> None:
           f"({row['bound_by']})", flush=True)
 
 
-def check_gan_kernels(dev) -> dict:
-    """Phase 4; returns each kernel's row at its first serving shape."""
+def _f64_rows(n: int, count: int, dev) -> torch.Tensor:
+    """``count`` evenly spaced batch rows of ``n`` (all of them if fewer)."""
+    return torch.linspace(0, n - 1, min(n, count), device=dev).long().unique()
+
+
+def hold_b4(gen, dev, label: str, shape: tuple, k: int, pads: tuple, dil: int,
+            f64_rows: int = F64_ROWS) -> dict:
+    """B4 against plain and float64 at one shape, timed beside cuDNN."""
     import torch.nn.functional as F
 
-    from audiojax_torch.ops import attention_cuda as A
     from audiojax_torch.ops import dwconv_cuda as D
 
+    b, t, c = shape
+    x = torch.randn((b, t, c), generator=gen, device=dev)
+    w = torch.randn((k, c), generator=gen, device=dev) / k ** 0.5
+    run = lambda: D.dwconv1d_cuda(x, w, pads=pads, dilation=dil)  # noqa: E731
+    plain = lambda: D.dwconv1d_plain(x, w, pads=pads, dilation=dil)  # noqa: E731
+    w64 = w.double().cpu().numpy()
+    row = _hold("dwconv1d", label, run(), plain(), lambda r: ref_dwconv64(
+        x[r].double().cpu().numpy(), w64, pads, dil), _f64_rows(b, f64_rows, dev))
+    # cuDNN's depthwise conv on a contiguous (B, C, T) tensor (TF32 off); the
+    # layout change is made before the timing and left out of it
+    xt = F.pad(x.transpose(1, 2), pads).contiguous()
+    wt = w.t().contiguous()[:, None, :]
+    row["ms"], row["plain_ms"] = device_ms(run), device_ms(plain)
+    row["library_ms"] = device_ms(lambda: F.conv1d(xt, wt, dilation=dil, groups=c))
+    t_out = t + sum(pads) - dil * (k - 1)
+    row["bound_ms"], row["bound_by"] = bound(2.0 * b * t_out * c * k,
+                                             4.0 * (b * t * c + k * c + b * t_out * c))
+    _report("dwconv1d", label, f"({b}, {t}, {c}) k{k} pads {pads} d{dil}", row)
+    return row
+
+
+def hold_b6(gen, dev, label: str, n: int, s: int, mask: bool, dk: int = 128, dv: int = 128,
+            f64_rows: int = F64_ROWS) -> dict:
+    """B6 against plain and float64 at one shape, scale 1/S."""
+    from audiojax_torch.ops import attention_cuda as A
+
+    q, kk = (torch.randn((n, s, dk), generator=gen, device=dev) for _ in range(2))
+    v = torch.randn((n, s, dv), generator=gen, device=dev)
+    run = lambda: A.quad_attention_cuda(q, kk, v, scale=1.0 / s, mask_diag=mask)  # noqa: E731
+    plain = lambda: A.quad_attention_plain(q, kk, v, scale=1.0 / s, mask_diag=mask)  # noqa: E731
+    row = _hold("quad_attention", label, run(), plain(), lambda r: ref_quad64(
+        *(a[r].double().cpu().numpy() for a in (q, kk, v)), 1.0 / s, mask),
+        _f64_rows(n, f64_rows, dev))
+    row["ms"], row["plain_ms"], row["library_ms"] = device_ms(run), device_ms(plain), None
+    row["bound_ms"], row["bound_by"] = bound(n * s * s * (2.0 * dk + 2.0 * dv),
+                                             4.0 * (n * s * (2 * dk + dv) + n * s * dv))
+    shape = f"({n}, {s}, {dk})" if dk == dv else f"({n}, {s}, K{dk}, V{dv})"
+    _report("quad_attention", label, shape + (" mask" if mask else ""), row)
+    return row
+
+
+def check_gan_kernels(dev) -> dict:
+    """Phase 4; returns each kernel's row at its first serving shape."""
     gen = torch.Generator(device=dev).manual_seed(0)
     serving = {}
-    for label, (b, t, c), k, pads, dil in B4_CASES:
-        x = torch.randn((b, t, c), generator=gen, device=dev)
-        w = torch.randn((k, c), generator=gen, device=dev) / k ** 0.5
-        rows = torch.linspace(0, b - 1, min(b, F64_ROWS), device=dev).long().unique()
-        run = lambda: D.dwconv1d_cuda(x, w, pads=pads, dilation=dil)  # noqa: E731
-        plain = lambda: D.dwconv1d_plain(x, w, pads=pads, dilation=dil)  # noqa: E731
-        w64 = w.double().cpu().numpy()
-        row = _hold("dwconv1d", label, run(), plain(), lambda r: ref_dwconv64(
-            x[r].double().cpu().numpy(), w64, pads, dil), rows)
-        # cuDNN's depthwise conv on a contiguous (B, C, T) tensor (TF32 off);
-        # the layout change is made before the timing and left out of it
-        xt = F.pad(x.transpose(1, 2), pads).contiguous()
-        wt = w.t().contiguous()[:, None, :]
-        row["ms"], row["plain_ms"] = device_ms(run), device_ms(plain)
-        row["library_ms"] = device_ms(lambda: F.conv1d(xt, wt, dilation=dil, groups=c))
-        t_out = t + sum(pads) - dil * (k - 1)
-        row["bound_ms"], row["bound_by"] = bound(2.0 * b * t_out * c * k,
-                                                 4.0 * (b * t * c + k * c + b * t_out * c))
-        _report("dwconv1d", label, f"({b}, {t}, {c}) k{k} pads {pads} d{dil}", row)
-        serving.setdefault("dwconv1d", row)
-        del x, xt
-
+    for label, shape, k, pads, dil in B4_CASES:
+        serving.setdefault("dwconv1d", hold_b4(gen, dev, label, shape, k, pads, dil))
     for label, n, s, mask in B6_CASES:
-        q, kk, v = (torch.randn((n, s, 128), generator=gen, device=dev) for _ in range(3))
-        rows = torch.linspace(0, n - 1, min(n, F64_ROWS), device=dev).long().unique()
-        run = lambda: A.quad_attention_cuda(q, kk, v, scale=1.0 / s, mask_diag=mask)  # noqa: E731
-        plain = lambda: A.quad_attention_plain(q, kk, v, scale=1.0 / s, mask_diag=mask)  # noqa: E731
-        row = _hold("quad_attention", label, run(), plain(), lambda r: ref_quad64(
-            *(a[r].double().cpu().numpy() for a in (q, kk, v)), 1.0 / s, mask), rows)
-        row["ms"], row["plain_ms"], row["library_ms"] = device_ms(run), device_ms(plain), None
-        row["bound_ms"], row["bound_by"] = bound(n * s * s * (2.0 * 128 + 2.0 * 128),
-                                                 4.0 * (n * s * 3 * 128 + n * s * 128))
-        _report("quad_attention", label, f"({n}, {s}, 128){' mask' if mask else ''}", row)
-        serving.setdefault("quad_attention", row)
-        del q, kk, v
+        serving.setdefault("quad_attention", hold_b6(gen, dev, label, n, s, mask))
     return serving
 
 
 # ── phase 5 ────────────────────────────────────────────────────────────────
 
 
-def noisy_speech(n: int, seed: int) -> np.ndarray:
-    """Synthetic speech-band int16 audio: a gliding harmonic voice under a
-    syllable-rate envelope, plus white noise."""
+def noisy_speech(n: int, seed: int, pitch: float = 140.0, rate: float = 3.0) -> np.ndarray:
+    """Synthetic speech-band int16 audio: a gliding harmonic voice (around
+    ``pitch`` Hz) under a syllable-rate envelope (``rate`` Hz), plus white noise."""
     rng = np.random.default_rng(seed)
     t = np.arange(n) / SR
-    f0 = 140.0 + 30.0 * np.sin(2 * np.pi * 0.5 * t)
+    f0 = pitch + 30.0 * np.sin(2 * np.pi * 0.5 * t)
     phase = 2 * np.pi * np.cumsum(f0) / SR
     voiced = sum(np.sin(k * phase) / k for k in range(1, 11))
-    voiced *= (0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t)) ** 2
+    voiced *= (0.5 + 0.5 * np.sin(2 * np.pi * rate * t)) ** 2
     x = 0.3 * voiced / np.abs(voiced).max() + 0.05 * rng.standard_normal(n)
     return np.clip(np.round(x * 32767), -32768, 32767).astype(np.int16)
+
+
+def speech_mix(n: int, seed: int) -> np.ndarray:
+    """Two synthetic voices (140 Hz at 3 syllables/s, 230 Hz at 4.3/s), each
+    with its own noise, mixed at equal level: a separation request."""
+    a = noisy_speech(n, seed).astype(np.int32)
+    b = noisy_speech(n, seed + 1000, pitch=230.0, rate=4.3).astype(np.int32)
+    return ((a + b) // 2).astype(np.int16)
 
 
 def snr_db(ref: np.ndarray, out: np.ndarray) -> float:
@@ -551,20 +596,23 @@ def serve(card: str) -> dict:
     return counts
 
 
-# ── phases 6 and 8 ─────────────────────────────────────────────────────────
+# ── phases 6, 8 and 10 ────────────────────────────────────────────────────────
 
 # each kernel's name in a torch.profiler trace (a substring of its symbol)
 PROFILE_KEYS = {"stft_packed": "::stft_kernel", "istft_packed": "::istft_kernel",
-                "dwconv1d": "dwconv_kernel", "quad_attention": "quad_attention_kernel",
-                "relpos_scores": "relpos"}
+                "dwconv1d": "dwconv_kernel", "dwconv1d_tiled": "dwconv_grouped_kernel",
+                "quad_attention": "quad_attention_kernel", "relpos_scores": "relpos"}
 
 
-def serve_folded(card: str, name: str, per_forward: dict, seeds: tuple,
-                 lead_silence: int = 0) -> dict:
-    """Phases 6 and 8: serve ``name`` (6 s windows, each folded into 1.5 s fold
-    windows) at full width and depth; returns the kernels' launch counts over
-    the measured requests.  The clip held card against CPU starts with
-    ``lead_silence`` zero samples."""
+def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple,
+                   lead_silence: int = 0, clip=noisy_speech) -> dict:
+    """Phases 6, 8 and 10: serve ``name`` at full width and depth on its
+    manifest's windows (the GAN's and ZipEnhancer's 6 s windows are each
+    folded into 1.5 s fold windows); returns the kernels' launch counts over
+    the measured requests, whose audio ``clip(n, seed)`` makes.  Every output
+    source is checked.  The clip held card against CPU (one fold window, or
+    one window where the model does not fold) starts with ``lead_silence``
+    zero samples."""
     from audiojax_torch.runtime import registry
     from audiojax_torch.runtime.session import Session
 
@@ -572,10 +620,11 @@ def serve_folded(card: str, name: str, per_forward: dict, seeds: tuple,
     cfg = spec.make_config()
     manifest = spec.make_manifest(cfg)
     window = manifest.input_audio_length
-    folds = window // cfg.fold_window
+    fold = getattr(cfg, "fold_window", 0)
+    head = manifest.pad_head
     model = spec.make_module(spec.init_params(0, cfg, "cuda"), cfg)
     session = Session(model, manifest, device="cuda")
-    requests = [("6 s", noisy_speech(6 * SR, seeds[0])), ("30 s", noisy_speech(30 * SR, seeds[1]))]
+    requests = [("6 s", clip(6 * SR, seeds[0])), ("30 s", clip(30 * SR, seeds[1]))]
     t0 = time.perf_counter()
     session.process(requests[0][1])  # warm-up: cuBLAS, cuDNN and allocator set-up
     print(f"serve {name} warm-up (6 s request): "
@@ -596,17 +645,22 @@ def serve_folded(card: str, name: str, per_forward: dict, seeds: tuple,
 
     for label, audio in requests:
         for r in runs[label]:
-            if r.audio.dtype != np.int16 or r.audio.shape != audio.shape:
-                fail(f"request {label}: {r.audio.dtype} {r.audio.shape}, expected int16 "
-                     f"{audio.shape}")
-            if not np.any(r.audio):
-                fail(f"request {label}: all-zero output")
+            if len(r.outputs) != manifest.output_sources:
+                fail(f"request {label}: {len(r.outputs)} sources, expected "
+                     f"{manifest.output_sources}")
+            for i, out in enumerate(r.outputs):
+                if out.dtype != np.int16 or out.shape != audio.shape:
+                    fail(f"request {label} source {i}: {out.dtype} {out.shape}, expected int16 "
+                         f"{audio.shape}")
+                if not np.any(out):
+                    fail(f"request {label} source {i}: all-zero output")
         ms = sorted(r.elapsed_s * 1e3 for r in runs[label])
         med = float(np.median(ms))
-        n_win = -(-audio.size // window)
+        n_win = -(-(audio.size + head) // window)
         bucket = 1 << (n_win - 1).bit_length()
-        print(f"serve {name} {label:5s} ({audio.size} samples, {n_win} windows → "
-              f"{bucket}, {folds * bucket} folds): "
+        folds = f", {window // fold * bucket} folds" if fold else ""
+        print(f"serve {name} {label:5s} ({audio.size} samples{f' + {head} head' if head else ''}"
+              f", {n_win} windows → {bucket}{folds}; {manifest.output_sources} source(s)): "
               f"elapsed ms median {med:.3f} (min {ms[0]:.3f}, max {ms[-1]:.3f}, n={len(ms)}), "
               f"RTF median {med / 1e3 / runs[label][0].audio_duration_s:.6f}  [{card}]",
               flush=True)
@@ -632,22 +686,28 @@ def serve_folded(card: str, name: str, per_forward: dict, seeds: tuple,
               f"{sum(e.self_device_time_total for e in mine) / 1e3:.3f} ms device time over "
               f"{sum(e.count for e in mine)} launches (same trace)", flush=True)
 
-    # card vs CPU on one 1.5 s fold window, through the module
-    clip_np = noisy_speech(cfg.fold_window, seeds[2])
+    # card vs CPU on one fold window (or one window), through the module
+    length = fold or window
+    clip_np = clip(length, seeds[2])
     clip_np[:lead_silence] = 0
-    clip = torch.from_numpy(clip_np[None])
+    x = torch.from_numpy(clip_np[None])
     cpu_model = spec.make_module(spec.init_params(0, cfg, "cpu"), cfg)
     with torch.inference_mode():
-        card_out = model(clip.cuda()).cpu().numpy()
+        card_out = model(x.cuda())
         t0 = time.perf_counter()
-        cpu_out = cpu_model(clip).numpy()
-    snr = snr_db(cpu_out, card_out)
-    print(f"serve {name} 1.5 s fold card vs CPU: SNR {snr:.2f} dB (CPU forward "
-          f"{time.perf_counter() - t0:.1f} s)", flush=True)
-    if not snr >= MIN_SNR_DB:
-        fail(f"{name} card vs CPU SNR {snr:.2f} dB < {MIN_SNR_DB}")
+        cpu_out = cpu_model(x)
+    cpu_s = time.perf_counter() - t0
+    if not isinstance(card_out, tuple):
+        card_out, cpu_out = (card_out,), (cpu_out,)
+    for i, (c, h) in enumerate(zip(card_out, cpu_out)):
+        snr = snr_db(h.numpy(), c.cpu().numpy())
+        print(f"serve {name} {length / SR:g} s {'fold' if fold else 'window'} card vs CPU"
+              f"{f' source {i}' if len(card_out) > 1 else ''}: SNR {snr:.2f} dB (CPU forward "
+              f"{cpu_s:.1f} s)", flush=True)
+        if not snr >= MIN_SNR_DB:
+            fail(f"{name} card vs CPU SNR {snr:.2f} dB < {MIN_SNR_DB}")
     if lead_silence:
-        frame0_witness(name, model, cpu_model, noisy_speech(cfg.fold_window, seeds[2]))
+        frame0_witness(name, model, cpu_model, clip(length, seeds[2]))
     return counts
 
 
@@ -746,6 +806,73 @@ def check_zip_kernels(dev) -> dict:
     return serving
 
 
+# ── phase 9 ────────────────────────────────────────────────────────────────
+
+
+def ref_grouped64(x: np.ndarray, w: np.ndarray, pads, dilation: int) -> np.ndarray:
+    """x (B, T, M·G), w (k, M, G): group g reads the interleaved lanes g·M + m."""
+    k, m, _ = w.shape
+    xp = np.pad(x, [(0, 0), tuple(pads), (0, 0)])
+    t_out = xp.shape[1] - dilation * (k - 1)
+    return sum(xp[:, i * dilation : i * dilation + t_out, r::m] * w[i, r]
+               for i in range(k) for r in range(m))
+
+
+# MossFormer2-SS at its serving shapes: a 6 s request is 4 windows of 3999
+# frames, a 30 s request 16.  (label, (B, T, 2G), k, (lo, hi), dilation) for
+# B5, the FSMN's second memory level; the B4 and B6 shapes of a layer.
+B5_SS_CASES = [
+    ("ss mem_stack[1]", (4, 3999, 512), 39, (38, 38), 2),
+    ("ss 30 s mem_stack[1]", (16, 3999, 512), 39, (38, 38), 2),
+]
+B4_SS_CASES = [
+    ("ss flash in_conv", (4, 3999, 2176), 17, (8, 8), 1),
+    ("ss out_conv, uv_conv", (4, 3999, 512), 17, (8, 8), 1),
+    ("ss mem_stack[0]", (4, 3999, 256), 39, (19, 19), 1),
+    ("ss 30 s flash in_conv", (16, 3999, 2176), 17, (8, 8), 1),
+    ("ss 30 s out_conv, uv_conv", (16, 3999, 512), 17, (8, 8), 1),
+    ("ss 30 s mem_stack[0]", (16, 3999, 256), 39, (19, 19), 1),
+]
+B6_SS_CASES = [("ss flash group", 64, 256), ("ss 30 s flash group", 256, 256)]  # K 128, V 2048
+SS_F64_ROWS = 4  # float64 on the host is slow at T = 3999 and V = 2048
+
+
+def check_ss_kernels(dev) -> dict:
+    """Phase 9; returns B5's row at its first serving shape."""
+    import torch.nn.functional as F
+
+    from audiojax_torch.ops import dwconv_cuda as D
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    serving = {}
+    for label, (b, t, c), k, pads, dil in B5_SS_CASES:
+        g = c // 2
+        x = torch.randn((b, t, c), generator=gen, device=dev)
+        w = torch.randn((k, 2, g), generator=gen, device=dev) / (2 * k) ** 0.5
+        run = lambda: D.dwconv1d_grouped_cuda(x, w, pads=pads, dilation=dil)  # noqa: E731
+        plain = lambda: D.dwconv1d_grouped_plain(x, w, pads=pads, dilation=dil)  # noqa: E731
+        w64 = w.double().cpu().numpy()
+        row = _hold("dwconv1d_tiled", label, run(), plain(), lambda r: ref_grouped64(
+            x[r].double().cpu().numpy(), w64, pads, dil), _f64_rows(b, SS_F64_ROWS, dev))
+        # cuDNN's grouped conv (groups=G, two input channels a group) on a
+        # contiguous (B, 2G, T) tensor, the layout change left out of the timing
+        xt = F.pad(x.transpose(1, 2), pads).contiguous()
+        wt = w.permute(2, 1, 0).contiguous()
+        row["ms"], row["plain_ms"] = device_ms(run), device_ms(plain)
+        row["library_ms"] = device_ms(lambda: F.conv1d(xt, wt, dilation=dil, groups=g))
+        t_out = t + sum(pads) - dil * (k - 1)
+        row["bound_ms"], row["bound_by"] = bound(2.0 * b * t_out * g * 2 * k,
+                                                 4.0 * (b * t * c + k * c + b * t_out * g))
+        _report("dwconv1d_tiled", label, f"({b}, {t}, {c}→{g}) k{k} pads {pads} d{dil}", row)
+        serving.setdefault("dwconv1d_tiled", row)
+        del x, xt
+    for label, shape, k, pads, dil in B4_SS_CASES:
+        hold_b4(gen, dev, label, shape, k, pads, dil, f64_rows=SS_F64_ROWS)
+    for label, n, s in B6_SS_CASES:
+        hold_b6(gen, dev, label, n, s, False, dk=128, dv=2048, f64_rows=SS_F64_ROWS)
+    return serving
+
+
 def build_all() -> None:
     """Phase 2: one nvcc per source, all started together."""
     from audiojax_torch.ops import _build
@@ -782,20 +909,24 @@ def main() -> int:
     rows = check_kernels(dev)
     rows.update(check_gan_kernels(dev))
     by_path = {"gtcrn": serve(card)}
-    by_path["mossformergan_se"] = serve_folded(card, "mossformergan_se", GAN_PER_FORWARD,
-                                               (11, 12, 13))
+    by_path["mossformergan_se"] = serve_windowed(card, "mossformergan_se", GAN_PER_FORWARD,
+                                                 (11, 12, 13))
     rows.update(check_zip_kernels(dev))
     # the first frame of a reflect-padded fold window is symmetric and its
     # phase feature the sign of rounding noise: the clip held card against CPU
     # starts with that frame's 201 samples silent (frame0_witness holds the
     # cause on the same clip without them)
-    by_path["zipenhancer"] = serve_folded(card, "zipenhancer", ZIP_PER_FORWARD, (21, 22, 23),
-                                          lead_silence=201)
+    by_path["zipenhancer"] = serve_windowed(card, "zipenhancer", ZIP_PER_FORWARD, (21, 22, 23),
+                                            lead_silence=201)
+    rows.update(check_ss_kernels(dev))
+    by_path["mossformer2_ss"] = serve_windowed(card, "mossformer2_ss", SS_PER_FORWARD,
+                                               (31, 32, 33), clip=speech_mix)
 
     sources = {
         "stft_packed": ("audiojax_torch/csrc/stft.cu", "audiojax/ops/stft_pallas.py:207"),
         "istft_packed": ("audiojax_torch/csrc/stft.cu", "audiojax/ops/stft_pallas.py:361"),
         "dwconv1d": ("audiojax_torch/csrc/dwconv.cu", "audiojax/ops/dwconv_pallas.py:52"),
+        "dwconv1d_tiled": ("audiojax_torch/csrc/dwconv.cu", "audiojax/ops/dwconv_pallas.py:120"),
         "quad_attention": ("audiojax_torch/csrc/quad_attention.cu",
                            "audiojax/ops/attention_pallas.py:61"),
         "relpos_scores": ("audiojax_torch/csrc/relpos_scores.cu",

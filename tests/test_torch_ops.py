@@ -1,10 +1,12 @@
-"""The plain versions of the port's kernels B3, B4 and B6 against the JAX package.
+"""The plain versions of the port's kernels B3, B4, B5 and B6 against the JAX package.
 
-``relpos_scores_plain``, ``dwconv1d_plain`` and ``quad_attention_plain`` are
+``relpos_scores_plain``, ``dwconv1d_plain``, ``dwconv1d_grouped_plain`` and
+``quad_attention_plain`` are
 what the port runs on the CPU and what ``chip_smoke.py`` holds the CUDA
 kernels to on the card.  Here they meet the JAX package's reference paths
-(``relpos_scores_jnp``, ``dwconv1d_jnp``, ``quad_attention_jnp``) and its
-Pallas kernels run in interpret mode, on the same numpy inputs.  Tolerance:
+(``relpos_scores_jnp``, ``dwconv1d_jnp``, ``quad_attention_jnp``, the CPU
+route of ``audiojax.nn.core.conv1d`` for the grouped conv) and its Pallas
+kernels run in interpret mode, on the same numpy inputs.  Tolerance:
 1e-5 × max|ref|, float32 sums of at most a few hundred terms in another
 order; B3's probabilities to atol 2e-5, the tolerance of the JAX package's
 own rel-pos test (``tests/test_ops_pallas.py``).
@@ -18,8 +20,10 @@ import jax.numpy as jnp
 from audiojax.ops.attention_pallas import pos_stride as j_pos_stride
 from audiojax.ops.attention_pallas import (quad_attention_jnp, quad_attention_pallas,
                                            relpos_scores_jnp, relpos_scores_pallas)
+from audiojax.nn import core as jcore
 from audiojax.ops.dwconv_pallas import dwconv1d_jnp, dwconv1d_pallas, dwconv1d_pallas_tiled
 
+from audiojax_torch.nn import core as tcore
 from audiojax_torch.ops import attention_cuda, dwconv_cuda
 
 TOL = 1e-5
@@ -65,6 +69,62 @@ def test_dwconv1d_output_length_checks():
         dwconv_cuda.dwconv1d_plain(x, w)
     with pytest.raises(ValueError, match="dilation"):
         dwconv_cuda.dwconv1d_plain(x, w, pads=(3, 3), dilation=0)
+
+
+# ── B5: grouped 2-in/1-out conv1d ──────────────────────────────────────────
+
+
+@pytest.mark.parametrize("dil,pads", [(1, (8, 8)), (2, (16, 16)), (2, (16, 0))])
+def test_dwconv1d_grouped_plain_matches_jax(dil, pads):
+    """Against ``audiojax.nn.core.conv1d`` with ``groups=G`` (its CPU route,
+    ``_grouped_single_out_conv1d``) and against the TPU route: the stride-2
+    deinterleave into two ``dwconv1d_pallas_tiled`` calls, in interpret mode.
+    Group g reads the interleaved input lanes [2g, 2g+1]."""
+    rng = np.random.default_rng(7)
+    g, k, t = 128, 9, 300
+    x, w = _rand(rng, 2, t, 2 * g), _rand(rng, k, 2, g)
+    out = dwconv_cuda.dwconv1d_grouped_plain(torch.from_numpy(x), torch.from_numpy(w), pads=pads,
+                                             dilation=dil)
+    jx, jw = jnp.asarray(x), jnp.asarray(w)
+    _close(out, jcore.conv1d({"w": jw}, jx, padding=pads, dilation=dil, groups=g))
+    _close(out, dwconv1d_pallas_tiled(jx[..., 0::2], jw[:, 0, :], pads=pads, dilation=dil,
+                                      tile=128, interpret=True)
+           + dwconv1d_pallas_tiled(jx[..., 1::2], jw[:, 1, :], pads=pads, dilation=dil,
+                                   tile=128, interpret=True))
+
+
+def test_grouped_conv_routes_to_b5(monkeypatch):
+    """A (G, 2, k) conv with groups=G and C=2G reaches ``fast_dwconv1d_grouped``
+    (on the CPU: its plain version, no launch); a true depthwise conv does not."""
+    calls = []
+    real = tcore.fast_dwconv1d_grouped
+    monkeypatch.setattr(tcore, "fast_dwconv1d_grouped",
+                        lambda *a, **kw: calls.append(a[1].shape) or real(*a, **kw))
+    dwconv_cuda.reset_launches()
+    rng = np.random.default_rng(8)
+    g, k = 16, 5
+    x, w = _rand(rng, 2, 40, 2 * g), _rand(rng, k, 2, g)
+    p = {"w": torch.from_numpy(np.ascontiguousarray(w.transpose(2, 1, 0)))}  # torch (G, 2, k)
+    out = tcore.conv1d(p, torch.from_numpy(x), padding=4, dilation=2, groups=g)
+    assert calls == [(k, 2, g)]
+    assert dwconv_cuda.launches == {"dwconv1d": 0, "dwconv1d_tiled": 0}
+    _close(out, jcore.conv1d({"w": jnp.asarray(w)}, jnp.asarray(x), padding=4, dilation=2,
+                             groups=g))
+    tcore.conv1d({"w": torch.zeros(2 * g, 1, k)}, torch.from_numpy(x), padding=2,
+                 groups=2 * g)
+    assert calls == [(k, 2, g)]  # the depthwise conv went to B4's route
+
+
+def test_dwconv1d_grouped_checks():
+    x, w = torch.zeros(1, 20, 8), torch.zeros(3, 2, 4)
+    with pytest.raises(ValueError, match="does not fit"):
+        dwconv_cuda.dwconv1d_grouped_plain(torch.zeros(1, 20, 6), w)
+    with pytest.raises(ValueError, match="non-positive output length"):
+        dwconv_cuda.dwconv1d_grouped_plain(x, w, dilation=10)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        dwconv_cuda.dwconv1d_grouped_cuda(x, w)
+    with pytest.raises(ValueError, match=r"\(k, 2, G\)"):
+        dwconv_cuda.dwconv1d_grouped_cuda(x, torch.zeros(3, 1, 8))
 
 
 # ── B6: relu² attention ────────────────────────────────────────────────────

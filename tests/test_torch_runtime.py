@@ -18,9 +18,11 @@ import torch
 from audiojax.runtime.manifest import Manifest as JManifest
 from audiojax.runtime.session import Session as JSession
 
+from audiojax_torch.models.base import ParamModule
 from audiojax_torch.models.gtcrn import GTCRN, GtcrnConfig, init_gtcrn, init_gtcrn_numpy
 from audiojax_torch.models.mossformergan_se import (MossFormerGAN, MossFormerGanConfig,
                                                     init_mossformergan)
+from audiojax_torch.models.mossformer2_ss import MossFormer2SsConfig, init_mossformer2_ss
 from audiojax_torch.models.zipenhancer import ZipEnhancerConfig, init_zipenhancer
 from audiojax_torch.ops import _build
 from audiojax_torch.params import params_from_numpy
@@ -39,7 +41,8 @@ def test_import_pulls_in_no_jax():
         "import importlib, pkgutil, sys, audiojax_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(audiojax_torch.__path__, 'audiojax_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert {'audiojax_torch.nn.zipformer', 'audiojax_torch.models.zipenhancer'} <= set(mods)\n"
+        "assert {'audiojax_torch.nn.zipformer', 'audiojax_torch.models.zipenhancer',\n"
+        "        'audiojax_torch.models.mossformer2_ss'} <= set(mods)\n"
         "assert len(mods) > 15, mods\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'audiojax'))\n"
         "assert not bad, bad\n"
@@ -100,6 +103,8 @@ def test_entry_points_default_to_the_card(no_cuda):
     Session(gan, gan_manifest, device="cpu")
     with pytest.raises(RuntimeError, match='device="cpu"'):
         init_zipenhancer(0, ZipEnhancerConfig())
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        init_mossformer2_ss(0, MossFormer2SsConfig(depth=1))
 
 
 def test_kernel_build_failure_raises(monkeypatch, tmp_path):
@@ -125,6 +130,39 @@ def test_params_refuse_unknown_layouts():
     np.testing.assert_array_equal(out.numpy(), w.transpose(2, 1, 0))
     with pytest.raises(TypeError, match="float32"):
         params_from_numpy({"w": np.zeros((3, 4), np.float64)}, device="cpu")
+
+
+def test_params_carry_lists():
+    """A ``mem_stack``-shaped list of dicts (MossFormer2-SS) and a list of
+    arrays stay lists in order, their items converted under the list's key; an
+    object leaf is refused with its key path named."""
+    rng = np.random.default_rng(0)
+    stack = [{"conv": {"w": rng.standard_normal((39, j + 1, 4)).astype(np.float32)},
+              "norm": {"g": np.full((4,), j, np.float32)}} for j in range(2)]
+    taps = [np.full((3, 2, 5), i, np.float32) for i in range(3)]
+    out = params_from_numpy({"fsmn0": {"mem_stack": stack, "w": taps}}, device="cpu")["fsmn0"]
+    assert isinstance(out["mem_stack"], list) and len(out["mem_stack"]) == 2
+    for j, item in enumerate(out["mem_stack"]):
+        np.testing.assert_array_equal(item["conv"]["w"].numpy(),
+                                      stack[j]["conv"]["w"].transpose(2, 1, 0))
+        assert float(item["norm"]["g"][0]) == j
+    assert [tuple(t.shape) for t in out["w"]] == [(5, 2, 3)] * 3  # conv1d layout, in order
+    assert [float(t[0, 0, 0]) for t in out["w"]] == [0.0, 1.0, 2.0]
+    bad = np.empty(2, dtype=object)
+    with pytest.raises(TypeError, match="'fsmn0/mem_stack/1/norm/g' is object"):
+        params_from_numpy({"fsmn0": {"mem_stack": [stack[0], {"norm": {"g": bad}}]}},
+                          device="cpu")
+
+
+def test_param_module_keeps_the_tree_shape():
+    """A module's ``params`` gives back the tree it was made from: a list stays
+    a list in order, and a dict whose keys are indices stays a dict."""
+    tree = {"mem_stack": [{"g": torch.full((2,), 0.0)}, {"g": torch.full((2,), 1.0)}],
+            "bands": {"0": torch.zeros(3), "1": torch.ones(3)}}
+    back = ParamModule(tree, cfg=None).params
+    assert isinstance(back["mem_stack"], list) and isinstance(back["bands"], dict)
+    assert [float(item["g"][0]) for item in back["mem_stack"]] == [0.0, 1.0]
+    assert sorted(back["bands"]) == ["0", "1"] and float(back["bands"]["1"][0]) == 1.0
 
 
 # ── CLI ────────────────────────────────────────────────────────────────────
@@ -155,7 +193,8 @@ def test_cli_denoises_on_cpu(tmp_path, capsys):
 
 def test_cli_list_and_default_device(no_cuda, tmp_path, capsys):
     assert cli.main(["--list"]) == 0
-    assert capsys.readouterr().out.split() == ["gtcrn", "mossformergan_se", "zipenhancer"]
+    assert capsys.readouterr().out.split() == ["gtcrn", "mossformer2_ss", "mossformergan_se",
+                                               "zipenhancer"]
     src = tmp_path / "in.wav"
     _write_wav(src, np.zeros(16000, np.int16))
     with pytest.raises(RuntimeError, match='device="cpu"'):
