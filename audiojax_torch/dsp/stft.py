@@ -9,8 +9,9 @@ centre trim for the ISTFT.
 Layouts: audio is ``(..., L)``; spectra are time-major packed
 ``(..., T, 2F)`` with [real | imag] on the last axis.
 
-Bases, windows and the COLA reciprocal are computed in numpy float64 and
-cached per config; their torch copies are cached per (config, device).
+Bases, windows, the COLA reciprocal and the kernels' FFT plan (radix order
+and twiddle table, ``fft_plan``) are computed in numpy float64 and cached per
+config; their torch copies are cached per (config, device).
 """
 from __future__ import annotations
 
@@ -129,6 +130,101 @@ def _inv_win_sum_np(cfg: StftConfig, n_frames: int, out_length: int | None) -> n
     return (inv * cfg.output_scale).astype(np.float32)
 
 
+# ─────────────────────────────────────────────────────────────────────────────
+# FFT plan of the CUDA kernels (``ops.stft_cuda``)
+# ─────────────────────────────────────────────────────────────────────────────
+
+# Radices with their own butterflies in csrc/stft.cu; any other prime factor
+# runs the generic radix-p stage.
+FIXED_RADICES = (2, 3, 4, 5, 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class FftPlan:
+    """A Stockham mixed-radix FFT of length ``m`` for one n_fft.
+
+    Even n_fft transforms the n_fft/2 complex points z[i] = x[2i] + j·x[2i+1]
+    and splits the result into the real input's spectrum; odd n_fft
+    transforms all n_fft points.  Stage s (radix ``radices[s]``, ``ns`` the
+    product of the radices before it) reads butterfly j's inputs at
+    j + r·m/R and writes its outputs at (j − j mod ns)·R + j mod ns + r·ns.
+    Its twiddles W_{ns·R}^{k·r} (k < ns, 0 < r < R) start at table entry
+    ``offsets[s]``, k-major; a generic stage's R roots W_R^q follow them.
+    For even n_fft, W_{n_fft}^k (0 ≤ k ≤ m) starts at ``post_offset``.
+    """
+
+    m: int
+    radices: tuple[int, ...]
+    offsets: tuple[int, ...]
+    post_offset: int
+
+
+def _radices(m: int) -> tuple[int, ...]:
+    """Radix order: 8s, then 4s, greedily, then 2, 3, 5, then other primes
+    ascending."""
+    out = []
+    for r in (8, 4):
+        while m % r == 0:
+            out.append(r)
+            m //= r
+    p = 2
+    while m > 1:
+        while m % p == 0:
+            out.append(p)
+            m //= p
+        p += 1 if p == 2 else 2
+    return tuple(out)
+
+
+def _fft_stage_tables(n_fft: int) -> tuple[FftPlan, list[np.ndarray]]:
+    m = n_fft // 2 if n_fft % 2 == 0 else n_fft
+    radices = _radices(m)
+    tables, offsets, ns, off = [], [], 1, 0
+    for r in radices:
+        kr = np.arange(ns)[:, None] * np.arange(1, r)[None, :]
+        tw = np.exp(-2j * np.pi * kr.ravel() / (ns * r))
+        if r not in FIXED_RADICES:
+            tw = np.concatenate([tw, np.exp(-2j * np.pi * np.arange(r) / r)])
+        offsets.append(off)
+        tables.append(tw)
+        off += tw.size
+        ns *= r
+    if n_fft % 2 == 0:
+        tables.append(np.exp(-2j * np.pi * np.arange(m + 1) / n_fft))
+    return FftPlan(m, radices, tuple(offsets), off), tables
+
+
+@lru_cache(maxsize=None)
+def fft_plan(n_fft: int) -> FftPlan:
+    return _fft_stage_tables(n_fft)[0]
+
+
+@lru_cache(maxsize=None)
+def _fft_table_np(n_fft: int, dtype=np.float32) -> np.ndarray:
+    """(entries, 2) [re, im] twiddle table of ``fft_plan(n_fft)``, computed
+    in float64 and rounded once to ``dtype`` (float32 for B1, float64 for B2)."""
+    t = np.concatenate(_fft_stage_tables(n_fft)[1])
+    return np.stack([t.real, t.imag], axis=-1).astype(dtype)
+
+
+@lru_cache(maxsize=None)
+def _nyquist_imag_np(cfg: StftConfig) -> np.ndarray:
+    """The plain basis's column of Im X[n_fft/2] (rounding noise times the
+    window), which B1 takes its dot product with for even n_fft."""
+    return np.ascontiguousarray(_stft_basis_np(cfg)[:, -1])
+
+
+@lru_cache(maxsize=None)
+def _analysis_window_np(cfg: StftConfig) -> np.ndarray:
+    return (_window_np(cfg) * cfg.input_scale).astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def _synthesis_window_np(cfg: StftConfig) -> np.ndarray:
+    """window / n_fft: the unnormalised inverse FFT's scale folded in."""
+    return (_window_np(cfg) / cfg.n_fft).astype(np.float32)
+
+
 @lru_cache(maxsize=None)
 def _on_device(fn, device: torch.device, *args) -> torch.Tensor:
     """Device copy of a cached numpy table (one host→device copy per table)."""
@@ -145,6 +241,22 @@ def istft_basis(cfg: StftConfig, device) -> torch.Tensor:
 
 def inv_win_sum(cfg: StftConfig, n_frames: int, out_length: int | None, device) -> torch.Tensor:
     return _on_device(_inv_win_sum_np, torch.device(device), cfg, n_frames, out_length)
+
+
+def fft_table(cfg: StftConfig, device, dtype=np.float32) -> torch.Tensor:
+    return _on_device(_fft_table_np, torch.device(device), cfg.n_fft, dtype)
+
+
+def analysis_window(cfg: StftConfig, device) -> torch.Tensor:
+    return _on_device(_analysis_window_np, torch.device(device), cfg)
+
+
+def nyquist_imag(cfg: StftConfig, device) -> torch.Tensor:
+    return _on_device(_nyquist_imag_np, torch.device(device), cfg)
+
+
+def synthesis_window(cfg: StftConfig, device) -> torch.Tensor:
+    return _on_device(_synthesis_window_np, torch.device(device), cfg)
 
 
 # ─────────────────────────────────────────────────────────────────────────────

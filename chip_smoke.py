@@ -10,9 +10,12 @@ Phases, each of which raises (non-zero exit) on failure:
    source, all started together; each one's build time.
 3. Kernels B1/B2: the STFT and ISTFT kernels against their plain PyTorch
    versions and against a float64 numpy DFT, at the MossFormerGAN, GTCRN and
-   ZipEnhancer serving shapes and two further geometries, with kernel / plain /
-   torch.stft-istft timings and the card's bound for the same function (an
-   FFT's operations, or the bytes read and written, whichever takes longer).
+   ZipEnhancer serving shapes and three further geometries (odd 319/160
+   constant, Mel-Band 2048/441 reflect, DFSMN 1920/960 uncentred), with
+   kernel / plain / torch.stft-istft timings (B2 also as a sum of kernel
+   times beside torch.istft's), the card's bound for the same function (an
+   FFT's operations, or the bytes read and written, whichever takes longer)
+   and the kernels' own FFT operations.
 4. Kernels B4/B6: the depthwise conv1d and relu² attention kernels against
    their plain versions (1e-5 × max|ref|) and against float64 numpy
    references (error at most 2 × the plain version's), at the MossFormerGAN
@@ -76,9 +79,10 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-# H100 SXM published peaks (NVIDIA data sheet): float32 outside the tensor
-# cores, and HBM3 bandwidth.
+# H100 SXM published peaks (NVIDIA data sheet): float32 and float64 outside
+# the tensor cores, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 34e12
 PEAK_HBM_BYTES = 3.35e12
 TOL_VS_PLAIN = 3e-4  # × max|ref|: the tolerance of the JAX package's Pallas tests
 # × max|ref|: B4/B6 against their plain versions, float32 sums of at most a few
@@ -129,11 +133,17 @@ def cuda_rows(fn, expect: dict[str, int], calls: int = 1) -> list:
     below 1,000 launches, where it must also be a multiple of ``calls``);
     otherwise it is taken again."""
     previous = None
-    for _ in range(5):
+    for _ in range(8):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
+            # a short spin before and after the measured call, left out of the
+            # rows: a trace has been seen to lose the launch at either end
+            torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
         launches = sum(e.count for e in rows)
         named = {k: sum(e.count for e in rows if k in e.key) for k in expect}
         agrees = previous is not None and abs(launches - previous) <= launches // 1000
@@ -189,6 +199,40 @@ def fft_flops(n: int) -> float:
     return 2.5 * n * np.log2(n)
 
 
+# operations of one butterfly of csrc/stft.cu's fixed radices, counted from
+# the code (twiddle products apart)
+BUTTERFLY_FLOPS = {2: 4, 3: 16, 4: 16, 5: 52, 8: 56}
+
+
+def plan_flops(cfg) -> float:
+    """Operations of the kernels' FFT of one frame, counted from its plan:
+    each stage's m/R butterflies with R − 1 twiddle products (6 each) and the
+    radix-R DFT (a generic radix 8·R·(R − 1)), the even-n_fft split (~10 a
+    bin) and the window product."""
+    from audiojax_torch.dsp.stft import fft_plan
+
+    plan = fft_plan(cfg.n_fft)
+    ops = sum(plan.m // r * (6 * (r - 1) + BUTTERFLY_FLOPS.get(r, 8 * r * (r - 1)))
+              for r in plan.radices)
+    return ops + (10 * cfg.f_bins if cfg.n_fft % 2 == 0 else 0) + cfg.n_fft
+
+
+def istft_frames(cfg, b: int, n_t: int) -> int:
+    """Frames B2 transforms at its wrapper's geometry, the halo frames that
+    two neighbouring tiles both recompute included (``istft_kernel``'s
+    t_lo..t_hi in csrc/stft.cu)."""
+    from audiojax_torch.ops.stft_cuda import istft_launch
+
+    g = istft_launch(cfg, b, n_t)
+    total = 0
+    for i in range(g.blocks // b):
+        r0 = g.start // cfg.hop + i * g.rows
+        p_lo, p_hi = max(r0 * cfg.hop, g.start), min((r0 + g.rows) * cfg.hop, g.end)
+        t_lo = max(0, (p_lo - cfg.n_fft) // cfg.hop + 1)
+        total += max(0, min(n_t - 1, (p_hi - 1) // cfg.hop) - t_lo + 1)
+    return b * total
+
+
 # ── float64 references, independent of the port's code ─────────────────────
 
 
@@ -226,7 +270,7 @@ def rel_err(a: np.ndarray, ref: np.ndarray) -> float:
 
 def check_kernels(dev) -> dict:
     """Phase 3; returns each kernel's row at the MossFormerGAN 30 s serving shape."""
-    from audiojax_torch.dsp.stft import StftConfig, _window_np
+    from audiojax_torch.dsp.stft import StftConfig, _window_np, num_frames
     from audiojax_torch.models.mossformergan_se import MossFormerGanConfig
     from audiojax_torch.models.zipenhancer import ZipEnhancerConfig
     from audiojax_torch.ops import stft_cuda as K
@@ -249,6 +293,9 @@ def check_kernels(dev) -> dict:
                                                     pad_mode="constant"), 4, 16000),
         ("melband 2048/441 hann reflect", StftConfig(2048, 441, window="hann",
                                                      pad_mode="reflect"), 2, 88200),
+        # radix 3 (1920 = 2^7·3·5), no centre padding
+        ("dfsmn 1920/960 hamming_periodic uncentred",
+         StftConfig(1920, 960, window="hamming_periodic", center=False), 2, 19200),
     ]
     rng = np.random.default_rng(0)
     serving = {}
@@ -257,7 +304,7 @@ def check_kernels(dev) -> dict:
         x = torch.from_numpy(x64.astype(np.float32)).to(dev)
         win = _window_np(cfg)
         win_t = torch.from_numpy(win.astype(np.float32)).to(dev)
-        n_t = (length + 2 * cfg.half - cfg.n_fft) // cfg.hop + 1
+        n_t = num_frames(cfg, length)
         f2 = 2 * cfg.f_bins
 
         # B1: STFT
@@ -301,8 +348,7 @@ def check_kernels(dev) -> dict:
                 fail(f"{name} {label}: f64 error {row['err64_kernel']:.3e} > 2 × plain "
                      f"{row['err64_plain']:.3e}")
 
-        # device time per call at this shape (kernel: the wrapper's whole call,
-        # centre pad or COLA trim included)
+        # device time per call at this shape (kernel: the wrapper's whole call)
         spec_c = torch.view_as_complex(
             torch.stack([spec[..., : cfg.f_bins], spec[..., cfg.f_bins:]], dim=-1)
         ).transpose(1, 2).contiguous()
@@ -318,11 +364,12 @@ def check_kernels(dev) -> dict:
         # the wrapper by the same method as the library, for a like-for-like comparison
         wrapper_sum_ms = kernel_sum_ms(lambda: K.istft_packed_cuda(spec, cfg))
 
-        # The least work of each function: per frame one FFT plus the window
-        # product (and, for the ISTFT, the overlap-add sum and the COLA
-        # scaling), against its input read once and its output written once.
-        # The kernels compute the DFT as a dense product, 2·n_fft·2F
-        # operations per frame; that design's own f32 floor is printed apart.
+        # The least work of each function (float32 in, float32 out): per
+        # frame one FFT plus the window product (and, for the ISTFT, the
+        # overlap-add sum and the COLA scaling) at the float32 rate, against
+        # its input read once and its output written once.  The kernels' own
+        # FFT operations, counted from their plan, are printed apart at the
+        # rate of the type each computes in (B1 float32, B2 float64).
         out_len_full = ik_np.shape[-1]
         spec_bytes, win_bytes = 4.0 * b * n_t * f2, 4.0 * cfg.n_fft
         stft_row["bound_ms"], stft_row["bound_by"] = bound(
@@ -331,23 +378,27 @@ def check_kernels(dev) -> dict:
         istft_row["bound_ms"], istft_row["bound_by"] = bound(
             b * n_t * (fft_flops(cfg.n_fft) + 2 * cfg.n_fft) + b * out_len_full,
             spec_bytes + win_bytes + 4.0 * b * out_len_full)
-        dft_floor_ms = 2.0 * b * n_t * cfg.n_fft * f2 / PEAK_F32_FLOPS * 1e3
+        frames = {"stft_packed": b * n_t, "istft_packed": istft_frames(cfg, b, n_t)}
 
-        for name, row in (("stft_packed", stft_row), ("istft_packed", istft_row)):
+        for name, row, peak, kind in (("stft_packed", stft_row, PEAK_F32_FLOPS, "f32"),
+                                      ("istft_packed", istft_row, PEAK_F64_FLOPS, "f64")):
+            plan_gflop = frames[name] * plan_flops(cfg) / 1e9
             if row["ms"] < row["bound_ms"]:  # faster than the card can be: a timing fault
                 fail(f"{name} {label}: {row['ms']:.4f} ms is below its bound "
                      f"{row['bound_ms']:.4f} ms")
-            print(f"kernel {name:12s} {label:37s} ({b:2d}, {length}): "
+            print(f"kernel {name:12s} {label:43s} ({b:2d}, {length}): "
                   f"err/max|ref| vs plain {row['err_vs_plain']:.2e}, "
                   f"vs f64 kernel {row['err64_kernel']:.2e} plain {row['err64_plain']:.2e}; "
                   f"device ms: kernel (wrapper) {row['ms']:.4f}, "
                   f"plain {row['plain_ms']:.4f}, torch.{name.split('_')[0]} "
                   f"{row['library_ms']:.4f}; bound {row['bound_ms'] * 1e3:.3f} us "
-                  f"({row['bound_by']}); dense-DFT f32 floor {dft_floor_ms * 1e3:.3f} us",
-                  flush=True)
-        print(f"kernel istft_packed {label:37s} ({b:2d}, {length}): sum of kernel device "
-              f"times per call: wrapper {wrapper_sum_ms:.4f} ms, torch.istft "
-              f"{istft_row['library_ms']:.4f} ms", flush=True)
+                  f"({row['bound_by']}); the kernel's FFTs, {frames[name]} frames, "
+                  f"{plan_gflop:.4f} GFLOP ({plan_gflop * 1e15 / peak:.3f} us at the "
+                  f"{kind} peak)", flush=True)
+        print(f"kernel istft_packed {label:43s} ({b:2d}, {length}): device ms per call, "
+              f"CUDA events: kernel {istft_row['ms']:.4f}; sum of kernel device times: "
+              f"kernel {wrapper_sum_ms:.4f}, torch.istft {istft_row['library_ms']:.4f}",
+              flush=True)
         if not serving:  # the first case
             serving = {"stft_packed": stft_row, "istft_packed": istft_row}
     return serving
