@@ -1,7 +1,8 @@
 // Zipformer2 rel-pos attention scores for Hopper (sm_90a), float32 (B3).
 //
-// Replaces relpos_scores_pallas (audiojax/ops/attention_pallas.py:195) with
-// the contract of relpos_scores_jnp (:142), the function the model runs:
+// Replaces relpos_scores_pallas (audiojax/ops/attention_pallas.py:195, its
+// kernel _relpos_kernel :161) with the contract of relpos_scores_jnp (:142),
+// the function the model runs:
 //
 //   out[n, h, i, j] = softmax_j( q[n, i, h, :] . k[n, j, h, :]
 //                                + sum_p pp[n, i, h, p] * pe[h, p, i, j] )
@@ -12,33 +13,51 @@
 // made.  pe (H, P, S, S) and out (N, H, S, S) are contiguous.  Everything is
 // true float32: pe is not rounded (the Pallas kernel rounds it to bf16), the
 // probabilities are written in float32, and the softmax subtracts its row
-// maximum and divides by the row sum, as jax.nn.softmax does.
+// maximum, as jax.nn.softmax does, and scales by one reciprocal of the row sum.
 //
 // What bounds it: bytes, mostly the output.  At ZipEnhancer's (964, 101) the
-// probabilities are 157 MB and q/k/pp ~112 MB, ~0.08 ms at 3.35 TB/s, against
-// ~3 GFLOP, ~0.045 ms at 67 TFLOP/s.  This first design is far from that
-// bound (PERF.md has its times): it reads P values of pe from L2 for every
-// probability, since no block shares pe rows across n, and spends some forty
-// instructions a probability on the scores and the softmax.
+// probabilities are 157 MB and q/k/pp ~112 MB, 0.081 ms at 3.35 TB/s; at
+// (404, 241) 375 MB of probabilities, 0.147 ms; the operations, ~2D + 2P + 5 a
+// probability, take less.  The first design read P values of pe from L2 for
+// every probability (~1.5 GB through L2 a call at (404, 241), three times the
+// byte bound's traffic) because no block shared pe rows across n.
 //
-// Design.  A block of 8 warps owns one (n, h) and a range of query-row groups
-// of 32 rows, 4 rows per warp.  The head's keys go into shared memory once,
-// transposed (kt[d][j], row stride 32*NJ + 1 so that the transposing stores
-// meet no bank conflicts).  Each warp stages its 4 query rows (transposed,
-// read as one float4 broadcast per d) and their positional terms in its own
-// shared-memory slot, then every lane forms the scores of the 4 rows against
-// NJ keys j = lane + 32 t: per d one float4 and NJ key loads feed 4*NJ FMAs.
-// The positional bias is read from pe (at most a few MB, L2-resident) with
-// neighbouring lanes on neighbouring j, formed apart and added.  The row
-// stays in registers; its maximum and sum go by warp shuffles (expf, not
-// __expf), and the probabilities are written with neighbouring lanes on
-// neighbouring j.  Rows of up to 256 keys take this one pass (NJ = 1, 2, 4
-// or 8 by S).  Longer rows take two passes over 256-key tiles: a running
-// maximum and sum first, then the write, with the scores recomputed in the
-// same order.
+// Design (relpos_batched_kernel, rows of at most 256 keys).  A block of R/4
+// warps owns (h, R query rows, a range of nb batch rows n).  It copies
+// pe[h, :, rows, :] (P*R*S floats) into shared memory once and loops over its
+// n.  For each n it stages that n's keys (S x D, row stride round_up(D, 8) + 4
+// floats, so that a lane's 16-byte reads of keys lane + 32t meet no bank
+// conflict), its R query rows and their P positional terms, by cp.async into
+// one of two buffers while the other one computes: the next n's copies
+// overlap this n's arithmetic.  Each warp forms the scores of its 4 rows
+// against NJ keys a lane (j = lane + 32t): a float4 of q (broadcast) and one
+// of k feed 16 FMAs a key, in the order d = 0, 1, ...; the positional bias
+// (pe from shared memory, lanes on neighbouring j) is formed apart and added,
+// as in the first design.  The row's maximum and sum go by warp shuffles,
+// expf is kept, and the probabilities are e * (1 / sum), one reciprocal a
+// row, written with neighbouring lanes on neighbouring j (a row starts at a
+// 4*S-byte offset, 16-byte aligned only where S % 4 == 0, so the stores are
+// scalar; 32 lanes still fill 128-byte segments) and marked evict-first, so
+// that the output stream does not push pe and the keys out of L2.
 //
-// The launcher returns cudaGetLastError() (or the error of the shared-memory
-// opt-in) after its launch.
+// The count at the chosen points (ops/attention_cuda.py:relpos_launch
+// computes the same shared-memory bytes).  Floats of pe and keys through L2 a
+// probability: P / nb + D / R (q and pp add (D + P) / S, reads that the byte
+// bound counts too).  (404, 241): R 32, nb 101 (8 row tiles x 4 heads x 4
+// batch ranges = 128 blocks, one an SM), shared memory pe 131.1 KB + 2 x 42.0
+// KB = 215.0 KB, 8 warps an SM; 1.04 floats a probability, against ~4.3 in
+// the first design.  (964, 101): R 16, nb 69 (7 x 4 x 14 = 392 blocks, three an
+// SM), 32.8 + 2 x 21.0 = 74.8 KB, 12 warps an SM; 2.06 floats a probability
+// (R 28 read 1.21 but was 7 % slower in attention_geometry_sweep.py: the
+// keys come from L2 at this size, and more, smaller blocks hide more latency).
+//
+// Rows of more than 256 keys take relpos_tiled_kernel, the first design's
+// two-pass route (no served shape has them): a running maximum and sum over
+// 256-key tiles, then the write, with the scores recomputed in the same order
+// and pe read from L2.
+//
+// The launchers take the geometry from the host, check it, and return
+// cudaGetLastError() (or the error of the shared-memory opt-in).
 
 #include <cuda_runtime.h>
 
@@ -47,6 +66,8 @@
 #include <stdint.h>
 
 namespace {
+
+// ── the two-pass route (the first design), for rows of more than 256 keys ──
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -182,52 +203,6 @@ __device__ __forceinline__ Head locate(const Args& a) {
   return hd;
 }
 
-// One pass: the whole row (S <= 32*NJ) in registers.  The launch bounds ask
-// for two blocks an SM (at most 128 registers a thread): where a lane holds 8
-// keys of 4 rows that costs a few spills, which cost less than one block an SM.
-template <int NJ>
-__global__ void __launch_bounds__(kThreads, 2) relpos_kernel(const Args a) {
-  extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* kt = smem;
-  float* qw = smem + keys_floats(NJ, a.D) + warp * kRows * (a.D + a.P);
-  float* pw = qw + kRows * a.D;
-  const Head hd = locate(a);
-
-  load_keys<NJ>(hd.kn, a.ldk, a.S, a.D, 0, kt);
-  __syncthreads();
-
-  for (int g = hd.row0; g < hd.row_end; g += kGroup) {
-    const int i0 = g + warp * kRows;
-    if (i0 >= hd.row_end) break;  // warp-uniform; no block barrier follows
-    load_rows(a, hd.qn, hd.pn, i0, lane, qw, pw);
-    float acc[kRows][NJ];
-    scores<NJ>(a, kt, qw, pw, hd.peh, i0, 0, lane, acc);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = i0 + r;
-      if (i >= hd.row_end) break;
-      float m = acc[r][0];
-#pragma unroll
-      for (int t = 1; t < NJ; ++t) m = fmaxf(m, acc[r][t]);
-      m = warp_max(m);
-      float s = 0.f;
-#pragma unroll
-      for (int t = 0; t < NJ; ++t) {
-        acc[r][t] = expf(acc[r][t] - m);  // 0 past S
-        s += acc[r][t];
-      }
-      s = warp_sum(s);
-      float* orow = hd.on + (size_t)i * a.S;
-#pragma unroll
-      for (int t = 0; t < NJ; ++t) {
-        const int j = t * 32 + lane;
-        if (j < a.S) orow[j] = acc[r][t] / s;
-      }
-    }
-  }
-}
-
 // Two passes over 256-key tiles, for rows longer than 256 keys.
 __global__ void __launch_bounds__(kThreads, 2) relpos_tiled_kernel(const Args a) {
   constexpr int NJ = kMaxNJ, kTile = 32 * NJ;
@@ -302,17 +277,246 @@ __global__ void __launch_bounds__(kThreads, 2) relpos_tiled_kernel(const Args a)
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int nj, const Args& a, int blocks, cudaStream_t stream) {
-  const size_t smem =
-      ((size_t)keys_floats(nj, a.D) + (size_t)kWarps * kRows * (a.D + a.P)) * sizeof(float);
+// ── the batched one-pass route (S <= 256) ──────────────────────────────────
+
+struct Batched {
+  const float* q;
+  const float* k;
+  const float* pp;
+  const float* pe;
+  float* out;
+  long long ldq, ldk, ldpp;  // row strides, in floats
+  int N, S, H, D, P, pstride;
+  int R;          // query rows per block, a multiple of 4 (R / 4 warps)
+  int row_tiles;  // ceil(S / R)
+  int nb;         // batch rows per block
+  int chunks;     // ceil(N / nb)
+  int ds;         // row stride of staged q and k rows: round_up(D, 8) + 4
+  int vec;        // q and k copied 16 bytes at a time (D % 4 == 0, aligned rows)
+};
+
+__host__ __device__ constexpr int round_up(int a, int b) { return (a + b - 1) / b * b; }
+
+// Floats of one staging buffer: keys (32 NJ rows), R query rows, R x P terms.
+__host__ __device__ constexpr size_t batched_buffer_floats(int nj, int r, int d, int p) {
+  return (size_t)(32 * nj + r) * (round_up(d, 8) + 4) + (size_t)r * p;
+}
+
+// Shared-memory floats: pe[h, :, rows, :] (row stride 32 NJ), two buffers.
+__host__ __device__ constexpr size_t batched_floats(int nj, int r, int d, int p) {
+  return (size_t)p * r * 32 * nj + 2 * batched_buffer_floats(nj, r, d, p);
+}
+
+// 4 or 16 bytes from global to shared memory, asynchronously.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// f(r, c) for every cell of a rows x cols grid, spread over the block's
+// threads, with no division a cell.
+template <typename F>
+__device__ __forceinline__ void grid_for(int rows, int cols, F&& f) {
+  const int step = blockDim.x, dr = step / cols, dc = step - dr * cols;
+  int r = threadIdx.x / cols, c = threadIdx.x - r * cols;
+  while (r < rows) {
+    f(r, c);
+    r += dr;
+    c += dc;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
+    }
+  }
+}
+
+// Batch row n's keys, the block's query rows and their positional terms into
+// buf (keys [32 NJ][ds], then q [R][ds], then pp [R][P]); rows past S are not
+// copied (the zeros written at the start stay).
+template <int NJ>
+__device__ __forceinline__ void stage_batch_row(const Batched& a, int n, int h, int row0,
+                                                float* buf) {
+  float* ks = buf;
+  float* qs = ks + 32 * NJ * a.ds;
+  float* ps = qs + a.R * a.ds;
+  const float* kn = a.k + (size_t)n * a.S * a.ldk + (size_t)h * a.D;
+  const float* qn = a.q + ((size_t)n * a.S + row0) * a.ldq + (size_t)h * a.D;
+  const float* pn = a.pp + ((size_t)n * a.S + row0) * a.ldpp + (size_t)h * a.pstride;
+  const int rows = min(a.R, a.S - row0);
+  if (a.vec) {
+    grid_for(a.S, a.D / 4, [&](int r, int c) {
+      cp_async16(ks + r * a.ds + 4 * c, kn + r * a.ldk + 4 * c);
+    });
+    grid_for(rows, a.D / 4, [&](int r, int c) {
+      cp_async16(qs + r * a.ds + 4 * c, qn + r * a.ldq + 4 * c);
+    });
+  } else {
+    grid_for(a.S, a.D, [&](int r, int c) {
+      cp_async4(ks + r * a.ds + c, kn + r * a.ldk + c);
+    });
+    grid_for(rows, a.D, [&](int r, int c) {
+      cp_async4(qs + r * a.ds + c, qn + r * a.ldq + c);
+    });
+  }
+  grid_for(rows, a.P, [&](int r, int c) {
+    cp_async4(ps + r * a.P + c, pn + r * a.ldpp + c);
+  });
+}
+
+template <int NJ>
+__global__ void __launch_bounds__(256, 1) relpos_batched_kernel(const Batched a) {
+  constexpr int kSP = 32 * NJ;  // row stride of the staged pe rows; keys a buffer
+  extern __shared__ __align__(16) float smem[];
+  const size_t buf_floats = batched_buffer_floats(NJ, a.R, a.D, a.P);
+  float* pes = smem;  // [P][R][kSP]
+  float* bufs = smem + (size_t)a.P * a.R * kSP;
+
+  int b = blockIdx.x;
+  const int chunk = b % a.chunks;
+  b /= a.chunks;
+  const int row0 = (b % a.row_tiles) * a.R, h = b / a.row_tiles;
+  const int row_end = min(a.S, row0 + a.R);
+  const int n_lo = chunk * a.nb, n_hi = min(a.N, n_lo + a.nb);
+  if (n_lo >= n_hi) return;  // whole block: no barrier is skipped by part of it
+
+  // zeros where no copy lands (keys past S, feature pads, rows past S), then
+  // this head's pe rows (once) and the first batch row
+  const size_t total = (size_t)a.P * a.R * kSP + 2 * buf_floats;
+  for (size_t e = threadIdx.x; e < total; e += blockDim.x) smem[e] = 0.f;
+  __syncthreads();
+  const float* peh = a.pe + ((size_t)h * a.P * a.S + row0) * a.S;
+  grid_for(a.P * (row_end - row0), a.S, [&](int pr, int j) {
+    const int p = pr / (row_end - row0), r = pr - p * (row_end - row0);
+    cp_async4(pes + ((size_t)p * a.R + r) * kSP + j, peh + ((size_t)p * a.S + r) * a.S + j);
+  });
+  stage_batch_row<NJ>(a, n_lo, h, row0, bufs);
+  cp_commit();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * 4, i0 = row0 + r0;  // this warp's 4 rows
+  const int d4 = round_up(a.D, 4);
+  for (int n = n_lo; n < n_hi; ++n) {
+    const int cur = (n - n_lo) & 1;
+    if (n + 1 < n_hi) {
+      stage_batch_row<NJ>(a, n + 1, h, row0, bufs + (cur ^ 1) * buf_floats);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    if (i0 < row_end) {  // warp-uniform
+      const float* ks = bufs + cur * buf_floats;
+      const float* qs = ks + kSP * a.ds;
+      const float* ps = qs + a.R * a.ds;
+      float acc[4][NJ];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int t = 0; t < NJ; ++t) acc[r][t] = 0.f;
+#pragma unroll 2
+      for (int d = 0; d < d4; d += 4) {
+        float4 qv[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          qv[r] = *reinterpret_cast<const float4*>(qs + (r0 + r) * a.ds + d);
+#pragma unroll
+        for (int t = 0; t < NJ; ++t) {
+          const float4 kv = *reinterpret_cast<const float4*>(ks + (t * 32 + lane) * a.ds + d);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            acc[r][t] = fmaf(qv[r].x, kv.x, acc[r][t]);
+            acc[r][t] = fmaf(qv[r].y, kv.y, acc[r][t]);
+            acc[r][t] = fmaf(qv[r].z, kv.z, acc[r][t]);
+            acc[r][t] = fmaf(qv[r].w, kv.w, acc[r][t]);
+          }
+        }
+      }
+      // positional bias sum_p pp * pe, formed apart and then added; the four
+      // rows go together through every step below, so that their shuffle
+      // chains and exponentials overlap
+      float bias[4][NJ];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int t = 0; t < NJ; ++t) bias[r][t] = 0.f;
+#pragma unroll 4
+      for (int p = 0; p < a.P; ++p) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float w = ps[(r0 + r) * a.P + p];
+          const float* pe_r = pes + ((size_t)p * a.R + r0 + r) * kSP + lane;
+#pragma unroll
+          for (int t = 0; t < NJ; ++t) bias[r][t] = fmaf(w, pe_r[t * 32], bias[r][t]);
+        }
+      }
+      float m[4], sum[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        m[r] = -INFINITY;
+#pragma unroll
+        for (int t = 0; t < NJ; ++t) {
+          acc[r][t] = t * 32 + lane < a.S ? acc[r][t] + bias[r][t] : -INFINITY;
+          m[r] = fmaxf(m[r], acc[r][t]);
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], o));
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        sum[r] = 0.f;
+#pragma unroll
+        for (int t = 0; t < NJ; ++t) {
+          acc[r][t] = expf(acc[r][t] - m[r]);  // 0 past S
+          sum[r] += acc[r][t];
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], o);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = i0 + r;
+        if (i >= row_end) break;
+        const float inv = 1.f / sum[r];
+        float* orow = a.out + (((size_t)n * a.H + h) * a.S + i) * a.S;
+#pragma unroll
+        for (int t = 0; t < NJ; ++t)
+          if (t * 32 + lane < a.S) __stcs(orow + t * 32 + lane, acc[r][t] * inv);
+      }
+    }
+    __syncthreads();  // the next copy overwrites this buffer
+  }
+}
+
+template <typename Kernel, typename A>
+cudaError_t launch(Kernel kernel, const A& a, long long blocks, int threads, size_t smem,
+                   cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<blocks, kThreads, smem, stream>>>(a);
+  kernel<<<(unsigned)blocks, threads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+bool bad_common(int n, int s, int h, int d, int p, int pstride, long long ldq, long long ldk,
+                long long ldpp) {
+  return n <= 0 || s <= 0 || h <= 0 || d <= 0 || p <= 0 || p > pstride ||
+         ldq < (long long)h * d || ldk < (long long)h * d || ldpp < (long long)h * pstride;
 }
 
 }  // namespace
@@ -323,31 +527,49 @@ const char* ajt_relpos_error_string(int code) { return cudaGetErrorString((cudaE
 
 // q, k (n, s, h*d) with row strides ldq, ldk; pp (n, s, h*pstride) with row
 // stride ldpp, p <= pstride terms a head; pe (h, p, s, s) and out
-// (n, h, s, s) contiguous; all float32.
-int ajt_relpos_scores_f32(const float* q, const float* k, const float* pp, const float* pe,
-                          float* out, int n, int s, int h, int d, int p, int pstride,
-                          long long ldq, long long ldk, long long ldpp, void* stream) {
-  if (n <= 0 || s <= 0 || h <= 0 || d <= 0 || p <= 0 || p > pstride || ldq < (long long)h * d ||
-      ldk < (long long)h * d || ldpp < (long long)h * pstride)
-    return (int)cudaErrorInvalidValue;
-  Args a{q, k, pp, pe, out, ldq, ldk, ldpp, s, h, d, p, pstride, 1, 1};
-  const int groups = (s + kGroup - 1) / kGroup;
-  // split a row's groups over several blocks only while there are too few
-  // (n, h) pairs to fill the card
-  const long long pairs = (long long)n * h;
-  const long long want = (4096 + pairs - 1) / pairs;
-  a.groups_per_chunk = (int)((groups + want - 1) / want);
-  if (a.groups_per_chunk < 1) a.groups_per_chunk = 1;
-  a.chunks = (groups + a.groups_per_chunk - 1) / a.groups_per_chunk;
-  const long long blocks = pairs * a.chunks;
+// (n, h, s, s) contiguous; all float32.  Rows of s <= 32 nj <= 256 keys;
+// rows query rows a block (a multiple of 4, at most 32; rows / 4 warps), nb
+// batch rows a block, smem bytes at least batched_floats(nj, rows, d, p) * 4.
+int ajt_relpos_batched_f32(const float* q, const float* k, const float* pp, const float* pe,
+                           float* out, int n, int s, int h, int d, int p, int pstride,
+                           long long ldq, long long ldk, long long ldpp, int nj, int rows, int nb,
+                           long long smem, void* stream) {
+  if (bad_common(n, s, h, d, p, pstride, ldq, ldk, ldpp)) return (int)cudaErrorInvalidValue;
+  if ((nj != 1 && nj != 2 && nj != 4 && nj != 8) || 32 * nj < s || rows < 4 || rows > 32 ||
+      rows % 4 || nb < 1 || smem < (long long)(batched_floats(nj, rows, d, p) * sizeof(float)))
+    return (int)cudaErrorInvalidConfiguration;
+  Batched a{q, k, pp, pe, out, ldq, ldk, ldpp, n, s, h, d, p, pstride, rows,
+            (s + rows - 1) / rows, nb, (n + nb - 1) / nb, round_up(d, 8) + 4, 0};
+  a.vec = d % 4 == 0 && ldq % 4 == 0 && ldk % 4 == 0 && ((uintptr_t)q | (uintptr_t)k) % 16 == 0;
+  const long long blocks = (long long)h * a.row_tiles * a.chunks;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const cudaStream_t st = (cudaStream_t)stream;
-  const int nj = (s + 31) / 32;
-  if (nj <= 1) return (int)launch(relpos_kernel<1>, 1, a, (int)blocks, st);
-  if (nj <= 2) return (int)launch(relpos_kernel<2>, 2, a, (int)blocks, st);
-  if (nj <= 4) return (int)launch(relpos_kernel<4>, 4, a, (int)blocks, st);
-  if (nj <= kMaxNJ) return (int)launch(relpos_kernel<kMaxNJ>, kMaxNJ, a, (int)blocks, st);
-  return (int)launch(relpos_tiled_kernel, kMaxNJ, a, (int)blocks, st);
+  const int threads = 8 * rows;
+  switch (nj) {
+    case 1: return (int)launch(relpos_batched_kernel<1>, a, blocks, threads, (size_t)smem, st);
+    case 2: return (int)launch(relpos_batched_kernel<2>, a, blocks, threads, (size_t)smem, st);
+    case 4: return (int)launch(relpos_batched_kernel<4>, a, blocks, threads, (size_t)smem, st);
+    default: return (int)launch(relpos_batched_kernel<8>, a, blocks, threads, (size_t)smem, st);
+  }
+}
+
+// The two-pass route, for any s: groups_per_chunk 32-row groups a block,
+// smem bytes at least (keys_floats(8, d) + 32 (d + p)) * 4.
+int ajt_relpos_two_pass_f32(const float* q, const float* k, const float* pp, const float* pe,
+                            float* out, int n, int s, int h, int d, int p, int pstride,
+                            long long ldq, long long ldk, long long ldpp, int groups_per_chunk,
+                            long long smem, void* stream) {
+  if (bad_common(n, s, h, d, p, pstride, ldq, ldk, ldpp)) return (int)cudaErrorInvalidValue;
+  const size_t need = ((size_t)keys_floats(kMaxNJ, d) + (size_t)kWarps * kRows * (d + p)) *
+                      sizeof(float);
+  if (groups_per_chunk < 1 || smem < (long long)need) return (int)cudaErrorInvalidConfiguration;
+  Args a{q, k, pp, pe, out, ldq, ldk, ldpp, s, h, d, p, pstride, 1, groups_per_chunk};
+  const int groups = (s + kGroup - 1) / kGroup;
+  a.chunks = (groups + groups_per_chunk - 1) / groups_per_chunk;
+  const long long blocks = (long long)n * h * a.chunks;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  return (int)launch(relpos_tiled_kernel, a, blocks, kThreads, (size_t)smem,
+                     (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,10 +1,12 @@
 """Attention kernels for Hopper (B6 relu² attention, B3 rel-pos scores),
-with their launch counters.
+with their launch plans and launch counters.
 
 Counterpart of ``audiojax.ops.attention_pallas``.  The kernels are CUDA C++
 in ``csrc/quad_attention.cu`` and ``csrc/relpos_scores.cu``, built for sm_90a
 by :mod:`._build` at first use and called through ctypes on PyTorch's current
-stream.
+stream.  Their geometry (tile sizes, grid, shared memory) comes from the
+plain functions ``quad_launch`` and ``relpos_launch`` here; the C launchers
+only check it.
 
 B6, ``quad_attention_cuda`` — replaces ``quad_attention_pallas``
 (``audiojax/ops/attention_pallas.py:61``, kernel ``_kernel``).  Contract
@@ -16,12 +18,15 @@ B6, ``quad_attention_cuda`` — replaces ``quad_attention_pallas``
 with scores and the PV product in true float32 (no TF32), and no (N, S, S)
 tensor in device memory.
 
-What bounds it: f32 operations.  At the MossFormerGAN GAU shapes,
-(964, 101, K=V=128) does N·S²·(2K+2V) ≈ 5.0 GFLOP, ~75 µs at 67 TFLOP/s,
-against ~200 MB read and written, ~60 µs at 3.35 TB/s; the cross shape
-(404, 241) does ≈ 12 GFLOP, ~179 µs.  The kernel keeps each block's query
-tile, the key and value tiles and the score tile in shared memory, and the
-output tile in registers (see the note at the top of the source).
+What bounds it: f32 operations, N·S²·(2K + 2V): MossFormer2-SS's FLASH group
+(64, 256, K 128, V 2048) is 18.25 GFLOP, 0.272 ms at 67 TFLOP/s; the GAN's
+(964, 101, 128, 128) 5.0 GFLOP, 0.075 ms.  A block owns (n, 64 query rows)
+and forms their relu² score tile once into shared memory (69.6 KB at S =
+256), then sweeps every value tile of 128 columns against it as a SIMT SGEMM
+(8 × 8 register tiles, v copied by cp.async into two buffers), two blocks an
+SM.  Its sums run in key order, as cuBLAS's do: on the card it equals
+``quad_attention_plain`` bit for bit.  v passes through L2 once per row
+tile (0.54 GB a call at SS).
 
 B3, ``relpos_scores_cuda`` — replaces ``relpos_scores_pallas``
 (``audiojax/ops/attention_pallas.py:195``, kernel ``_relpos_kernel``).
@@ -36,11 +41,16 @@ the probabilities are float32 and the softmax subtracts its row maximum in
 float32.  q, k and pp may be lane slices of one projection (any row stride,
 unit lane stride): the kernel reads them in place, with no copy.
 
-What bounds it: bytes, mostly the (N, H, S, S) output.  At ZipEnhancer's
-(964, 101) the output is 157 MB and q/k/pp ~112 MB, ~0.08 ms at 3.35 TB/s,
-against ~3 GFLOP, ~0.045 ms at 67 TFLOP/s.  The kernel keeps a head's keys in
-shared memory and each row of scores in registers, and writes only the
-probabilities (see the note at the top of the source).
+What bounds it: bytes, mostly the (N, H, S, S) output: 0.081 ms at
+ZipEnhancer's (964, 101), 0.147 ms at (404, 241), at 3.35 TB/s.  A block
+owns (h, a row tile, a range of nb batch rows), copies pe[h, :, rows, :]
+into shared memory once and loops over its batch rows, each one's keys,
+queries and positional terms double-buffered by cp.async: P/nb + D/R floats
+of pe and keys through L2 a probability instead of the first design's P +
+D/R (at (404, 241): R 32, nb 101, 215 KB of shared memory, 1.04 floats
+against ~4.3).  The softmax takes one reciprocal a row.  Rows over 256 keys
+keep the first design's two-pass kernel.  The notes at the top of the
+sources give the counts of every chosen point.
 
 ``fast_quad_attention`` and ``fast_relpos_scores`` take the plain versions
 (``quad_attention_plain``, ``relpos_scores_plain``) only for a tensor on the
@@ -49,19 +59,26 @@ CPU; a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
 from . import _build
 
-__all__ = ["launches", "reset_launches", "quad_attention_cuda", "quad_attention_plain",
-           "fast_quad_attention", "pos_stride", "relpos_scores_plain", "relpos_scores_cuda",
-           "fast_relpos_scores"]
+__all__ = ["launches", "reset_launches", "QuadLaunch", "quad_launch", "launch_quad_attention",
+           "quad_attention_cuda", "quad_attention_plain", "fast_quad_attention", "pos_stride",
+           "RelposLaunch", "relpos_launch", "launch_relpos_scores", "relpos_scores_plain",
+           "relpos_scores_cuda", "fast_relpos_scores"]
 
 # Kernel launches since the last reset.  The wrapper adds one where it
 # launches its kernel, and nowhere else.
 launches = {"quad_attention": 0, "relpos_scores": 0}
+
+
+SMEM_MAX = 232448  # dynamic shared memory a block can have on sm_90
+SMEM_SM = 233472  # shared memory of one SM; each resident block also takes 1 KB
+SM_COUNT = 132
 
 
 def reset_launches() -> None:
@@ -69,11 +86,76 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# ── B6: launch plan ────────────────────────────────────────────────────────
+
+QUAD_WARPS = ((2, 2), (4, 2))  # (WM, WN) the kernel is built for
+QUAD_DC, QUAD_JC = 16, 32  # features of q/k and keys of v staged at a time
+QUAD_SB = 2  # q/k feature chunks in the ring
+
+
+@dataclasses.dataclass(frozen=True)
+class QuadLaunch:
+    wm: int  # warps along the query rows: 32·wm rows a block
+    wn: int  # warps along the value columns: 64·wn columns a tile, 64·wn keys a score block
+    row_tiles: int  # ceil(S / (32·wm))
+    vsplit: int  # ranges of value tiles a row tile is split into, a block each
+    seg: int  # keys of the score tile held in shared memory (S rounded up to 8 where it fits)
+    threads: int
+    blocks: int  # N · row_tiles · vsplit
+    smem: int  # bytes
+
+
+def quad_smem(wm: int, wn: int, seg: int) -> int:
+    """Shared-memory bytes of B6 (``smem_floats`` in ``csrc/quad_attention.cu``):
+    the key-major score tile of ``seg`` keys (row stride 32·wm + 4), then the
+    larger of the two stagings: q rows and keys by 16 features (row stride
+    20) in a ring of 2, and two v pieces of 32 keys × 64·wn columns."""
+    bm, kb = 32 * wm, 64 * wn
+    return 4 * (seg * (bm + 4) + max(QUAD_SB * (bm + kb) * (QUAD_DC + 4), 2 * QUAD_JC * 64 * wn))
+
+
+def quad_launch(n: int, s: int, dk: int, dv: int, *, warps: tuple[int, int] = (2, 2),
+                vsplit: int | None = None) -> QuadLaunch:
+    """B6's geometry for q, k (n, s, dk), v (n, s, dv).
+
+    Warps 2 × 2 (64 rows × 128 value columns, two blocks an SM: the fastest
+    or within 1.5 % of it at every served shape in
+    ``attention_geometry_sweep.py``'s tables); the score tile of all keys (S rounded up to 8)
+    where it fits beside the staging buffers, else key segments with one
+    value tile a block.  Value tiles are split over more blocks only while
+    there are fewer blocks than SMs (each block forms its score tile again)."""
+    if warps not in QUAD_WARPS:
+        raise ValueError(f"B6 is built for warps {QUAD_WARPS}, got {warps}")
+    wm, wn = warps
+    s_pad, tiles = _cdiv(s, 8) * 8, _cdiv(dv, 64 * wn)
+    room = (SMEM_MAX - quad_smem(wm, wn, 0)) // (4 * (32 * wm + 4)) // 8 * 8
+    seg = min(s_pad, room)
+    if seg < s_pad:  # key segments: the output tile stays in registers across them
+        if vsplit not in (None, tiles):
+            raise ValueError(f"S = {s} takes key segments, which need vsplit = {tiles}")
+        vsplit = tiles
+    elif vsplit is None:
+        vsplit = 1
+        while vsplit < tiles and n * _cdiv(s, 32 * wm) * vsplit < SM_COUNT:
+            vsplit *= 2
+        vsplit = min(vsplit, tiles)
+    if not 1 <= vsplit <= tiles:
+        raise ValueError(f"vsplit {vsplit} outside 1..{tiles}")
+    row_tiles = _cdiv(s, 32 * wm)
+    return QuadLaunch(wm, wn, row_tiles, vsplit, seg, 32 * wm * wn, n * row_tiles * vsplit,
+                      quad_smem(wm, wn, seg))
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("quad_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ajt_quad_attention_f32.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
+    lib.ajt_quad_attention_f32.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i, i, i, i,
+                                           i, i, ctypes.c_longlong, p]
     lib.ajt_quad_attention_f32.restype = i
     lib.ajt_quad_error_string.argtypes = [i]
     lib.ajt_quad_error_string.restype = ctypes.c_char_p
@@ -88,6 +170,23 @@ def quad_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, s
         s = q.shape[1]
         attn = attn.masked_fill(torch.eye(s, dtype=torch.bool, device=q.device), 0.0)
     return torch.matmul(attn, v)
+
+
+def launch_quad_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                          scale: float, mask_diag: bool, plan: QuadLaunch) -> None:
+    """Launch B6 on checked tensors into ``out`` at ``plan``'s geometry;
+    counts nothing (``quad_attention_cuda`` counts its launch)."""
+    lib = _lib()
+    n, s, dk = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.ajt_quad_attention_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                        n, s, dk, v.shape[-1], float(scale), int(mask_diag),
+                                        plan.wm, plan.wn, plan.row_tiles, plan.vsplit, plan.seg,
+                                        plan.smem, stream)
+    if rc != 0:
+        raise RuntimeError(f"quad_attention launch failed: "
+                           f"{lib.ajt_quad_error_string(rc).decode()} ({rc})")
 
 
 def quad_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
@@ -108,15 +207,9 @@ def quad_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, sc
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} do not fit")
     if dk % 4 or dv % 4:
         raise ValueError(f"the kernel takes K and V that are multiples of 4, got {dk}, {dv}")
-    lib = _lib()
+    plan = quad_launch(n, s, dk, dv)  # raises before any launch
     out = torch.empty((n, s, dv), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.ajt_quad_attention_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                        n, s, dk, dv, float(scale), int(mask_diag), stream)
-    if rc != 0:
-        raise RuntimeError(f"quad_attention launch failed: "
-                           f"{lib.ajt_quad_error_string(rc).decode()} ({rc})")
+    launch_quad_attention(q, k, v, out, scale, mask_diag, plan)
     launches["quad_attention"] += 1
     return out
 
@@ -139,12 +232,80 @@ def pos_stride(n_pos: int) -> int:
     return -(-n_pos // 8) * 8
 
 
+@dataclasses.dataclass(frozen=True)
+class RelposLaunch:
+    route: str  # "batched" (S <= 256) or "two_pass"
+    nj: int  # keys a lane: 32·nj >= S (8 and 256-key tiles on the two-pass route)
+    rows: int  # batched: query rows a block (rows / 4 warps); two-pass: 32-row groups a block
+    row_tiles: int  # batched: ceil(S / rows); two-pass: row ranges a (n, h)
+    nb: int  # batched: batch rows a block (1 on the two-pass route)
+    chunks: int  # batched: ceil(N / nb) batch ranges (N on the two-pass route)
+    threads: int
+    blocks: int
+    smem: int  # bytes
+
+
+def relpos_smem(nj: int, rows: int, d: int, n_pos: int) -> int:
+    """Shared-memory bytes of B3's batched route (``batched_floats`` in
+    ``csrc/relpos_scores.cu``): pe[h, :, rows, :] at row stride 32·nj, and two
+    buffers of 32·nj keys and ``rows`` query rows (row stride round_up(D, 8) +
+    4) and rows × P positional terms."""
+    ds = _cdiv(d, 8) * 8 + 4
+    return 4 * (n_pos * rows * 32 * nj + 2 * ((32 * nj + rows) * ds + rows * n_pos))
+
+
+def _two_pass_smem(d: int, n_pos: int) -> int:
+    """``keys_floats(8, D) + 32 (D + P)`` floats of ``relpos_tiled_kernel``."""
+    return 4 * (_cdiv(d * 257, 4) * 4 + 32 * (d + n_pos))
+
+
+def relpos_launch(n: int, s: int, h: int, d: int, n_pos: int, *, rows: int | None = None,
+                  nb: int | None = None) -> RelposLaunch:
+    """B3's geometry for q, k (n, s, h·d) and pe (h, P, s, s).
+
+    Rows of at most 256 keys take the batched route: row tiles of at most 32
+    rows, balanced (S = 51 → 2 tiles of 28), of 16 rows at 65–128 keys (three
+    blocks an SM; the fastest at ZipEnhancer's S = 101 and 121 in
+    ``attention_geometry_sweep.py``'s tables), fewer where the shared memory
+    needs it; the batch split so that the blocks fill one wave of the SMs at
+    the blocks an SM that the shared memory allows, each block staging its pe
+    rows once for nb batch rows.  Longer rows, or rows whose pe tile does not
+    fit, take the two-pass route."""
+    if s <= 256:
+        nj = 1 << max(0, (_cdiv(s, 32) - 1).bit_length())
+        r = rows if rows is not None else 16 if nj == 4 else _cdiv(_cdiv(s, _cdiv(s, 32)), 4) * 4
+        if r % 4 or not 4 <= r <= 32:
+            raise ValueError(f"rows {r}: a multiple of 4 from 4 to 32")
+        while rows is None and r > 4 and relpos_smem(nj, r, d, n_pos) > SMEM_MAX:
+            r -= 4
+        smem = relpos_smem(nj, r, d, n_pos)
+        if smem <= SMEM_MAX:
+            row_tiles = _cdiv(s, r)
+            per_sm = max(1, min(SMEM_SM // (smem + 1024), 2048 // (8 * r)))
+            if nb is None:
+                nb = _cdiv(n, max(1, min(n, SM_COUNT * per_sm // (h * row_tiles))))
+            chunks = _cdiv(n, nb)
+            return RelposLaunch("batched", nj, r, row_tiles, nb, chunks, 8 * r,
+                                h * row_tiles * chunks, smem)
+        if rows is not None:
+            raise ValueError(f"rows {rows}: {smem} bytes of shared memory, more than {SMEM_MAX}")
+    # the first design's route: a row's 32-row groups split over several
+    # blocks only while there are too few (n, h) pairs to fill the card
+    groups = _cdiv(s, 32)
+    per_chunk = _cdiv(groups, _cdiv(4096, n * h))
+    chunks = _cdiv(groups, per_chunk)
+    return RelposLaunch("two_pass", 8, per_chunk, chunks, 1, n, 256, n * h * chunks,
+                        _two_pass_smem(d, n_pos))
+
+
 @functools.cache
 def _relpos_lib() -> ctypes.CDLL:
     lib = _build.load("relpos_scores")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ajt_relpos_scores_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ll, ll, ll, p]
-    lib.ajt_relpos_scores_f32.restype = i
+    lib.ajt_relpos_batched_f32.argtypes = [p, p, p, p, p] + [i] * 6 + [ll] * 3 + [i] * 3 + [ll, p]
+    lib.ajt_relpos_batched_f32.restype = i
+    lib.ajt_relpos_two_pass_f32.argtypes = [p, p, p, p, p] + [i] * 6 + [ll] * 3 + [i, ll, p]
+    lib.ajt_relpos_two_pass_f32.restype = i
     lib.ajt_relpos_error_string.argtypes = [i]
     lib.ajt_relpos_error_string.restype = ctypes.c_char_p
     return lib
@@ -191,36 +352,50 @@ def _rows(t: torch.Tensor, name: str, n: int, s: int, width: int) -> int:
     return ld
 
 
+def launch_relpos_scores(q: torch.Tensor, k: torch.Tensor, pp: torch.Tensor, pe: torch.Tensor,
+                         out: torch.Tensor, num_heads: int, plan: RelposLaunch) -> None:
+    """Launch B3 on checked tensors into ``out`` at ``plan``'s geometry;
+    counts nothing (``relpos_scores_cuda`` counts its launch)."""
+    lib = _relpos_lib()
+    n, s, _ = q.shape
+    h, d, n_pos, stride = _relpos_heads(q, pp, pe, num_heads)
+    args = (q.data_ptr(), k.data_ptr(), pp.data_ptr(), pe.data_ptr(), out.data_ptr(), n, s, h, d,
+            n_pos, stride, q.stride(1), k.stride(1), pp.stride(1))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if plan.route == "batched":
+            rc = lib.ajt_relpos_batched_f32(*args, plan.nj, plan.rows, plan.nb, plan.smem, stream)
+        else:
+            rc = lib.ajt_relpos_two_pass_f32(*args, plan.rows, plan.smem, stream)
+    if rc != 0:
+        raise RuntimeError(f"relpos_scores launch failed: "
+                           f"{lib.ajt_relpos_error_string(rc).decode()} ({rc})")
+
+
 def relpos_scores_cuda(q: torch.Tensor, k: torch.Tensor, pp: torch.Tensor, pe: torch.Tensor, *,
                        num_heads: int) -> torch.Tensor:
     """Rel-pos attention scores on the card; contract of :func:`relpos_scores_plain`.
 
-    The kernel loads scalars, so a float32 tensor's own alignment is all it
-    needs; shapes, dtypes, devices and row strides are checked here."""
+    The kernel copies 16 bytes at a time where the rows of q and k allow it,
+    else 4, so a float32 tensor's own alignment is all it needs; shapes,
+    dtypes, devices and row strides are checked here."""
     if q.ndim != 3 or pp.ndim != 3 or pe.ndim != 4:
         raise ValueError(f"q {tuple(q.shape)}, pp {tuple(pp.shape)} and pe {tuple(pe.shape)} "
                          "must have ranks 3, 3 and 4")
     n, s, hd = q.shape
     h, d, n_pos, stride = _relpos_heads(q, pp, pe, num_heads)
-    ldq = _rows(q, "q", n, s, hd)
-    ldk = _rows(k, "k", n, s, hd)
-    ldpp = _rows(pp, "pp", n, s, h * stride)
+    _rows(q, "q", n, s, hd)
+    _rows(k, "k", n, s, hd)
+    _rows(pp, "pp", n, s, h * stride)
     if pe.device.type != "cuda" or pe.dtype != torch.float32 or not pe.is_contiguous():
         raise ValueError(f"pe must be a contiguous float32 CUDA tensor, got {pe.dtype} on "
                          f"{pe.device}")
     if tuple(pe.shape[2:]) != (s, s) or not q.device == k.device == pp.device == pe.device:
         raise ValueError(f"pe {tuple(pe.shape)} on {pe.device} does not fit q {tuple(q.shape)} "
                          f"on {q.device}")
-    lib = _relpos_lib()
+    plan = relpos_launch(n, s, h, d, n_pos)
     out = torch.empty((n, h, s, s), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.ajt_relpos_scores_f32(q.data_ptr(), k.data_ptr(), pp.data_ptr(), pe.data_ptr(),
-                                       out.data_ptr(), n, s, h, d, n_pos, stride, ldq, ldk, ldpp,
-                                       stream)
-    if rc != 0:
-        raise RuntimeError(f"relpos_scores launch failed: "
-                           f"{lib.ajt_relpos_error_string(rc).decode()} ({rc})")
+    launch_relpos_scores(q, k, pp, pe, out, h, plan)
     launches["relpos_scores"] += 1
     return out
 

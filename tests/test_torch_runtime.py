@@ -54,10 +54,11 @@ def test_import_pulls_in_no_jax():
 
 
 def test_sources_import_no_jax():
-    """A scan of every import statement in the port, chip_smoke.py and
-    stft_geometry_sweep.py."""
+    """A scan of every import statement in the port, chip_smoke.py and the
+    two geometry sweeps."""
     files = [p for p in PORT.rglob("*.py") if "_build" not in p.parts] + [
-        REPO / "chip_smoke.py", REPO / "stft_geometry_sweep.py"]
+        REPO / "chip_smoke.py", REPO / "stft_geometry_sweep.py",
+        REPO / "attention_geometry_sweep.py"]
     assert len(files) > 15
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
