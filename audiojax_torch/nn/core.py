@@ -70,13 +70,13 @@ def conv1d(p, x: torch.Tensor, *, stride: int = 1, padding=0, dilation: int = 1,
         x = x[:, max(0, -lo): x.shape[1] - max(0, -hi)]
         lo, hi = max(0, lo), max(0, hi)
     c = x.shape[-1]
+    # the kernels read w through its strides: the (k, C) and (k, 2, G) views go uncopied
     if w.shape[1] == 1 and w.shape[0] == groups == c and stride == 1:
-        y = fast_dwconv1d(x.contiguous(), w[:, 0, :].t().contiguous(), pads=(lo, hi),
-                          dilation=dilation)
+        y = fast_dwconv1d(x.contiguous(), w[:, 0, :].t(), pads=(lo, hi), dilation=dilation)
         return y + p["b"] if "b" in p else y
     if w.shape[1] == 2 and w.shape[0] == groups and c == 2 * groups and stride == 1:
-        y = fast_dwconv1d_grouped(x.contiguous(), w.permute(2, 1, 0).contiguous(),
-                                  pads=(lo, hi), dilation=dilation)
+        y = fast_dwconv1d_grouped(x.contiguous(), w.permute(2, 1, 0), pads=(lo, hi),
+                                  dilation=dilation)
         return y + p["b"] if "b" in p else y
     xc = x.transpose(1, 2)
     if lo != hi:

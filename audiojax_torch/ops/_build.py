@@ -18,7 +18,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "load"]
+__all__ = ["BUILD_DIR", "load", "load_source"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -42,18 +42,37 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def _compile(src: Path, so: Path, what: str) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".so.build{os.getpid()}")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {what} (exit {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, so)
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built at first use."""
     so = _library_path(name)
     if not so.exists():
+        _compile(CSRC / f"{name}.cu", so, f"csrc/{name}.cu")
+    return ctypes.CDLL(str(so))
+
+
+def load_source(name: str, text: str) -> ctypes.CDLL:
+    """A library built from the CUDA source ``text`` (a variant of a source in
+    ``csrc/``, or a measurement kernel), as ``_build/<name>-<hash>.so``."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + text.encode()).hexdigest()[:16]
+    so = BUILD_DIR / f"{name}-{h}.so"
+    if not so.exists():
+        src = so.with_suffix(f".build{os.getpid()}.cu")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".so.build{os.getpid()}")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for csrc/{name}.cu (exit {proc.returncode}):\n"
-                               f"{proc.stdout}")
-        os.replace(tmp, so)
+        src.write_text(text)
+        try:
+            _compile(src, so, f"{name} (a source text)")
+        finally:
+            src.unlink(missing_ok=True)
     return ctypes.CDLL(str(so))

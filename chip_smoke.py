@@ -21,6 +21,9 @@ Phases, each of which raises (non-zero exit) on failure:
    references (error at most 2 × the plain version's), at the MossFormerGAN
    and ZipEnhancer serving shapes, with kernel / plain / library timings and
    the card's bound (f32 operations at 67 TFLOP/s or bytes at 3.35 TB/s).
+   B4 takes its weight as the model's (C, 1, k) seen through a (k, C) view,
+   and is held also off the served paths: C = 66 (scalar path), dilation 3,
+   and an x 4 bytes past a 16-byte boundary.
 5. Serving GTCRN: ``Session`` for ``gtcrn`` at full width (random parameters
    from seed 0) answers three requests of about 1.3 s, 7 s and 30 s; the
    launch counters must show B1 and B2 on that path, and the 7 s answer must
@@ -60,10 +63,11 @@ Phases, each of which raises (non-zero exit) on failure:
    the module must be within 40 dB SNR of the same port on the CPU, each
    source.
 
-The last line is ``{"ok": true, "device": {...}}``; the line before it lists
-every kernel as JSON (its launches summed over the four served paths, with
-the count of each path beside it, and its times at its first serving shape),
-and the line before that the card.  Without CUDA the script exits non-zero
+Phases 6, 8 and 10 print the launches of one forward, all of them and the
+ported kernels'.  The last line is ``{"ok": true, "device": {...}}``; the
+line before it lists every kernel as JSON (its launches summed over the
+four served paths, with the count of each path beside it, and its times at
+its first serving shape), and the line before that the card.  Without CUDA the script exits non-zero
 and prints no result.
 """
 from __future__ import annotations
@@ -445,6 +449,14 @@ B4_CASES = [
     ("zip 30 s t conv", (3232, 241, 64), 31, (15, 15), 1),
     ("B5 dilated", (4, 4000, 256), 39, (38, 38), 2),
 ]
+# (label, (B, T, C), k, (lo, hi), dilation, offset): B4 off the served paths,
+# on the general routes: the scalar path (C % 4 != 0), dilation 3, and an x
+# 4 bytes past a 16-byte boundary (scalar path at C = 256)
+B4_OFFPATH_CASES = [
+    ("scalar C=66", (964, 101, 66), 31, (15, 15), 1, 0),
+    ("dilation 3", (404, 241, 128), 31, (45, 45), 3, 0),
+    ("x at a 1-float offset", (964, 98, 256), 31, (15, 15), 1, 1),
+]
 # (label, N, S, mask_diag), K = V = 128
 B6_CASES = [
     ("intra local", 964, 101, False),
@@ -492,15 +504,17 @@ def _f64_rows(n: int, count: int, dev) -> torch.Tensor:
 
 
 def hold_b4(gen, dev, label: str, shape: tuple, k: int, pads: tuple, dil: int,
-            f64_rows: int = F64_ROWS) -> dict:
-    """B4 against plain and float64 at one shape, timed beside cuDNN."""
+            f64_rows: int = F64_ROWS, offset: int = 0) -> dict:
+    """B4 against plain and float64 at one shape, timed beside cuDNN.  w is
+    the model's (C, 1, k) weight seen as (k, C), as ``nn/core.py`` passes it;
+    x starts ``offset`` floats into a larger buffer."""
     import torch.nn.functional as F
 
     from audiojax_torch.ops import dwconv_cuda as D
 
     b, t, c = shape
-    x = torch.randn((b, t, c), generator=gen, device=dev)
-    w = torch.randn((k, c), generator=gen, device=dev) / k ** 0.5
+    x = torch.randn((b * t * c + offset,), generator=gen, device=dev)[offset:].view(b, t, c)
+    w = (torch.randn((c, 1, k), generator=gen, device=dev) / k ** 0.5)[:, 0, :].t()
     run = lambda: D.dwconv1d_cuda(x, w, pads=pads, dilation=dil)  # noqa: E731
     plain = lambda: D.dwconv1d_plain(x, w, pads=pads, dilation=dil)  # noqa: E731
     w64 = w.double().cpu().numpy()
@@ -545,6 +559,8 @@ def check_gan_kernels(dev) -> dict:
     serving = {}
     for label, shape, k, pads, dil in B4_CASES:
         serving.setdefault("dwconv1d", hold_b4(gen, dev, label, shape, k, pads, dil))
+    for label, shape, k, pads, dil, offset in B4_OFFPATH_CASES:
+        hold_b4(gen, dev, label, shape, k, pads, dil, offset=offset)
     for label, n, s, mask in B6_CASES:
         serving.setdefault("quad_attention", hold_b6(gen, dev, label, n, s, mask))
     return serving
@@ -727,6 +743,9 @@ def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple,
     print(f"profile {name} {label}: {sum(e.count for e in rows)} device launches, "
           f"device busy {busy_ms:.3f} ms of {elapsed_ms:.3f} ms median elapsed unprofiled "
           f"(idle share {1.0 - busy_ms / elapsed_ms:.4f})  [{card}]", flush=True)
+    # one request is one forward: every launch of the trace, beside the ported kernels'
+    print(f"profile {name} {label}: launches a forward {sum(e.count for e in rows)} in all, "
+          + ", ".join(f"{k} {n}" for k, n in per_forward.items() if n), flush=True)
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}", flush=True)
     for k, n in per_forward.items():
@@ -899,7 +918,8 @@ def check_ss_kernels(dev) -> dict:
     for label, (b, t, c), k, pads, dil in B5_SS_CASES:
         g = c // 2
         x = torch.randn((b, t, c), generator=gen, device=dev)
-        w = torch.randn((k, 2, g), generator=gen, device=dev) / (2 * k) ** 0.5
+        # the model's (G, 2, k) weight seen as (k, 2, G), as nn/core.py passes it
+        w = (torch.randn((g, 2, k), generator=gen, device=dev) / (2 * k) ** 0.5).permute(2, 1, 0)
         run = lambda: D.dwconv1d_grouped_cuda(x, w, pads=pads, dilation=dil)  # noqa: E731
         plain = lambda: D.dwconv1d_grouped_plain(x, w, pads=pads, dilation=dil)  # noqa: E731
         w64 = w.double().cpu().numpy()

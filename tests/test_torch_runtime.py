@@ -54,11 +54,12 @@ def test_import_pulls_in_no_jax():
 
 
 def test_sources_import_no_jax():
-    """A scan of every import statement in the port, chip_smoke.py and the
-    two geometry sweeps."""
+    """A scan of every import statement in the port, chip_smoke.py, the
+    three geometry sweeps, the dwconv probe and serve_latency.py."""
     files = [p for p in PORT.rglob("*.py") if "_build" not in p.parts] + [
         REPO / "chip_smoke.py", REPO / "stft_geometry_sweep.py",
-        REPO / "attention_geometry_sweep.py"]
+        REPO / "attention_geometry_sweep.py", REPO / "dwconv_geometry_sweep.py",
+        REPO / "dwconv_probe.py", REPO / "serve_latency.py"]
     assert len(files) > 15
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -120,6 +121,16 @@ def test_kernel_build_failure_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc failed"):  # a failure is not cached
         _build.load("stft")
     assert not list(tmp_path.iterdir())  # no half-written library left behind
+
+
+def test_kernel_source_build_failure_raises(monkeypatch, tmp_path):
+    """A source text (a kernel variant for a probe) that nvcc refuses raises,
+    and leaves neither the text nor a library behind."""
+    monkeypatch.setattr(_build, "_nvcc", lambda: "false")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc failed for probe"):
+        _build.load_source("probe", "__global__ void k() {}\n")
+    assert not list(tmp_path.iterdir())
 
 
 def test_params_refuse_unknown_layouts():
