@@ -1,8 +1,8 @@
 """audiojax_torch — the PyTorch/CUDA port of audiojax for NVIDIA Hopper.
 
 The package mirrors ``audiojax``'s layout (``dsp``, ``nn``, ``ops``,
-``models``, ``runtime``) with the same module and function names, so each
-port module has exactly one counterpart in the JAX package.  It imports
+``models``, ``importers``, ``runtime``) with the same module and function
+names, so each port module has exactly one counterpart in the JAX package.  It imports
 torch and numpy only: never ``jax`` and nothing of ``audiojax``.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for

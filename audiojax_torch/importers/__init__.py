@@ -1,0 +1,82 @@
+"""Checkpoint importers: upstream torch checkpoints → the port's parameter trees.
+
+Counterpart of ``audiojax.importers``.  ``import_checkpoint(model, ckpt)``
+applies the same fusion recipes (float64 numpy) and returns a nested dict of
+float32 numpy arrays in the JAX package's layout, equal to what the JAX
+package's importer returns; ``audiojax_torch.params.params_from_numpy`` turns
+it into the port's tensors, and ``runtime.export`` writes it as an artifact.
+
+Fail-closed: every checkpoint tensor must be read by the recipe.  An unread
+key means the upstream layout drifted, and the import aborts with the
+leftover keys instead of dropping weights.  ``report_path`` writes a JSON
+audit report with the same keys as the JAX package's.
+
+The port has importers for the four families it serves; each other family's
+importer comes with that family's slice (ROADMAP A.9).
+"""
+from __future__ import annotations
+
+import json
+import re
+from pathlib import Path
+
+from . import common
+from .common import KeyTracker, unwrap_state_dict
+from .gtcrn import import_gtcrn
+from .mossformer2_ss import import_mossformer2_ss
+from .mossformergan_se import import_mossformergan_se
+from .zipenhancer import import_zipenhancer
+
+_IMPORTERS = {
+    "gtcrn": import_gtcrn,
+    "mossformergan_se": import_mossformergan_se,
+    "zipenhancer": import_zipenhancer,
+    "mossformer2_ss": import_mossformer2_ss,
+}
+
+# torch bookkeeping buffers that carry no weights — ignored, not drift.
+# BatchNorm running_mean/running_var are not here: the fusion recipes fold
+# them into the conv, so an unread running stat is a recipe fault and aborts.
+_IGNORED = re.compile(r"num_batches_tracked$|^_metadata")
+
+
+def import_checkpoint(model_name: str, ckpt, *, strict: bool = True, report_path=None, **kw):
+    """Upstream state dict (or a wrapper of one) → numpy parameter tree.
+
+    ``kw`` goes to the family's importer (``cfg=`` for all but GTCRN).  With
+    ``strict`` (the default) unread checkpoint keys raise ``ValueError``; a
+    key the recipe needs and the checkpoint lacks raises ``KeyError``."""
+    if model_name not in _IMPORTERS:
+        raise KeyError(
+            f"no importer registered for {model_name!r} in the port; available: "
+            f"{sorted(_IMPORTERS)}; each other family's importer comes with its "
+            "slice (ROADMAP A.9)"
+        )
+    tracker = KeyTracker(unwrap_state_dict(ckpt))
+    params = _IMPORTERS[model_name](tracker, **kw)
+
+    leftover = [k for k in tracker.unconsumed if not _IGNORED.search(k)]
+    ignored = [k for k in tracker.unconsumed if _IGNORED.search(k)]
+    report = {
+        "model": model_name,
+        "checkpoint_keys": len(tracker),
+        "consumed": len(tracker.consumed),
+        "ignored_buffers": ignored,
+        "unconsumed": leftover,
+    }
+    if report_path is not None:
+        p = Path(report_path)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_text(json.dumps(report, indent=2))
+    if strict and leftover:
+        head = leftover[:20]
+        raise ValueError(
+            f"import drift for {model_name!r}: {len(leftover)} checkpoint keys were "
+            f"not consumed by the recipe (first {len(head)}): {head}. "
+            "Pass strict=False to import anyway."
+        )
+    return params
+
+
+__all__ = ["common", "import_checkpoint", "import_gtcrn", "import_mossformergan_se",
+           "import_mossformer2_ss", "import_zipenhancer"]

@@ -1,0 +1,68 @@
+"""Artifact save/load: ``params.pt`` + ``manifest.json``.
+
+Counterpart of ``audiojax.runtime.checkpoint``.  An artifact directory holds
+the importer's tree as ``params.pt`` (``torch.save`` of CPU float32 tensors
+in the JAX package's layout, lists kept as lists) and the manifest as JSON,
+whose required keys are checked at load.  ``load_artifact`` reads the tree
+with ``weights_only=True`` (no code runs) and converts it once, through
+``params_from_numpy``, onto the serving device.
+
+``torch.save`` keeps lists and empty containers as they are, so the JAX
+package's msgpack work-arounds (``_check_roundtrippable``, ``_relist``) have
+no counterpart here.  Reading the JAX package's ``params.msgpack`` waits for
+ROADMAP A.10.
+"""
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..params import params_from_numpy
+from .manifest import Manifest
+
+__all__ = ["save_artifact", "load_artifact", "load_tree", "PARAMS_FILE"]
+
+PARAMS_FILE = "params.pt"
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _to_tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype != np.float32:
+        raise TypeError(f"artifact leaves are float32; got {a.dtype}")
+    return torch.from_numpy(np.array(a, order="C"))
+
+
+def save_artifact(path, params, manifest: Manifest) -> Path:
+    """Write ``params`` (a nested dict/list tree of float32 arrays) and
+    ``manifest`` into the directory ``path``."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    torch.save(_map(params, _to_tensor), path / PARAMS_FILE)
+    manifest.save(path / "manifest.json")
+    return path
+
+
+def load_tree(path) -> dict:
+    """The artifact's tree as float32 numpy arrays, in the JAX package's layout."""
+    tree = torch.load(Path(path) / PARAMS_FILE, map_location="cpu", weights_only=True)
+    return _map(tree, lambda t: t.numpy())
+
+
+def load_artifact(path, device=None):
+    """Load ``(params, manifest)``: the port's tensors on ``device`` (default:
+    the card; without CUDA this raises rather than fall back)."""
+    dev = resolve_device(device)
+    path = Path(path)
+    manifest = Manifest.load(path / "manifest.json")
+    return params_from_numpy(load_tree(path), dev), manifest

@@ -6,11 +6,15 @@
     python -m audiojax_torch.runtime.cli --model zipenhancer --input noisy.wav --output clean.wav
     python -m audiojax_torch.runtime.cli --model mossformer2_ss --input mix.wav --output spk.wav
         (writes spk_0.wav and spk_1.wav)
+    python -m audiojax_torch.runtime.cli --model gtcrn --artifact art/ --input noisy.wav
     python -m audiojax_torch.runtime.cli --list
 
-Parameters are drawn at random from ``--seed`` (no checkpoint importer has
-been ported yet).  The model runs on the card unless ``--device cpu`` is
-given; without CUDA and without ``--device cpu`` the command fails.
+With ``--artifact`` the command serves the weights of an artifact that
+``python -m audiojax_torch.runtime.export`` wrote from an upstream checkpoint,
+with the config the artifact records; ``--model`` must name the artifact's
+model.  Without it, parameters are drawn at random from ``--seed``.  The
+model runs on the card unless ``--device cpu`` is given; without CUDA and
+without ``--device cpu`` the command fails.
 """
 from __future__ import annotations
 
@@ -26,7 +30,8 @@ def main(argv=None) -> int:
                     "mossformer2_ss (see --list)")
     ap.add_argument("--input", nargs="*", default=[], help="input wav path(s)")
     ap.add_argument("--output", help="output wav path (multi-source models append _0, _1, …)")
-    ap.add_argument("--seed", type=int, default=0, help="random-parameter seed")
+    ap.add_argument("--artifact", help="artifact dir with params.pt + manifest.json")
+    ap.add_argument("--seed", type=int, default=0, help="random-parameter seed when no artifact")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--list", action="store_true", help="list registered models")
     args = ap.parse_args(argv)
@@ -43,11 +48,33 @@ def main(argv=None) -> int:
 
     from ..device import resolve_device
     from .audio_io import read_wav, resample_np, to_mono, write_wav
+    from .checkpoint import load_artifact
+    from .manifest import Manifest
     from .session import Session
 
     device = resolve_device(args.device)
     cfg = spec.make_config()
-    manifest = spec.make_manifest(cfg)
+    if args.artifact:
+        manifest = Manifest.load(Path(args.artifact) / "manifest.json")
+        if manifest.model_name != spec.name:
+            print(f"artifact was exported for model {manifest.model_name!r} but --model is "
+                  f"{spec.name!r}; refusing to serve with mixed geometry", file=sys.stderr)
+            return 2
+        stored = manifest.extra.get("config")
+        recorded = manifest.extra.get("activation_compute_dtype") or (stored or {}).get(
+            "compute_dtype")
+        if recorded not in (None, "float32"):
+            print(f"artifact records activation_compute_dtype={recorded!r}; the port serves "
+                  "the float32 plan only (bf16 plans wait for ROADMAP A.10)", file=sys.stderr)
+            return 2
+        if stored is not None:
+            # the exported config exactly (JSON turned tuples into lists)
+            def _detuple(v):
+                return tuple(_detuple(x) for x in v) if isinstance(v, list) else v
+
+            cfg = type(cfg)(**{k: _detuple(v) for k, v in stored.items()})
+    else:
+        manifest = spec.make_manifest(cfg)
     inputs = [Path(p) for p in args.input]
     if len(inputs) != manifest.num_audio_inputs:
         print(f"{spec.name} needs {manifest.num_audio_inputs} input wav(s), got {len(inputs)}",
@@ -61,14 +88,18 @@ def main(argv=None) -> int:
             data = to_mono(data)[None]
         audios.append(resample_np(data, rate, manifest.in_sample_rate))
 
-    print(f"note: using randomly initialised {spec.name} params (seed {args.seed})",
-          file=sys.stderr)
     if device.type == "cuda":
         from ..ops import _build
 
         for src in sorted(_build.CSRC.glob("*.cu")):  # set-up, outside the timed call
             _build.load(src.stem)
-    model = spec.make_module(spec.init_params(args.seed, cfg, device), cfg)
+    if args.artifact:
+        params, _ = load_artifact(args.artifact, device)
+    else:
+        print(f"note: no --artifact given; using randomly initialised {spec.name} params "
+              f"(seed {args.seed})", file=sys.stderr)
+        params = spec.init_params(args.seed, cfg, device)
+    model = spec.make_module(params, cfg)
     result = Session(model, manifest, device=device).process(*audios)
 
     out_base = Path(args.output) if args.output else inputs[0].with_name(

@@ -1,0 +1,104 @@
+"""Export entry point: upstream checkpoint → an artifact the port serves.
+
+Counterpart of ``audiojax.runtime.export``: load the upstream torch
+checkpoint, apply the importer's fusion recipes, write ``params.pt`` +
+``manifest.json`` (with the full model config) + ``import_report.json``, and
+finish with a short synthetic request through ``Session`` on what was written.
+
+    python -m audiojax_torch.runtime.export --model gtcrn \
+        --checkpoint ckpt.pt --out artifact_dir/ [--no-smoke] [--device cpu]
+
+The import is fail-closed (unread checkpoint keys abort).  The smoke request
+runs on the card unless ``--device cpu`` is given; without CUDA and without
+``--device cpu`` the export fails before it writes anything.  A checkpoint
+given as a path is unpickled (``torch.load(weights_only=False)``, as upstream
+checkpoints need): unpickling runs code, so export only files you trust.
+
+The JAX package's ``plan``, ``compute_dtype`` and ``aot`` options wait for
+ROADMAP A.10.
+"""
+from __future__ import annotations
+
+import dataclasses
+import inspect
+from pathlib import Path
+
+__all__ = ["export_artifact"]
+
+
+def export_artifact(model_name: str, ckpt, out_dir, *, cfg=None, smoke: bool = True,
+                    import_kwargs=None, device=None) -> dict:
+    """checkpoint (path or state dict) → artifact directory; returns a report
+    dict (``artifact``, ``model`` and, with ``smoke``, the request's
+    ``smoke`` summary)."""
+    import numpy as np
+    import torch
+
+    from ..device import resolve_device
+    from ..importers import _IMPORTERS, import_checkpoint
+    from . import registry
+    from .checkpoint import load_artifact, save_artifact
+    from .session import Session
+
+    spec = registry.get(model_name)
+    dev = resolve_device(device) if smoke else None
+    cfg = cfg if cfg is not None else spec.make_config()
+    if isinstance(ckpt, (str, Path)):
+        ckpt = torch.load(ckpt, map_location="cpu", weights_only=False)
+
+    out_dir = Path(out_dir)
+    kw = dict(import_kwargs or {})
+    if "cfg" in inspect.signature(_IMPORTERS[model_name]).parameters:
+        kw.setdefault("cfg", cfg)
+    params = import_checkpoint(model_name, ckpt,
+                               report_path=out_dir / "import_report.json", **kw)
+
+    manifest = spec.make_manifest(cfg)
+    # the full serving config: the CLI rebuilds it from here, so an artifact
+    # exported with a non-default config does not serve with the defaults
+    manifest = dataclasses.replace(
+        manifest, extra={**manifest.extra, "config": dataclasses.asdict(cfg)})
+    save_artifact(out_dir, params, manifest)
+    report = {"artifact": str(out_dir), "model": model_name}
+
+    if smoke:
+        # synthetic int16 inputs through the Session, on what is on disk
+        served, manifest = load_artifact(out_dir, dev)
+        rng = np.random.default_rng(0)
+        length = min(manifest.input_audio_length, manifest.in_sample_rate)
+        audios = [(rng.standard_normal(length) * 6000).astype(np.int16)[None]
+                  for _ in range(manifest.num_audio_inputs)]
+        result = Session(spec.make_module(served, cfg), manifest, device=dev).process(*audios)
+        if not all(np.isfinite(o.astype(np.float64)).all() for o in result.outputs):
+            raise RuntimeError("export smoke test produced non-finite output")
+        report["smoke"] = {
+            "device": str(dev),
+            "out_samples": int(result.outputs[0].shape[-1]),
+            "outputs": len(result.outputs),
+            "rtf": round(result.rtf, 4),
+        }
+    return report
+
+
+def main(argv=None) -> int:
+    import argparse
+    import json
+
+    ap = argparse.ArgumentParser(prog="audiojax_torch.runtime.export", description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--model", required=True)
+    ap.add_argument("--checkpoint", required=True,
+                    help="torch checkpoint path (unpickled: only files you trust)")
+    ap.add_argument("--out", required=True, help="artifact output directory")
+    ap.add_argument("--no-smoke", action="store_true", help="skip the inference smoke test")
+    ap.add_argument("--device", default=None,
+                    help="where the smoke test runs: cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    report = export_artifact(args.model, args.checkpoint, args.out,
+                             smoke=not args.no_smoke, device=args.device)
+    print(json.dumps(report))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -80,6 +80,12 @@ class Manifest:
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
 
+    def save(self, path) -> Path:
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(self.to_json())
+        return path
+
     @classmethod
     def load(cls, path) -> "Manifest":
         return cls.from_dict(json.loads(Path(path).read_text()))

@@ -63,11 +63,26 @@ Phases, each of which raises (non-zero exit) on failure:
    the module must be within 40 dB SNR of the same port on the CPU, each
    source.
 
+11. Export and serve imported checkpoints: for each of the four families at
+   its default (full) width and depth, a synthetic upstream-layout state
+   dict from a fixed seed (``tests/test_torch_ckpt_builders.py``) goes
+   through ``export_artifact`` into a temporary directory, its smoke request
+   on the card; the import report must show every key read.  The artifact
+   loaded onto the card must equal ``params_from_numpy`` of the in-memory
+   import tree bit for bit; then ``Session`` serves a 7 s (GTCRN) or 6 s
+   request on it three times after a warm-up, each forward launching what
+   phases 5, 6, 8 and 10 launch, and one fold or window on the card must be
+   within 40 dB SNR of the same artifact on the CPU, each source (ZipEnhancer's
+   fold starts with 201 silent samples).  Prints import, export and load
+   seconds and the request's latency beside the random-weight latency of
+   the same family and request size from this run, then one JSON line.
+
 Phases 6, 8 and 10 print the launches of one forward, all of them and the
 ported kernels'.  The last line is ``{"ok": true, "device": {...}}``; the
 line before it lists every kernel as JSON (its launches summed over the
-four served paths, with the count of each path beside it, and its times at
-its first serving shape), and the line before that the card.  Without CUDA the script exits non-zero
+four served paths and phase 11's four, with the count of each path beside
+it, and its times at its first serving shape), and the line before that the
+card.  Without CUDA the script exits non-zero
 and prints no result.
 """
 from __future__ import annotations
@@ -602,8 +617,9 @@ def kernel_modules() -> tuple:
     return stft_cuda, dwconv_cuda, attention_cuda
 
 
-def serve(card: str) -> dict:
-    """Phase 5; returns the kernels' launch counts over the measured requests."""
+def serve(card: str, latency: dict) -> dict:
+    """Phase 5; returns the kernels' launch counts over the measured requests
+    and puts the 7 s request's median latency (ms) into ``latency``."""
     from audiojax_torch.ops import stft_cuda as K
     from audiojax_torch.runtime import registry
     from audiojax_torch.runtime.session import Session
@@ -644,7 +660,7 @@ def serve(card: str) -> dict:
     print(f"serve gtcrn launches over {SERVE_REPEATS} x 3 requests: {counts}", flush=True)
 
     label, audio = requests[1]
-    elapsed_ms = float(np.median([r.elapsed_s * 1e3 for r in runs[label]]))
+    elapsed_ms = latency["gtcrn"] = float(np.median([r.elapsed_s * 1e3 for r in runs[label]]))
     rows = cuda_rows(lambda: session.process(audio),
                      {"::stft_kernel": 1, "::istft_kernel": 1})
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
@@ -671,12 +687,13 @@ PROFILE_KEYS = {"stft_packed": "::stft_kernel", "istft_packed": "::istft_kernel"
                 "quad_attention": "quad_attention_kernel", "relpos_scores": "relpos"}
 
 
-def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple,
+def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latency: dict,
                    lead_silence: int = 0, clip=noisy_speech) -> dict:
     """Phases 6, 8 and 10: serve ``name`` at full width and depth on its
     manifest's windows (the GAN's and ZipEnhancer's 6 s windows are each
     folded into 1.5 s fold windows); returns the kernels' launch counts over
-    the measured requests, whose audio ``clip(n, seed)`` makes.  Every output
+    the measured requests, whose audio ``clip(n, seed)`` makes, and puts the
+    6 s request's median latency (ms) into ``latency``.  Every output
     source is checked.  The clip held card against CPU (one fold window, or
     one window where the model does not fold) starts with ``lead_silence``
     zero samples."""
@@ -736,7 +753,7 @@ def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple,
           flush=True)
 
     label, audio = requests[0]
-    elapsed_ms = float(np.median([r.elapsed_s * 1e3 for r in runs[label]]))
+    elapsed_ms = latency[name] = float(np.median([r.elapsed_s * 1e3 for r in runs[label]]))
     rows = cuda_rows(lambda: session.process(audio),
                      {PROFILE_KEYS[k]: n for k, n in per_forward.items()})
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
@@ -944,6 +961,144 @@ def check_ss_kernels(dev) -> dict:
     return serving
 
 
+# ── phase 11 ───────────────────────────────────────────────────────────────
+
+# GTCRN launches per forward: one STFT and one ISTFT over the window batch
+GTCRN_PER_FORWARD = {"stft_packed": 1, "istft_packed": 1, "dwconv1d": 0, "dwconv1d_tiled": 0,
+                     "quad_attention": 0, "relpos_scores": 0}
+# (family, request seconds, launches a forward, seed, clip, leading silence of
+# the clip held card against CPU)
+IMPORTED = [
+    ("gtcrn", 7, GTCRN_PER_FORWARD, 41, noisy_speech, 0),
+    ("mossformergan_se", 6, GAN_PER_FORWARD, 42, noisy_speech, 0),
+    ("zipenhancer", 6, ZIP_PER_FORWARD, 43, noisy_speech, 201),
+    ("mossformer2_ss", 6, SS_PER_FORWARD, 44, speech_mix, 0),
+]
+
+
+def load_builders():
+    """``tests/test_torch_ckpt_builders.py`` (torch, numpy and the port only)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "tests" / "test_torch_ckpt_builders.py"
+    spec = importlib.util.spec_from_file_location("test_torch_ckpt_builders", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _leaves(v, f"{path}/{k}")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in _leaves(v, f"{path}/{i}")]
+    return [(path, tree)]
+
+
+def serve_imported(card: str, random_ms: dict) -> dict:
+    """Phase 11; returns each family's kernel launch counts over its measured
+    requests, by path name."""
+    import tempfile
+    from pathlib import Path
+
+    from audiojax_torch.importers import import_checkpoint
+    from audiojax_torch.params import params_from_numpy
+    from audiojax_torch.runtime import registry
+    from audiojax_torch.runtime.checkpoint import load_artifact
+    from audiojax_torch.runtime.export import export_artifact
+    from audiojax_torch.runtime.session import Session
+
+    builders = load_builders()
+    by_path, summary = {}, []
+    for name, seconds, per_forward, seed, clip, lead_silence in IMPORTED:
+        spec = registry.get(name)
+        cfg = spec.make_config()
+        t0 = time.perf_counter()
+        sd = builders.BUILDERS[name](cfg, seed=seed)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tree = import_checkpoint(name, sd, **builders.import_kwargs(name, cfg))
+        import_s = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory(prefix=f"artifact_{name}_") as tmp:
+            t0 = time.perf_counter()
+            report = export_artifact(name, sd, tmp, cfg=cfg, device="cuda")
+            export_s = time.perf_counter() - t0
+            audit = json.loads((Path(tmp) / "import_report.json").read_text())
+            if (audit["unconsumed"] or audit["checkpoint_keys"] != len(sd)
+                    or audit["consumed"] + len(audit["ignored_buffers"]) != len(sd)):
+                fail(f"{name} import report: {audit}")
+            t0 = time.perf_counter()
+            params, manifest = load_artifact(tmp, device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            cpu_params, _ = load_artifact(tmp, device="cpu")
+        got, want = _leaves(params), _leaves(params_from_numpy(tree, "cuda"))
+        if [p for p, _ in got] != [p for p, _ in want]:
+            fail(f"{name} artifact keys differ from the import tree's")
+        for (path, a), (_, b) in zip(got, want):
+            if not (a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)):
+                fail(f"{name} artifact leaf {path} differs from the import tree's")
+        del want, sd
+        print(f"imported {name}: {audit['checkpoint_keys']} checkpoint keys "
+              f"({len(audit['ignored_buffers'])} step counters ignored) → {len(got)} tensors, "
+              f"{sum(t.numel() for _, t in got)} parameters; build {build_s:.3f} s, import "
+              f"{import_s:.3f} s, export {export_s:.3f} s (import, params.pt, card smoke: "
+              f"{report['smoke']}), load onto the card {load_s:.3f} s; artifact == import "
+              f"tree bit for bit", flush=True)
+
+        model = spec.make_module(params, cfg)
+        session = Session(model, manifest, device="cuda")
+        audio = clip(seconds * SR, seed)
+        session.process(audio)  # warm-up: this model's first request
+        for mod in kernel_modules():
+            mod.reset_launches()
+        runs = [session.process(audio) for _ in range(SERVE_REPEATS)]
+        counts = {k: n for mod in kernel_modules() for k, n in mod.launches.items()}
+        expect = {k: SERVE_REPEATS * n for k, n in per_forward.items()}
+        if counts != expect:
+            fail(f"imported {name} serving launched {counts}, expected {expect}")
+        by_path[f"{name} (imported)"] = counts
+        for r in runs:
+            if len(r.outputs) != manifest.output_sources:
+                fail(f"imported {name}: {len(r.outputs)} sources")
+            for out in r.outputs:
+                if out.dtype != np.int16 or out.shape != audio.shape or not np.any(out):
+                    fail(f"imported {name}: {out.dtype} {out.shape}, expected int16 "
+                         f"{audio.shape}, not all zero")
+        ms = sorted(r.elapsed_s * 1e3 for r in runs)
+        med = float(np.median(ms))
+        print(f"imported {name} {seconds} s request: elapsed ms median {med:.3f} (min "
+              f"{ms[0]:.3f}, max {ms[-1]:.3f}, n={len(ms)}); random weights, same request "
+              f"size, this run: {random_ms[name]:.3f}; launches a forward "
+              f"{ {k: n for k, n in per_forward.items() if n} }  [{card}]", flush=True)
+
+        # card vs CPU on one fold window (or one window), through the module
+        length = getattr(cfg, "fold_window", 0) or manifest.input_audio_length
+        clip_np = clip(length, seed + 100)
+        clip_np[:lead_silence] = 0
+        x = torch.from_numpy(clip_np[None])
+        with torch.inference_mode():
+            card_out = model(x.cuda())
+            t0 = time.perf_counter()
+            cpu_out = spec.make_module(cpu_params, cfg)(x)
+        cpu_s = time.perf_counter() - t0
+        if not isinstance(card_out, tuple):
+            card_out, cpu_out = (card_out,), (cpu_out,)
+        snrs = [snr_db(h.numpy(), c.cpu().numpy()) for c, h in zip(card_out, cpu_out)]
+        print(f"imported {name} {length / SR:g} s card vs CPU: SNR "
+              f"{', '.join(f'{v:.2f}' for v in snrs)} dB (CPU forward {cpu_s:.1f} s)", flush=True)
+        if not min(snrs) >= MIN_SNR_DB:
+            fail(f"imported {name} card vs CPU SNR {min(snrs):.2f} dB < {MIN_SNR_DB}")
+        summary.append({"model": name, "import_s": round(import_s, 3),
+                        "export_s": round(export_s, 3), "load_s": round(load_s, 3),
+                        "latency_ms": round(med, 3), "random_latency_ms": round(random_ms[name], 3),
+                        "card_vs_cpu_db": [round(v, 2) for v in snrs]})
+        del model, session, params, cpu_params
+    print(json.dumps({"imported": summary}), flush=True)
+    return by_path
+
+
 def build_all() -> None:
     """Phase 2: one nvcc per source, all started together."""
     from audiojax_torch.ops import _build
@@ -979,19 +1134,23 @@ def main() -> int:
     build_all()
     rows = check_kernels(dev)
     rows.update(check_gan_kernels(dev))
-    by_path = {"gtcrn": serve(card)}
+    latency = {}
+    by_path = {"gtcrn": serve(card, latency)}
     by_path["mossformergan_se"] = serve_windowed(card, "mossformergan_se", GAN_PER_FORWARD,
-                                                 (11, 12, 13))
+                                                 (11, 12, 13), latency)
     rows.update(check_zip_kernels(dev))
     # the first frame of a reflect-padded fold window is symmetric and its
     # phase feature the sign of rounding noise: the clip held card against CPU
     # starts with that frame's 201 samples silent (frame0_witness holds the
     # cause on the same clip without them)
     by_path["zipenhancer"] = serve_windowed(card, "zipenhancer", ZIP_PER_FORWARD, (21, 22, 23),
-                                            lead_silence=201)
+                                            latency, lead_silence=201)
     rows.update(check_ss_kernels(dev))
     by_path["mossformer2_ss"] = serve_windowed(card, "mossformer2_ss", SS_PER_FORWARD,
-                                               (31, 32, 33), clip=speech_mix)
+                                               (31, 32, 33), latency, clip=speech_mix)
+    t0 = time.perf_counter()
+    by_path.update(serve_imported(card, latency))
+    print(f"phase 11 in {time.perf_counter() - t0:.1f} s", flush=True)
 
     sources = {
         "stft_packed": ("audiojax_torch/csrc/stft.cu", "audiojax/ops/stft_pallas.py:207"),

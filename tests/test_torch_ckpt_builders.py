@@ -1,0 +1,445 @@
+"""Synthetic upstream-layout checkpoints for the four families the port serves.
+
+``build_<family>_state_dict(cfg, seed)`` returns a dict of CPU float32
+tensors under the upstream module names, at any config (the defaults are
+full width and depth).  The key sets are those of the JAX package's own
+importer tests (``tests/test_importers.py``: ``_gtcrn_state_dict`` and the
+inline MossFormer2-SS, MossFormerGAN-SE and ZipEnhancer builders), plus
+GTCRN's frozen ERB bank (``erb.erb_fc`` / ``erb.ierb_fc``, set to the
+analytic bank the model bakes in).  Values come from numpy's generator at
+``seed``: weights uniform in ±1/sqrt(fan_in) (torch's default init), norm
+gains in [0.5, 1.5], small shifts, BatchNorm statistics as those tests draw
+them, PReLU slopes 0.25.
+
+This module imports torch, numpy and the port only, never JAX: the card's
+``chip_smoke.py`` builds its checkpoints from it.  Its own tests check that
+each builder's dict is read whole by the port's ``import_checkpoint`` and
+gives the tree the port's model takes, at the tiny configs below.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from audiojax_torch.importers import import_checkpoint
+from audiojax_torch.models.gtcrn import GtcrnConfig, init_gtcrn_numpy
+from audiojax_torch.models.mossformer2_ss import MossFormer2SsConfig, init_mossformer2_ss_numpy
+from audiojax_torch.models.mossformergan_se import MossFormerGanConfig, init_mossformergan_numpy
+from audiojax_torch.models.zipenhancer import ZipEnhancerConfig, init_zipenhancer_numpy
+from audiojax_torch.nn.erb import erb_filters
+
+# The tiny widths of the port's model tests (tests/test_torch_mossformergan.py,
+# tests/test_torch_zipenhancer.py, tests/test_torch_mossformer2_ss.py); GTCRN
+# is small at its defaults.
+TINY = {
+    "gtcrn": {},
+    "mossformergan_se": dict(emb_dim=16, emb_ks=2, uv_channels=24, n_blocks=1, dense_depth=2,
+                             lorder=4, mf_hidden=32, mf_vdim=16, mf_qk=16, mf_rot=8,
+                             dw_kernel=7, attn_heads=2, attn_q_ch=2, attn_v_ch=4,
+                             fold_window=0),
+    "zipenhancer": dict(channels=16, num_heads=2, query_head_dim=8, pos_head_dim=4,
+                        value_head_dim=8, ff_hidden=24, nonlin_hidden=12, conv_kernel=7,
+                        pos_dim=16, encoder_downsample=((1, 1), (2, 2)), fold_window=0),
+    "mossformer2_ss": dict(dim=64, depth=2, group_size=16, qk_dim=32, vu_dim=96,
+                           fsmn_inner=32, dw_kernel=5, rot_dim=8, lorder=5),
+}
+CONFIGS = {"gtcrn": GtcrnConfig, "mossformergan_se": MossFormerGanConfig,
+           "zipenhancer": ZipEnhancerConfig, "mossformer2_ss": MossFormer2SsConfig}
+
+
+def tiny_config(name: str):
+    return CONFIGS[name](**TINY[name])
+
+
+def import_kwargs(name: str, cfg) -> dict:
+    """GTCRN's importer takes no config; the others take ``cfg=``."""
+    return {} if name == "gtcrn" else {"cfg": cfg}
+
+
+class _StateDict:
+    """Fills an upstream-layout state dict from one numpy generator."""
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.sd: dict[str, torch.Tensor] = {}
+
+    def put(self, key: str, a) -> None:
+        self.sd[key] = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+
+    def uniform(self, key: str, shape, lo: float, hi: float) -> None:
+        self.put(key, self.rng.uniform(lo, hi, shape))
+
+    def normal(self, key: str, shape, std: float, mean: float = 0.0) -> None:
+        self.put(key, mean + std * self.rng.standard_normal(shape))
+
+    def weight(self, key: str, shape, fan_in: int, bias: int | None = None) -> None:
+        """``key.weight`` (and ``key.bias`` of ``bias`` entries) uniform in ±1/sqrt(fan_in)."""
+        bound = 1.0 / math.sqrt(fan_in)
+        self.uniform(f"{key}.weight", shape, -bound, bound)
+        if bias is not None:
+            self.uniform(f"{key}.bias", (bias,), -bound, bound)
+
+    def linear(self, key: str, out: int, inp: int, bias: bool = True, k1: bool = False) -> None:
+        """nn.Linear, or a 1×1 nn.Conv1d with ``k1``."""
+        self.weight(key, (out, inp, 1) if k1 else (out, inp), inp, out if bias else None)
+
+    def conv(self, key: str, out: int, inp: int, k: tuple, groups: int = 1,
+             bias: bool = True) -> None:
+        """nn.Conv{1,2}d: weight (out, in/groups, *k)."""
+        fan_in = inp // groups * math.prod(k)
+        self.weight(key, (out, inp // groups, *k), fan_in, out if bias else None)
+
+    def deconv(self, key: str, inp: int, out: int, k: tuple, groups: int = 1) -> None:
+        """nn.ConvTranspose2d: weight (in, out/groups, *k), torch's fan-in."""
+        self.weight(key, (inp, out // groups, *k), out // groups * math.prod(k), out)
+
+    def norm(self, key: str, shape, names=("weight", "bias")) -> None:
+        """An affine norm's gain in [0.5, 1.5] and shift N(0, 0.05)."""
+        self.uniform(f"{key}.{names[0]}", shape, 0.5, 1.5)
+        self.normal(f"{key}.{names[1]}", shape, 0.05)
+
+    def bn(self, key: str, c: int) -> None:
+        """nn.BatchNorm2d in eval mode, with running statistics."""
+        self.uniform(f"{key}.weight", (c,), 0.5, 1.5)
+        self.uniform(f"{key}.bias", (c,), -0.3, 0.3)
+        self.uniform(f"{key}.running_mean", (c,), -0.5, 0.5)
+        self.uniform(f"{key}.running_var", (c,), 0.5, 2.0)
+        self.sd[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+    def prelu(self, key: str, n: int = 1) -> None:
+        self.put(f"{key}.weight", np.full((n,), 0.25))
+
+    def gru(self, key: str, inp: int, hidden: int, bidirectional: bool = False) -> None:
+        bound = 1.0 / math.sqrt(hidden)
+        for suffix in ("", "_reverse") if bidirectional else ("",):
+            for name, shape in (("weight_ih_l0", (3 * hidden, inp)),
+                                ("weight_hh_l0", (3 * hidden, hidden)),
+                                ("bias_ih_l0", (3 * hidden,)), ("bias_hh_l0", (3 * hidden,))):
+                self.uniform(f"{key}.{name}{suffix}", shape, -bound, bound)
+
+
+# ── GTCRN ────────────────────────────────────────────────────────────────────
+
+
+def build_gtcrn_state_dict(cfg: GtcrnConfig = GtcrnConfig(), seed: int = 0) -> dict:
+    """Upstream gtcrn-main layout (``_gtcrn_state_dict`` of the JAX tests)."""
+    s = _StateDict(seed)
+    c, half = cfg.channels, cfg.channels // 2
+
+    def conv_block(key, cin, cout, k, groups=1, deconv=False, last=False):
+        if deconv:
+            s.deconv(f"{key}.conv", cin, cout, k, groups)
+        else:
+            s.conv(f"{key}.conv", cout, cin, k, groups)
+        s.bn(f"{key}.bn", cout)
+        if not last:  # the last decoder block ends in tanh: no PReLU
+            s.prelu(f"{key}.act")
+
+    def gt_block(key, deconv=False):
+        for name, cin, cout, k, g in (("point_conv1", 3 * half, c, (1, 1), 1),
+                                      ("depth_conv", c, c, (3, 3), c),
+                                      ("point_conv2", c, half, (1, 1), 1)):
+            if deconv:
+                s.deconv(f"{key}.{name}", cin, cout, k, g)
+            else:
+                s.conv(f"{key}.{name}", cout, cin, k, g)
+        for name, ch in (("point_bn1", c), ("depth_bn", c), ("point_bn2", half)):
+            s.bn(f"{key}.{name}", ch)
+        s.prelu(f"{key}.point_act")
+        s.prelu(f"{key}.depth_act")
+        s.gru(f"{key}.tra.att_gru", half, c)
+        s.linear(f"{key}.tra.att_fc", half, c)
+
+    def dpgrnn(key):
+        for sub in ("rnn1", "rnn2"):
+            s.gru(f"{key}.intra_rnn.{sub}", half, c // 4, bidirectional=True)
+            s.gru(f"{key}.inter_rnn.{sub}", half, half)
+        for fc in ("intra_fc", "inter_fc"):
+            s.linear(f"{key}.{fc}", c, c)
+        for ln in ("intra_ln", "inter_ln"):
+            s.norm(f"{key}.{ln}", (cfg.width, c))
+
+    bank = erb_filters(cfg.n_low, cfg.n_erb, cfg.n_fft, scale=cfg.erb_scale)
+    s.put("erb.erb_fc.weight", bank)
+    s.put("erb.ierb_fc.weight", bank.T)
+    conv_block("encoder.en_convs.0", 9, c, (1, 5))
+    conv_block("encoder.en_convs.1", c, c, (1, 5), groups=2)
+    for i in (2, 3, 4):
+        gt_block(f"encoder.en_convs.{i}")
+    dpgrnn("dpgrnn1")
+    dpgrnn("dpgrnn2")
+    for i in (0, 1, 2):
+        gt_block(f"decoder.de_convs.{i}", deconv=True)
+    conv_block("decoder.de_convs.3", c, c, (1, 5), groups=2, deconv=True)
+    conv_block("decoder.de_convs.4", c, 2, (1, 5), deconv=True, last=True)
+    return s.sd
+
+
+# ── MossFormerGAN-SE ─────────────────────────────────────────────────────────
+
+
+def build_mossformergan_se_state_dict(cfg: MossFormerGanConfig = MossFormerGanConfig(),
+                                      seed: int = 0) -> dict:
+    """ClearVoice SyncANet layout (the JAX tests' MossFormerGAN-SE builder)."""
+    s = _StateDict(seed)
+    c, f, uvc, k_mem = cfg.emb_dim, cfg.n_freqs, cfg.uv_channels, 2 * cfg.lorder - 1
+
+    def dense(key):
+        for i in range(cfg.dense_depth):
+            s.conv(f"{key}.conv{i + 1}", c, c * (i + 1), (2, 3))
+            s.norm(f"{key}.norm{i + 1}", (c,))
+            s.prelu(f"{key}.prelu{i + 1}", c)
+            fs = f"{key}.fsmn{i + 1}.fsmn"
+            s.linear(f"{fs}.linear", c, c)
+            s.linear(f"{fs}.project", c, c, bias=False)
+            s.conv(f"{fs}.conv1", c, c, (k_mem, 1), groups=c, bias=False)
+
+    def ffconvm(key, o, i):
+        s.norm(f"{key}.mdl.0", (i,))
+        s.linear(f"{key}.mdl.1", o, i)
+        s.conv(f"{key}.mdl.3.sequential.1.conv", o, o, (cfg.dw_kernel,), groups=o, bias=False)
+
+    s.conv("dense_encoder.conv_1.0", c, 3, (1, 1))
+    s.norm("dense_encoder.conv_1.1", (c,))
+    s.prelu("dense_encoder.conv_1.2", c)
+    dense("dense_encoder.dilated_dense")
+    s.conv("dense_encoder.conv_2.0", c, c, (1, 3))
+    s.norm("dense_encoder.conv_2.1", (c,))
+    s.prelu("dense_encoder.conv_2.2", c)
+
+    for i in range(cfg.n_blocks):
+        key = f"blocks.{i}"
+        s.norm(f"{key}.intra_norm", (1, c, 1, 1), names=("gamma", "beta"))
+        s.conv(f"{key}.Fconv", c * cfg.emb_ks, c, (1, cfg.emb_ks), groups=c)
+        s.norm(f"{key}.inter_norm", (1, c, 1, 1), names=("gamma", "beta"))
+        for pre in ("intra", "inter"):
+            ffconvm(f"{key}.{pre}_to_u", uvc, c * cfg.emb_ks)
+            ffconvm(f"{key}.{pre}_to_v", uvc, c * cfg.emb_ks)
+            fs = f"{key}.{pre}_rnn.0"
+            s.linear(f"{fs}.linear", uvc, uvc)
+            s.linear(f"{fs}.project", uvc, uvc, bias=False)
+            s.conv(f"{fs}.conv1", uvc, uvc, (k_mem,), groups=uvc, bias=False)
+            s.weight(f"{key}.{pre}_linear", (uvc, c, cfg.emb_ks), c * cfg.emb_ks, c)
+            mf = f"{key}.{pre}_mossformer"
+            ffconvm(f"{mf}.to_hidden", cfg.mf_hidden, c)
+            ffconvm(f"{mf}.to_qk", cfg.mf_qk, c)
+            s.normal(f"{mf}.qk_offset_scale.gamma", (4, cfg.mf_qk), 0.1, mean=1.0)
+            s.normal(f"{mf}.qk_offset_scale.beta", (4, cfg.mf_qk), 0.05)
+            ffconvm(f"{mf}.to_out", c, cfg.mf_vdim)
+            se = f"{key}.{pre}_se"
+            for pool in ("avg_pool_layer", "max_pool_layer"):
+                s.linear(f"{se}.{pool}.0", c // 4, c)
+                s.linear(f"{se}.{pool}.2", c, c // 4)
+        for j in range(cfg.attn_heads):
+            for qkv, ch in (("Q", cfg.attn_q_ch), ("K", cfg.attn_q_ch), ("V", cfg.attn_v_ch)):
+                m = f"{key}.attn_conv_{qkv}_{j}"
+                s.conv(f"{m}.0", ch, c, (1, 1))
+                s.prelu(f"{m}.1")
+                s.norm(f"{m}.2", (1, ch, 1, f), names=("gamma", "beta"))
+        s.conv(f"{key}.attn_concat_proj.0", c, cfg.attn_heads * cfg.attn_v_ch, (1, 1))
+        s.prelu(f"{key}.attn_concat_proj.1")
+        s.norm(f"{key}.attn_concat_proj.2", (1, c, 1, f), names=("gamma", "beta"))
+
+    for dec in ("mask_decoder", "complex_decoder"):
+        dense(f"{dec}.dense_block")
+        s.conv(f"{dec}.sub_pixel.conv", 2 * c, c, (1, 3))
+        s.norm(f"{dec}.norm", (c,))
+        s.prelu(f"{dec}.prelu", c)
+    s.conv("mask_decoder.conv_1", c, c, (1, 1))
+    s.conv("mask_decoder.final_conv", 1, c, (1, 2))
+    s.prelu("mask_decoder.prelu_out")
+    s.conv("complex_decoder.conv", 2, c, (1, 2))
+    return s.sd
+
+
+# ── ZipEnhancer ──────────────────────────────────────────────────────────────
+
+
+def build_zipenhancer_state_dict(cfg: ZipEnhancerConfig = ZipEnhancerConfig(),
+                                 seed: int = 0) -> dict:
+    """ModelScope Zipformer2 dual-path layout (the JAX tests' ZipEnhancer builder)."""
+    s = _StateDict(seed)
+    c = cfg.channels
+    P, de = "zip_enhancer", "zip_enhancer.dense_encoder"
+
+    def dense(key):
+        for i in range(cfg.dense_depth):
+            s.conv(f"{key}.dense_block.{i}.1", c, c * (i + 1), (2, 3))
+            s.norm(f"{key}.dense_block.{i}.2", (c,))
+            s.prelu(f"{key}.dense_block.{i}.3", c)
+
+    def zlayer(key):
+        h, qd, pdim, vd = cfg.num_heads, cfg.query_head_dim, cfg.pos_head_dim, cfg.value_head_dim
+        s.linear(f"{key}.self_attn_weights.in_proj", h * (2 * qd + pdim), c)
+        s.linear(f"{key}.self_attn_weights.linear_pos", h * pdim, cfg.pos_dim, bias=False)
+        for ffn in ("feed_forward1", "feed_forward2", "feed_forward3"):
+            s.linear(f"{key}.{ffn}.in_proj", cfg.ff_hidden, c)
+            s.linear(f"{key}.{ffn}.out_proj", c, cfg.ff_hidden)
+        s.linear(f"{key}.nonlin_attention.in_proj", 3 * cfg.nonlin_hidden, c)
+        s.linear(f"{key}.nonlin_attention.out_proj", c, cfg.nonlin_hidden)
+        for san in ("self_attn1", "self_attn2"):
+            s.linear(f"{key}.{san}.in_proj", h * vd, c)
+            s.linear(f"{key}.{san}.out_proj", c, h * vd)
+        for cmn in ("conv_module1", "conv_module2"):
+            s.linear(f"{key}.{cmn}.in_proj", 2 * c, c)
+            s.conv(f"{key}.{cmn}.depthwise_conv", c, c, (cfg.conv_kernel,), groups=c)
+            s.linear(f"{key}.{cmn}.out_proj", c, c)
+        s.uniform(f"{key}.bypass_mid.bypass_scale", (c,), 0.0, 1.0)
+        s.uniform(f"{key}.bypass.bypass_scale", (c,), 0.0, 1.0)
+        s.normal(f"{key}.norm.bias", (c,), 0.05)
+        s.normal(f"{key}.norm.log_scale", (1,), 0.1)
+
+    s.conv(f"{de}.dense_conv_1.0", c, 2, (1, 1))
+    s.norm(f"{de}.dense_conv_1.1", (c,))
+    s.prelu(f"{de}.dense_conv_1.2", c)
+    dense(f"{de}.dense_block")
+    s.conv(f"{de}.dense_conv_2.0", c, c, (1, 3))
+    s.norm(f"{de}.dense_conv_2.1", (c,))
+    s.prelu(f"{de}.dense_conv_2.2", c)
+
+    for i, (t_ds, f_ds) in enumerate(cfg.encoder_downsample):
+        key = f"{P}.TSConformer.encoders.{i}"
+        downsampled = t_ds > 1 or f_ds > 1
+        inner = f"{key}.encoder" if downsampled else key
+        zlayer(f"{inner}.f_layers.0")
+        zlayer(f"{inner}.t_layers.0")
+        s.uniform(f"{inner}.bypass_layers.0.bypass_scale", (c,), 0.0, 1.0)
+        s.uniform(f"{inner}.bypass_layers.1.bypass_scale", (c,), 0.0, 1.0)
+        if downsampled:
+            s.uniform(f"{key}.out_combiner.bypass_scale", (c,), 0.0, 1.0)
+            s.normal(f"{key}.downsample_t.bias", (t_ds,), 0.1)
+            s.normal(f"{key}.downsample_f.bias", (f_ds,), 0.1)
+
+    for dec, head in (("mask_decoder", "mask_conv"), ("phase_decoder", "phase_conv")):
+        dense(f"{P}.{dec}.dense_block")
+        s.conv(f"{P}.{dec}.{head}.0.conv1", 2 * c, c, (1, 3))
+        s.norm(f"{P}.{dec}.{head}.1", (c,))
+        s.prelu(f"{P}.{dec}.{head}.2", c)
+    s.conv(f"{P}.mask_decoder.mask_conv.3", 1, c, (1, 2))
+    s.conv(f"{P}.phase_decoder.phase_conv_r", 1, c, (1, 2))
+    s.conv(f"{P}.phase_decoder.phase_conv_i", 1, c, (1, 2))
+    return s.sd
+
+
+# ── MossFormer2-SS ───────────────────────────────────────────────────────────
+
+
+def build_mossformer2_ss_state_dict(cfg: MossFormer2SsConfig = MossFormer2SsConfig(),
+                                    seed: int = 0) -> dict:
+    """ClearVoice separation layout (the JAX tests' MossFormer2-SS builder)."""
+    s = _StateDict(seed)
+    P, mn = "mossformer_ss", "mossformer_ss.mask_net"
+    mm = f"{mn}.mdl.intra_mdl.mossformerM"
+    d, qk, vu, inner = cfg.dim, cfg.qk_dim, cfg.vu_dim, cfg.fsmn_inner
+
+    def ffconvm(key, o, i, scale_norm=True):
+        if scale_norm:
+            s.uniform(f"{key}.mdl.0.g", (1,), 0.5, 1.5)
+        else:
+            s.norm(f"{key}.mdl.0", (i,))
+        s.linear(f"{key}.mdl.1", o, i)
+        s.conv(f"{key}.mdl.3.sequential.1.conv", o, o, (cfg.dw_kernel,), groups=o, bias=False)
+
+    s.conv(f"{P}.enc.conv1d", d, 1, (cfg.enc_kernel,))
+    s.weight(f"{P}.dec", (d, 1, cfg.enc_kernel), cfg.enc_kernel, 1)
+    s.norm(f"{mn}.norm", (d,))
+    s.linear(f"{mn}.conv1d_encoder", d, d, k1=True)
+    s.uniform(f"{mn}.pos_enc.scale", (1,), 0.0, 1.0)
+    for i in range(cfg.depth):
+        fl = f"{mm}.layers.{i}"
+        ffconvm(f"{fl}.to_hidden", 2 * vu, d)
+        ffconvm(f"{fl}.to_qk", qk, d)
+        s.normal(f"{fl}.qk_offset_scale.gamma", (4, qk), 0.1, mean=1.0)
+        s.normal(f"{fl}.qk_offset_scale.beta", (4, qk), 0.05)
+        ffconvm(f"{fl}.to_out", d, vu)
+        fb = f"{mm}.fsmn.{i}"
+        s.linear(f"{fb}.conv1.0", inner, d, k1=True)
+        s.prelu(f"{fb}.conv1.1")
+        s.norm(f"{fb}.norm1", (inner,))
+        s.norm(f"{fb}.norm2", (inner,))
+        ffconvm(f"{fb}.gated_fsmn.to_u", inner, inner, scale_norm=False)
+        ffconvm(f"{fb}.gated_fsmn.to_v", inner, inner, scale_norm=False)
+        s.linear(f"{fb}.gated_fsmn.fsmn.linear", inner, inner)
+        s.linear(f"{fb}.gated_fsmn.fsmn.project", inner, inner, bias=False)
+        for j in range(cfg.mem_depth):
+            mem = f"{fb}.gated_fsmn.fsmn.conv"
+            s.conv(f"{mem}.conv{j + 1}", inner, inner * (j + 1), (2 * cfg.lorder - 1, 1),
+                   groups=inner, bias=False)
+            s.norm(f"{mem}.norm{j + 1}", (inner,))
+            s.prelu(f"{mem}.prelu{j + 1}", inner)
+        s.linear(f"{fb}.conv2", d, inner, k1=True)
+    s.norm(f"{mn}.mdl.intra_mdl.norm", (d,))
+    s.norm(f"{mn}.mdl.intra_norm", (d,))
+    s.prelu(f"{mn}.prelu")
+    s.weight(f"{mn}.conv1d_out", (cfg.num_spks * d, d, 1), d, cfg.num_spks * d)
+    s.linear(f"{mn}.output.0", d, d, k1=True)
+    s.linear(f"{mn}.output_gate.0", d, d, k1=True)
+    s.linear(f"{mn}.conv1_decoder", d, d, bias=False, k1=True)
+    return s.sd
+
+
+BUILDERS = {
+    "gtcrn": build_gtcrn_state_dict,
+    "mossformergan_se": build_mossformergan_se_state_dict,
+    "zipenhancer": build_zipenhancer_state_dict,
+    "mossformer2_ss": build_mossformer2_ss_state_dict,
+}
+
+
+# ── the builders' own tests (no JAX) ─────────────────────────────────────────
+
+INIT_NUMPY = {"gtcrn": init_gtcrn_numpy, "mossformergan_se": init_mossformergan_numpy,
+              "zipenhancer": init_zipenhancer_numpy, "mossformer2_ss": init_mossformer2_ss_numpy}
+
+
+def flat_tree(tree, path="") -> dict:
+    """A nested dict/list tree as {key path: numpy leaf} (CPU tensors too)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {path: np.asarray(tree)}
+    return {k: v for key, sub in items for k, v in flat_tree(sub, f"{path}/{key}").items()}
+
+
+@pytest.mark.parametrize("name", sorted(BUILDERS))
+def test_builder_dict_is_read_whole(name, tmp_path):
+    """Every key of the builder's dict is read by the port's importer (only
+    BatchNorm's step counters are ignored), the dict holds CPU float32 weights,
+    and the tree has the keys of the port's own init tree, with the shapes of
+    its leaves or the (1,) and () that upstream PReLU slopes and scalar
+    parameters have."""
+    import json
+
+    cfg = tiny_config(name)
+    sd = BUILDERS[name](cfg, seed=1)
+    assert all(v.device.type == "cpu" for v in sd.values())
+    assert all(v.dtype == torch.float32 for k, v in sd.items()
+               if not k.endswith("num_batches_tracked"))
+    tree = import_checkpoint(name, sd, report_path=tmp_path / "report.json",
+                             **import_kwargs(name, cfg))
+    report = json.loads((tmp_path / "report.json").read_text())
+    assert report["unconsumed"] == []
+    assert all(k.endswith("num_batches_tracked") for k in report["ignored_buffers"])
+    assert report["checkpoint_keys"] == len(sd)
+    assert report["consumed"] + len(report["ignored_buffers"]) == len(sd)
+
+    want = {k: v.shape for k, v in flat_tree(INIT_NUMPY[name](0, cfg)).items()}
+    got = {k: v.shape for k, v in flat_tree(tree).items()}
+    assert sorted(got) == sorted(want)
+    odd = {k: (got[k], want[k]) for k in got if got[k] != want[k]}
+    assert all(g in ((1,), ()) for g, _ in odd.values()), odd
+
+
+def test_builders_are_seeded():
+    cfg = tiny_config("mossformer2_ss")
+    a, b = (build_mossformer2_ss_state_dict(cfg, seed=3) for _ in range(2))
+    c = build_mossformer2_ss_state_dict(cfg, seed=4)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["mossformer_ss.enc.conv1d.weight"],
+                           c["mossformer_ss.enc.conv1d.weight"])
+

@@ -1,0 +1,201 @@
+"""The port's artifact path against audiojax.runtime.export / checkpoint.
+
+The JAX package's ``export_artifact(…, smoke=False)`` and the port's run on
+the same synthetic upstream dict (``test_torch_ckpt_builders``; GTCRN at its
+defaults, the others at the port's tiny test widths).  Their manifests are
+equal as JSON, and the port's ``params.pt`` holds the arrays the JAX
+package's ``load_artifact`` returns, bit for bit.  ``load_artifact`` serves
+exactly what ``params_from_numpy`` of the import tree serves; the export's
+smoke request runs on the CPU when asked; the CLI serves an artifact, and
+refuses a mismatched model, a bf16 artifact, and (like the export) to run
+without CUDA unless given ``--device cpu``.
+"""
+import json
+import os
+import subprocess
+import sys
+import wave
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from audiojax.runtime.checkpoint import load_artifact as jload
+from audiojax.runtime.export import export_artifact as jexport
+from test_torch_ckpt_builders import BUILDERS, TINY, tiny_config
+from test_torch_importers import JCONFIGS, assert_trees_equal
+
+from audiojax_torch.importers import import_checkpoint
+from audiojax_torch.params import params_from_numpy
+from audiojax_torch.runtime import cli, registry
+from audiojax_torch.runtime import export as texport_mod
+from audiojax_torch.runtime.checkpoint import load_artifact, load_tree
+from audiojax_torch.runtime.export import export_artifact
+from audiojax_torch.runtime.session import Session
+
+REPO = Path(__file__).resolve().parents[1]
+FAMILIES = sorted(BUILDERS)
+
+
+def _export_port(name, tmp_path, seed=5, **kw):
+    cfg = tiny_config(name)
+    sd = BUILDERS[name](cfg, seed=seed)
+    out = tmp_path / f"{name}_port"
+    report = export_artifact(name, sd, out, cfg=cfg, **kw)
+    return cfg, sd, out, report
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_artifact_equals_jax_export(name, tmp_path):
+    cfg, sd, out, report = _export_port(name, tmp_path, smoke=False)
+    assert report == {"artifact": str(out), "model": name}
+    jout = tmp_path / f"{name}_jax"
+    jexport(name, sd, jout, cfg=JCONFIGS[name](**TINY[name]), smoke=False)
+    assert sorted(p.name for p in out.iterdir()) == [
+        "import_report.json", "manifest.json", "params.pt"]
+    for f in ("manifest.json", "import_report.json"):
+        assert json.loads((out / f).read_text()) == json.loads((jout / f).read_text()), f
+    jparams, _ = jload(jout)
+    assert_trees_equal(jparams, load_tree(out))
+
+
+def _served(model_name, params, cfg, clip):
+    spec = registry.get(model_name)
+    return Session(spec.make_module(params, cfg), spec.make_manifest(cfg),
+                   device="cpu").process(clip).outputs
+
+
+def test_load_artifact_serves_the_import_tree(tmp_path):
+    name = "mossformer2_ss"
+    cfg, sd, out, _ = _export_port(name, tmp_path, smoke=False)
+    params, manifest = load_artifact(out, device="cpu")
+    direct = params_from_numpy(import_checkpoint(name, sd, cfg=cfg), device="cpu")
+    assert_trees_equal(params, direct)
+    assert manifest.extra["config"]["dim"] == cfg.dim
+    clip = (np.random.default_rng(6).standard_normal(12000) * 3000).astype(np.int16)
+    for a, b in zip(_served(name, params, cfg, clip), _served(name, direct, cfg, clip)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_export_smoke_on_cpu(name, tmp_path):
+    _, _, out, report = _export_port(name, tmp_path, device="cpu")
+    smoke = report["smoke"]
+    manifest = registry.get(name).make_manifest(tiny_config(name))
+    assert smoke["device"] == "cpu" and smoke["outputs"] == manifest.output_sources
+    assert smoke["out_samples"] == min(manifest.input_audio_length, manifest.in_sample_rate)
+    assert np.isfinite(smoke["rtf"]) and smoke["rtf"] > 0
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_no_fallback_without_cuda(no_cuda, tmp_path):
+    """Export's smoke step and load_artifact go to the card unless asked for
+    the CPU: without CUDA they raise, and export writes nothing first."""
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        _export_port("gtcrn", tmp_path)
+    assert not (tmp_path / "gtcrn_port").exists()
+    _, _, out, _ = _export_port("gtcrn", tmp_path, smoke=False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        load_artifact(out)
+    load_artifact(out, device="cpu")
+
+
+# ── the two entry points ───────────────────────────────────────────────────
+
+
+def _write_wav(path, audio, rate=16000):
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(audio.astype("<i2").tobytes())
+
+
+def _read_wav(path):
+    with wave.open(str(path), "rb") as w:
+        return np.frombuffer(w.readframes(w.getnframes()), dtype="<i2")
+
+
+def _noisy(n, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 16000
+    x = 0.3 * np.sin(2 * np.pi * 440 * t) + 0.05 * rng.standard_normal(n)
+    x[:201] = 0.0
+    return np.round(x * 32767).astype(np.int16)
+
+
+def test_export_and_cli_commands_on_cpu(tmp_path):
+    """``python -m …export`` on a checkpoint file, then ``python -m …cli
+    --artifact``: the wav it writes equals the library's answer."""
+    ckpt, art = tmp_path / "gtcrn.pt", tmp_path / "art"
+    sd = BUILDERS["gtcrn"](seed=8)
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}}, ckpt)
+    audio = _noisy(24000, 9)
+    src, dst = tmp_path / "noisy.wav", tmp_path / "clean.wav"
+    _write_wav(src, audio)
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    procs = [subprocess.run([sys.executable, "-m", *args], cwd=tmp_path, env=env,
+                            capture_output=True, text=True, timeout=300)
+             for args in (["audiojax_torch.runtime.export", "--model", "gtcrn", "--checkpoint",
+                           str(ckpt), "--out", str(art), "--device", "cpu"],
+                          ["audiojax_torch.runtime.cli", "--model", "gtcrn", "--artifact",
+                           str(art), "--input", str(src), "--output", str(dst), "--device",
+                           "cpu"])]
+    assert [p.returncode for p in procs] == [0, 0], [p.stderr for p in procs]
+    report = json.loads(procs[0].stdout)
+    assert report["model"] == "gtcrn" and report["smoke"]["device"] == "cpu"
+    assert "randomly initialised" not in procs[1].stderr
+    params, manifest = load_artifact(art, device="cpu")
+    want = _served("gtcrn", params, tiny_config("gtcrn"), audio)[0]
+    np.testing.assert_array_equal(_read_wav(dst), want)
+
+
+def test_cli_rebuilds_the_exported_config(tmp_path, capsys):
+    """A ZipEnhancer artifact at the tiny config (its ``encoder_downsample`` a
+    tuple of pairs, a list of lists in JSON) serves what the library does."""
+    cfg, _, art, _ = _export_port("zipenhancer", tmp_path, smoke=False)
+    audio = _noisy(20000, 10)
+    src, dst = tmp_path / "noisy.wav", tmp_path / "clean.wav"
+    _write_wav(src, audio)
+    assert cli.main(["--model", "zipenhancer", "--artifact", str(art), "--input", str(src),
+                     "--output", str(dst), "--device", "cpu"]) == 0
+    params, _ = load_artifact(art, device="cpu")
+    np.testing.assert_array_equal(_read_wav(dst), _served("zipenhancer", params, cfg, audio)[0])
+
+
+def test_cli_refuses_mismatched_or_bf16_artifacts(tmp_path, capsys):
+    _, _, art, _ = _export_port("gtcrn", tmp_path, smoke=False)
+    src = tmp_path / "noisy.wav"
+    _write_wav(src, _noisy(8000, 11))
+    base = ["--artifact", str(art), "--input", str(src), "--device", "cpu"]
+    assert cli.main(["--model", "zipenhancer", *base]) == 2
+    assert "exported for model 'gtcrn'" in capsys.readouterr().err
+
+    _, _, ss_art, _ = _export_port("mossformer2_ss", tmp_path, smoke=False)
+    manifest_path = ss_art / "manifest.json"
+    data = json.loads(manifest_path.read_text())
+    data["extra"]["activation_compute_dtype"] = "bfloat16"
+    data["extra"]["config"]["compute_dtype"] = "bfloat16"
+    manifest_path.write_text(json.dumps(data))
+    assert cli.main(["--model", "mossformer2_ss", *base[:1], str(ss_art), *base[2:]]) == 2
+    assert "ROADMAP A.10" in capsys.readouterr().err
+
+
+def test_commands_need_cuda_or_cpu(no_cuda, tmp_path):
+    ckpt = tmp_path / "gtcrn.pt"
+    torch.save(BUILDERS["gtcrn"](seed=8), ckpt)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        texport_mod.main(["--model", "gtcrn", "--checkpoint", str(ckpt),
+                          "--out", str(tmp_path / "art")])
+    assert not (tmp_path / "art").exists()
+    assert texport_mod.main(["--model", "gtcrn", "--checkpoint", str(ckpt),
+                             "--out", str(tmp_path / "art"), "--no-smoke"]) == 0
+    src = tmp_path / "noisy.wav"
+    _write_wav(src, _noisy(8000, 12))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        cli.main(["--model", "gtcrn", "--artifact", str(tmp_path / "art"), "--input", str(src)])

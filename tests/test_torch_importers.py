@@ -1,0 +1,224 @@
+"""The port's checkpoint importers against audiojax.importers.
+
+Each family's synthetic upstream-layout dict (``test_torch_ckpt_builders``)
+goes through both packages' ``import_checkpoint``.  GTCRN runs at its
+defaults, the other three at the tiny widths of the port's model tests.
+
+Trees: the same key paths and shapes, float32 everywhere, and values equal
+bit for bit — both packages run the same float64 numpy recipes and cast
+once.  Forward: the port's ``Session`` on its tree (CPU) against the JAX
+``Session`` on the JAX tree, ≥ 40 dB int16 SNR for each source, with a
+reference output of at least 100 LSB RMS so that the gate measures
+something.  ZipEnhancer's clip starts with 201 silent samples: the first
+STFT frame's phase feature is otherwise the sign of rounding noise
+(``tests/test_torch_zipenhancer.py``).  Drift fails closed in both
+packages, with equal messages and equal JSON reports.
+"""
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from audiojax.importers import import_checkpoint as jimport
+from audiojax.models import gtcrn as JG
+from audiojax.models import mossformer2_ss as JSS
+from audiojax.models import mossformergan_se as JGAN
+from audiojax.models import zipenhancer as JZIP
+from audiojax.runtime import registry as jregistry
+from audiojax.runtime.session import Session as JSession
+from reference_loader import snr_db
+from test_importers import _gtcrn_state_dict
+from test_torch_ckpt_builders import BUILDERS, TINY, flat_tree, import_kwargs, tiny_config
+
+from audiojax_torch.importers import import_checkpoint as timport
+from audiojax_torch.importers.common import KeyTracker, unwrap_state_dict
+from audiojax_torch.params import params_from_numpy
+from audiojax_torch.runtime import registry as tregistry
+from audiojax_torch.runtime.session import Session as TSession
+
+MIN_SNR_DB = 40.0
+MIN_REF_RMS = 100.0  # LSB
+FAMILIES = sorted(BUILDERS)
+JCONFIGS = {"gtcrn": JG.GtcrnConfig, "mossformergan_se": JGAN.MossFormerGanConfig,
+            "zipenhancer": JZIP.ZipEnhancerConfig, "mossformer2_ss": JSS.MossFormer2SsConfig}
+SEEDS = {"gtcrn": 11, "mossformergan_se": 12, "zipenhancer": 13, "mossformer2_ss": 14}
+
+
+def _configs(name):
+    return JCONFIGS[name](**TINY[name]), tiny_config(name)
+
+
+def assert_trees_equal(jtree, ttree):
+    """Same key paths, shapes and float32 dtype; values equal bit for bit."""
+    jf, tf = flat_tree(jtree), flat_tree(ttree)
+    assert sorted(jf) == sorted(tf)
+    for k in jf:
+        assert jf[k].dtype == tf[k].dtype == np.float32, k
+        assert jf[k].shape == tf[k].shape, k
+        np.testing.assert_array_equal(jf[k].view(np.uint32), tf[k].view(np.uint32), err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def imported():
+    """name → (JAX config, port config, state dict, JAX tree, port tree)."""
+    out = {}
+    for name in FAMILIES:
+        jcfg, tcfg = _configs(name)
+        sd = BUILDERS[name](tcfg, seed=SEEDS[name])
+        out[name] = (jcfg, tcfg, sd, jimport(name, sd, **import_kwargs(name, jcfg)),
+                     timport(name, sd, **import_kwargs(name, tcfg)))
+    return out
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_trees_equal_jax(imported, name):
+    _, _, _, jtree, ttree = imported[name]
+    assert_trees_equal(jtree, ttree)
+
+
+def test_gtcrn_builder_keys_are_the_jax_tests():
+    """The GTCRN builder's keys and shapes are ``_gtcrn_state_dict``'s, plus the ERB bank."""
+    ours = BUILDERS["gtcrn"](seed=0)
+    theirs = _gtcrn_state_dict()
+    assert sorted(set(ours) - set(theirs)) == ["erb.erb_fc.weight", "erb.ierb_fc.weight"]
+    assert not set(theirs) - set(ours)
+    assert all(tuple(ours[k].shape) == tuple(theirs[k].shape) for k in theirs)
+
+
+def _clip(name, n, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 16000
+    if name == "mossformer2_ss":  # two voices and noise
+        x = (0.25 * np.sin(2 * np.pi * 180 * t) * np.sin(2 * np.pi * 3 * t) ** 2
+             + 0.2 * np.sin(2 * np.pi * 310 * t + 1.0) * np.cos(2 * np.pi * 2 * t) ** 2)
+    else:
+        x = 0.3 * np.sin(2 * np.pi * 440 * t) * np.sin(2 * np.pi * 3 * t)
+    x = x + 0.05 * rng.standard_normal(n)
+    if name == "zipenhancer":
+        x[:201] = 0.0
+    return np.round(x * 32767).astype(np.int16)
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_session_on_imported_tree_matches_jax(imported, name):
+    """One window of each family's manifest (GTCRN and SS 2 s, the GAN and
+    ZipEnhancer 6 s unfolded at the tiny config) through both Sessions."""
+    jcfg, tcfg, _, jtree, ttree = imported[name]
+    jspec, tspec = jregistry.get(name), tregistry.get(name)
+    manifest = tspec.make_manifest(tcfg)
+    clip = _clip(name, 16000, SEEDS[name])
+    ref = JSession(jspec.make_forward(jcfg), jax.tree.map(jnp.asarray, jtree),
+                   jspec.make_manifest(jcfg)).process(clip)
+    out = TSession(tspec.make_module(params_from_numpy(ttree, device="cpu"), tcfg), manifest,
+                   device="cpu").process(clip)
+    assert len(out.outputs) == len(ref.outputs) == manifest.output_sources
+    for r, o in zip(ref.outputs, out.outputs):
+        assert o.dtype == np.int16 and o.shape == r.shape == clip.shape
+        assert np.sqrt(np.mean(r.astype(np.float64) ** 2)) >= MIN_REF_RMS
+        assert snr_db(r, o) >= MIN_SNR_DB
+
+
+# ── fail-closed, in both packages ──────────────────────────────────────────
+
+
+def _both(name, sd, tmp_path, **kw):
+    """Import in both packages; returns (JAX outcome, port outcome, JAX report,
+    port report), an outcome being the tree or the exception raised."""
+    jcfg, tcfg = _configs(name)
+    outcomes = []
+    for tag, fn, cfg in (("jax", jimport, jcfg), ("port", timport, tcfg)):
+        try:
+            outcomes.append(fn(name, sd, report_path=tmp_path / f"{tag}.json", **kw,
+                               **import_kwargs(name, cfg)))
+        except (KeyError, ValueError) as e:
+            outcomes.append(e)
+    reports = [json.loads(p.read_text()) if p.exists() else None
+               for p in (tmp_path / "jax.json", tmp_path / "port.json")]
+    return (*outcomes, *reports)
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_extra_key_fails_closed(imported, name, tmp_path):
+    sd = {**imported[name][2], "decoder.surplus.weight": torch.zeros(3)}
+    je, te, jr, tr = _both(name, sd, tmp_path)
+    assert isinstance(je, ValueError) and isinstance(te, ValueError)
+    assert "decoder.surplus.weight" in str(te) and str(te) == str(je)
+    assert tr == jr and tr["unconsumed"] == ["decoder.surplus.weight"]
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_extra_key_listed_when_not_strict(imported, name, tmp_path):
+    sd = {**imported[name][2], "decoder.surplus.weight": torch.zeros(3)}
+    jt, tt, jr, tr = _both(name, sd, tmp_path, strict=False)
+    assert_trees_equal(jt, tt)
+    assert_trees_equal(tt, imported[name][4])
+    assert tr == jr and tr["unconsumed"] == ["decoder.surplus.weight"]
+
+
+REQUIRED = {"gtcrn": "dpgrnn2.inter_rnn.rnn1.weight_hh_l0",
+            "mossformergan_se": "blocks.0.inter_se.max_pool_layer.2.weight",
+            "zipenhancer": "zip_enhancer.TSConformer.encoders.1.encoder.f_layers.0.norm.log_scale",
+            "mossformer2_ss": "mossformer_ss.mask_net.mdl.intra_mdl.mossformerM.fsmn.1"
+                              ".gated_fsmn.fsmn.conv.conv2.weight"}
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_missing_key_fails_closed(imported, name, tmp_path):
+    sd = dict(imported[name][2])
+    gone = REQUIRED[name]
+    del sd[gone]
+    je, te, jr, tr = _both(name, sd, tmp_path)
+    assert isinstance(je, KeyError) and isinstance(te, KeyError)
+    assert str(te) == str(je) and gone in str(te)
+    assert jr is None and tr is None  # the import stopped before its report
+
+
+def test_batch_counter_is_ignored(imported, tmp_path):
+    """A BatchNorm step counter carries no weights: ignored, listed, not drift."""
+    name = "zipenhancer"
+    key = "zip_enhancer.dense_encoder.dense_conv_1.1.num_batches_tracked"
+    sd = {**imported[name][2], key: torch.tensor(7)}
+    jt, tt, jr, tr = _both(name, sd, tmp_path)
+    assert_trees_equal(jt, tt)
+    assert tr == jr and tr["ignored_buffers"] == [key] and tr["unconsumed"] == []
+
+
+def test_moved_erb_bank_fails_closed(imported, tmp_path):
+    sd = dict(imported["gtcrn"][2])
+    sd["erb.erb_fc.weight"] = sd["erb.erb_fc.weight"] + 1e-3
+    je, te, _, _ = _both("gtcrn", sd, tmp_path)
+    assert isinstance(je, ValueError) and isinstance(te, ValueError)
+    assert str(te) == str(je) and "erb.erb_fc.weight" in str(te)
+
+
+@pytest.mark.parametrize("wrap", ["module_prefix", "state_dict"])
+def test_wrapped_checkpoints_import_like_the_bare_dict(imported, wrap, tmp_path):
+    name = "mossformer2_ss"
+    sd = imported[name][2]
+    ckpt = ({f"module.{k}": v for k, v in sd.items()} if wrap == "module_prefix"
+            else {"state_dict": sd, "epoch": 3})
+    jt, tt, jr, tr = _both(name, ckpt, tmp_path)
+    assert_trees_equal(jt, tt)
+    assert_trees_equal(tt, imported[name][4])
+    assert tr == jr and tr["unconsumed"] == [] and tr["checkpoint_keys"] == len(sd)
+
+
+def test_unwrap_keeps_the_tracker():
+    """``import_checkpoint`` wraps the dict in a KeyTracker and each family
+    importer unwraps it again: with nothing to strip, the tracker itself must
+    come back, or the audit would see no key read."""
+    tracker = KeyTracker({"a.weight": torch.zeros(1)})
+    assert unwrap_state_dict(tracker) is tracker
+    stripped = unwrap_state_dict(KeyTracker({"module.a.weight": torch.zeros(1)}))
+    assert list(stripped) == ["a.weight"]
+
+
+@pytest.mark.parametrize("name", ["dfsmn", "mossformer2_se", "h_gtcrn", "no_such_model"])
+def test_unported_family_names_roadmap(imported, name):
+    with pytest.raises(KeyError, match="ROADMAP A.9") as e:
+        timport(name, imported["gtcrn"][2])
+    assert "'gtcrn'" in str(e.value) and "'mossformer2_ss'" in str(e.value)

@@ -36,16 +36,23 @@ PORT = REPO / "audiojax_torch"
 
 def test_import_pulls_in_no_jax():
     """Every module of the port imports in a fresh interpreter without putting
-    jax or audiojax (or any of their submodules) into sys.modules."""
+    jax or audiojax (or any of their submodules), flax or msgpack into
+    sys.modules, and without building a kernel."""
     code = (
         "import importlib, pkgutil, sys, audiojax_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(audiojax_torch.__path__, 'audiojax_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "assert {'audiojax_torch.nn.zipformer', 'audiojax_torch.models.zipenhancer',\n"
-        "        'audiojax_torch.models.mossformer2_ss'} <= set(mods)\n"
+        "        'audiojax_torch.models.mossformer2_ss', 'audiojax_torch.importers.common',\n"
+        "        'audiojax_torch.importers.gtcrn', 'audiojax_torch.importers.mossformergan_se',\n"
+        "        'audiojax_torch.importers.zipenhancer', 'audiojax_torch.importers.mossformer2_ss',\n"
+        "        'audiojax_torch.runtime.checkpoint', 'audiojax_torch.runtime.export'} <= set(mods)\n"
         "assert len(mods) > 15, mods\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'audiojax'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'audiojax', 'flax', 'msgpack'))\n"
         "assert not bad, bad\n"
+        "from audiojax_torch.ops import _build\n"
+        "assert _build.load.cache_info().currsize == 0\n"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -55,11 +62,13 @@ def test_import_pulls_in_no_jax():
 
 def test_sources_import_no_jax():
     """A scan of every import statement in the port, chip_smoke.py, the
-    three geometry sweeps, the dwconv probe and serve_latency.py."""
+    three geometry sweeps, the dwconv probe, serve_latency.py and the
+    checkpoint builders chip_smoke.py imports."""
     files = [p for p in PORT.rglob("*.py") if "_build" not in p.parts] + [
         REPO / "chip_smoke.py", REPO / "stft_geometry_sweep.py",
         REPO / "attention_geometry_sweep.py", REPO / "dwconv_geometry_sweep.py",
-        REPO / "dwconv_probe.py", REPO / "serve_latency.py"]
+        REPO / "dwconv_probe.py", REPO / "serve_latency.py",
+        REPO / "tests" / "test_torch_ckpt_builders.py"]
     assert len(files) > 15
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -69,7 +78,7 @@ def test_sources_import_no_jax():
                 roots = [node.module.split(".")[0]]
             else:
                 continue
-            assert not set(roots) & {"jax", "jaxlib", "audiojax"}, (path, roots)
+            assert not set(roots) & {"jax", "jaxlib", "audiojax", "flax", "msgpack"}, (path, roots)
 
 
 # ── the card by default, no quiet fallback ─────────────────────────────────
