@@ -9,6 +9,10 @@ centre trim for the ISTFT.
 Layouts: audio is ``(..., L)``; spectra are time-major packed
 ``(..., T, 2F)`` with [real | imag] on the last axis.
 
+``stream_istft`` is the ISTFT of one streaming chunk with the overlap-add
+tail carried between chunks and the steady-state COLA reciprocal
+(``steady_cola_np``); it has no kernel of its own, as in the JAX package.
+
 Bases, windows, the COLA reciprocal and the kernels' FFT plan (radix order
 and twiddle table, ``fft_plan``) are computed in numpy float64 and cached per
 config; their torch copies are cached per (config, device).
@@ -32,6 +36,8 @@ __all__ = [
     "overlap_add",
     "stft_packed",
     "istft_packed",
+    "stream_istft",
+    "steady_cola_np",
 ]
 
 
@@ -346,3 +352,43 @@ def istft_packed(spec: torch.Tensor, cfg: StftConfig, out_length: int | None = N
     start = cfg.half if cfg.center else 0
     end = _out_end(cfg, n_t, raw.shape[-1], out_length)
     return raw[..., start:end] * inv_win_sum(cfg, n_t, out_length, spec.device)
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# Streaming ISTFT (state-carry serving)
+# ─────────────────────────────────────────────────────────────────────────────
+
+
+def steady_cola_np(cfg: StftConfig) -> np.ndarray:
+    """Steady-state reciprocal COLA divisor: one hop of the hop-periodic
+    window² overlap sum.  Streaming ISTFT paths tile it over the emitted
+    samples."""
+    w2 = _window_np(cfg) ** 2
+    k = -(-cfg.n_fft // cfg.hop)
+    acc = np.zeros(cfg.hop)
+    for i in range(k):
+        seg = w2[i * cfg.hop : (i + 1) * cfg.hop]
+        acc[: len(seg)] += seg
+    return (1.0 / np.maximum(acc, 1e-12)).astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def _steady_cola_tile_np(cfg: StftConfig, emit_len: int) -> np.ndarray:
+    return np.tile(steady_cola_np(cfg), emit_len // cfg.hop)
+
+
+def stream_istft(packed: torch.Tensor, cfg: StftConfig, ola_tail: torch.Tensor,
+                 emit_len: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """iDFT + overlap-add of ONE streaming chunk of packed spectra.
+
+    packed: (B, T, 2F) with T·hop == emit_len; ola_tail: (B, n_fft − hop)
+    carried from the previous chunk.  Returns (float samples (B, emit_len)
+    times the steady-state COLA reciprocal, new ola_tail).  The tables reach
+    the device once (per config, and per ``emit_len`` for the reciprocal's
+    tile), so a captured step copies nothing from the host."""
+    frames = torch.matmul(packed, istft_basis(cfg, packed.device))
+    raw = overlap_add(frames, cfg.hop)  # (B, T·hop + n_fft − hop)
+    carry = cfg.n_fft - cfg.hop
+    raw = torch.cat([raw[:, :carry] + ola_tail, raw[:, carry:]], dim=-1)
+    divisor = _on_device(_steady_cola_tile_np, packed.device, cfg, emit_len)
+    return raw[:, :emit_len] * divisor, raw[:, emit_len:]

@@ -11,7 +11,7 @@ key means the upstream layout drifted, and the import aborts with the
 leftover keys instead of dropping weights.  ``report_path`` writes a JSON
 audit report with the same keys as the JAX package's.
 
-The port has importers for the four families it serves; each other family's
+The port has importers for the five families it serves; each other family's
 importer comes with that family's slice (ROADMAP A.9).
 """
 from __future__ import annotations
@@ -22,12 +22,14 @@ from pathlib import Path
 
 from . import common
 from .common import KeyTracker, unwrap_state_dict
+from .dfsmn import import_dfsmn
 from .gtcrn import import_gtcrn
 from .mossformer2_ss import import_mossformer2_ss
 from .mossformergan_se import import_mossformergan_se
 from .zipenhancer import import_zipenhancer
 
 _IMPORTERS = {
+    "dfsmn": import_dfsmn,
     "gtcrn": import_gtcrn,
     "mossformergan_se": import_mossformergan_se,
     "zipenhancer": import_zipenhancer,
@@ -43,9 +45,10 @@ _IGNORED = re.compile(r"num_batches_tracked$|^_metadata")
 def import_checkpoint(model_name: str, ckpt, *, strict: bool = True, report_path=None, **kw):
     """Upstream state dict (or a wrapper of one) → numpy parameter tree.
 
-    ``kw`` goes to the family's importer (``cfg=`` for all but GTCRN).  With
-    ``strict`` (the default) unread checkpoint keys raise ``ValueError``; a
-    key the recipe needs and the checkpoint lacks raises ``KeyError``."""
+    ``kw`` goes to the family's importer (``cfg=`` for all but GTCRN and
+    DFSMN).  With ``strict`` (the default) unread checkpoint keys raise
+    ``ValueError``; a key the recipe needs and the checkpoint lacks raises
+    ``KeyError``."""
     if model_name not in _IMPORTERS:
         raise KeyError(
             f"no importer registered for {model_name!r} in the port; available: "
@@ -78,5 +81,5 @@ def import_checkpoint(model_name: str, ckpt, *, strict: bool = True, report_path
     return params
 
 
-__all__ = ["common", "import_checkpoint", "import_gtcrn", "import_mossformergan_se",
-           "import_mossformer2_ss", "import_zipenhancer"]
+__all__ = ["common", "import_checkpoint", "import_dfsmn", "import_gtcrn",
+           "import_mossformergan_se", "import_mossformer2_ss", "import_zipenhancer"]

@@ -73,6 +73,10 @@ __all__ = ["launches", "reset_launches", "QuadLaunch", "quad_launch", "launch_qu
 
 # Kernel launches since the last reset.  The wrapper adds one where it
 # launches its kernel, and nowhere else.
+# Inside a CUDA graph capture (``runtime.streaming.StreamingServer(jit=True)``)
+# the wrapper counts the launch it records, once; a replay launches the
+# recorded kernels without the wrapper, so a graphed path's launches are
+# (launches counted during its capture) × (replays).
 launches = {"quad_attention": 0, "relpos_scores": 0}
 
 

@@ -68,6 +68,10 @@ __all__ = ["launches", "reset_launches", "DwconvLaunch", "dwconv_launch", "launc
 
 # Kernel launches since the last reset.  The wrapper adds one where it
 # launches its kernel, and nowhere else.
+# Inside a CUDA graph capture (``runtime.streaming.StreamingServer(jit=True)``)
+# the wrapper counts the launch it records, once; a replay launches the
+# recorded kernels without the wrapper, so a graphed path's launches are
+# (launches counted during its capture) × (replays).
 launches = {"dwconv1d": 0, "dwconv1d_tiled": 0}
 
 SMEM_MAX = 232448  # dynamic shared memory a block can have on sm_90

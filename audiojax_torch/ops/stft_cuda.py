@@ -72,6 +72,10 @@ __all__ = [
 
 # Kernel launches since the last reset, by kernel name.  Each wrapper adds one
 # where it launches its kernel, and nowhere else.
+# Inside a CUDA graph capture (``runtime.streaming.StreamingServer(jit=True)``)
+# the wrapper counts the launch it records, once; a replay launches the
+# recorded kernels without the wrapper, so a graphed path's launches are
+# (launches counted during its capture) × (replays).
 launches = {"stft_packed": 0, "istft_packed": 0}
 
 SMEM_MAX = 232448  # dynamic shared memory a block can have on sm_90

@@ -1,6 +1,8 @@
 """Built-in model registrations (grows as model families are ported)."""
 from __future__ import annotations
 
+from functools import partial
+
 from .manifest import Manifest
 from .registry import ModelSpec, register
 
@@ -133,6 +135,14 @@ def _register_mossformer2_ss():
     )
 
 
+def _gtcrn_stream(cfg):
+    from ..models.gtcrn import gtcrn_stream_init, gtcrn_stream_step
+
+    return (partial(gtcrn_stream_init, cfg),
+            partial(gtcrn_stream_step, cfg=cfg),
+            cfg.n_fft - cfg.hop)
+
+
 def _register_gtcrn():
     from ..models.gtcrn import GTCRN, GtcrnConfig, init_gtcrn
 
@@ -144,6 +154,59 @@ def _register_gtcrn():
             init_params=init_gtcrn,
             make_module=GTCRN,
             make_manifest=_gtcrn_manifest,
+            make_stream=_gtcrn_stream,
+        )
+    )
+
+
+def _dfsmn_manifest(cfg):
+    return Manifest(
+        model_name="dfsmn",
+        task="denoise",
+        model_family="dfsmn",
+        in_sample_rate=cfg.in_sample_rate,
+        out_sample_rate=cfg.out_sample_rate,
+        model_sample_rate=cfg.sample_rate,
+        input_audio_length=96000 * cfg.in_sample_rate // 48000,
+        window_type="hamming_symmetric",
+        nfft=cfg.n_fft,
+        window_length=cfg.n_fft,
+        hop_length=cfg.hop,
+        pad_mode="constant",
+        center_pad=False,
+        max_dynamic_audio_seconds=6,
+        feature_kind="kaldi_fbank_stft",
+        fold_window_length=cfg.fold_window,
+        batch_fold_inference_default=bool(cfg.fold_window),
+        extra={
+            "n_mels": cfg.n_mels,
+            "kaldi_nfft": cfg.kaldi_nfft,
+            "preemph_coeff": cfg.preemph,
+            "istft_window_type": "hamming_periodic",
+        },
+    )
+
+
+def _dfsmn_stream(cfg):
+    from ..models.dfsmn import dfsmn_stream_init, dfsmn_stream_step
+
+    return (partial(dfsmn_stream_init, cfg),
+            partial(dfsmn_stream_step, cfg=cfg),
+            cfg.n_fft - cfg.hop)
+
+
+def _register_dfsmn():
+    from ..models.dfsmn import DFSMN, DfsmnConfig, init_dfsmn
+
+    register(
+        ModelSpec(
+            name="dfsmn",
+            task="denoise",
+            make_config=DfsmnConfig,
+            init_params=init_dfsmn,
+            make_module=DFSMN,
+            make_manifest=_dfsmn_manifest,
+            make_stream=_dfsmn_stream,
         )
     )
 
@@ -152,3 +215,4 @@ _register_gtcrn()
 _register_mossformergan()
 _register_zipenhancer()
 _register_mossformer2_ss()
+_register_dfsmn()

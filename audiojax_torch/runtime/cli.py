@@ -6,7 +6,9 @@
     python -m audiojax_torch.runtime.cli --model zipenhancer --input noisy.wav --output clean.wav
     python -m audiojax_torch.runtime.cli --model mossformer2_ss --input mix.wav --output spk.wav
         (writes spk_0.wav and spk_1.wav)
+    python -m audiojax_torch.runtime.cli --model dfsmn --input noisy48k.wav --output clean.wav
     python -m audiojax_torch.runtime.cli --model gtcrn --artifact art/ --input noisy.wav
+    python -m audiojax_torch.runtime.cli --model gtcrn --input noisy.wav --stream [--block-hops 4]
     python -m audiojax_torch.runtime.cli --list
 
 With ``--artifact`` the command serves the weights of an artifact that
@@ -15,24 +17,34 @@ with the config the artifact records; ``--model`` must name the artifact's
 model.  Without it, parameters are drawn at random from ``--seed``.  The
 model runs on the card unless ``--device cpu`` is given; without CUDA and
 without ``--device cpu`` the command fails.
+
+With ``--stream`` a model that has state-carry streaming (gtcrn, dfsmn) is
+served through ``StreamingSession`` instead of windows: the whole clip is
+pushed, the stream flushed, and the command prints the streaming RTF and the
+algorithmic latency (one block of ``--block-hops`` hops plus n_fft − hop).
+On the card the step is one captured CUDA graph; on the CPU it runs eagerly.
 """
 from __future__ import annotations
 
 import argparse
 import sys
+import time
 from pathlib import Path
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="audiojax_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--model", help="model name: gtcrn, mossformergan_se, zipenhancer or "
-                    "mossformer2_ss (see --list)")
+    ap.add_argument("--model", help="model name: gtcrn, mossformergan_se, zipenhancer, "
+                    "mossformer2_ss or dfsmn (see --list)")
     ap.add_argument("--input", nargs="*", default=[], help="input wav path(s)")
     ap.add_argument("--output", help="output wav path (multi-source models append _0, _1, …)")
     ap.add_argument("--artifact", help="artifact dir with params.pt + manifest.json")
     ap.add_argument("--seed", type=int, default=0, help="random-parameter seed when no artifact")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--stream", action="store_true",
+                    help="serve with state-carry streaming (low latency) instead of windows")
+    ap.add_argument("--block-hops", type=int, default=4, help="streaming block size in hops")
     ap.add_argument("--list", action="store_true", help="list registered models")
     args = ap.parse_args(argv)
 
@@ -45,6 +57,11 @@ def main(argv=None) -> int:
     if not args.model:
         ap.error("--model is required (or use --list)")
     spec = registry.get(args.model)
+    if args.stream and spec.make_stream is None:
+        streaming = [n for n in registry.names() if registry.get(n).make_stream]
+        print(f"{spec.name} does not support --stream (no state-carry streaming); "
+              f"streaming models: {streaming}", file=sys.stderr)
+        return 2
 
     from ..device import resolve_device
     from .audio_io import read_wav, resample_np, to_mono, write_wav
@@ -99,6 +116,8 @@ def main(argv=None) -> int:
         print(f"note: no --artifact given; using randomly initialised {spec.name} params "
               f"(seed {args.seed})", file=sys.stderr)
         params = spec.init_params(args.seed, cfg, device)
+    if args.stream:
+        return _stream(spec, params, cfg, manifest, audios, inputs, args, device)
     model = spec.make_module(params, cfg)
     result = Session(model, manifest, device=device).process(*audios)
 
@@ -113,6 +132,31 @@ def main(argv=None) -> int:
         print(f"wrote {p}")
     print(f"RTF: {result.rtf:.6f}  ({result.elapsed_s * 1e3:.2f} ms for "
           f"{result.audio_duration_s:.2f} s audio on {device}; a first call, warm-up included)")
+    return 0
+
+
+def _stream(spec, params, cfg, manifest, audios, inputs, args, device) -> int:
+    """Push each whole input through a StreamingSession, flush, write the wav."""
+    import numpy as np
+
+    from .audio_io import write_wav
+    from .streaming import StreamingSession
+
+    session = StreamingSession(spec, params, cfg, block_hops=args.block_hops,
+                               jit=device.type == "cuda", device=device)
+    monos = [a.reshape(-1) for a in audios]  # (1, n) each
+    n = max(m.shape[-1] for m in monos)  # the longest input, as Session pads
+    monos = [np.pad(m, (0, n - m.shape[-1])) for m in monos]
+    start = time.perf_counter()
+    out = np.concatenate([session.push(*monos), session.flush()])
+    elapsed = time.perf_counter() - start
+    path = Path(args.output) if args.output else inputs[0].with_name(
+        inputs[0].stem + f".{spec.name}.stream.wav")
+    print(f"wrote {write_wav(path, out, manifest.out_sample_rate)}")
+    dur = out.shape[-1] / manifest.out_sample_rate
+    latency = session.latency_samples
+    print(f"streaming RTF: {elapsed / dur:.6f} on {device} (algorithmic latency {latency} "
+          f"samples = {1000 * latency / manifest.model_sample_rate:.1f} ms)")
     return 0
 
 

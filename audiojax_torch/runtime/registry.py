@@ -20,6 +20,14 @@ class ModelSpec:
     init_params: Callable[..., dict]  # (seed, cfg, device) -> params
     make_module: Callable[[dict, object], nn.Module]  # (params, cfg) -> module(*audios)
     make_manifest: Callable[[object], Manifest]  # cfg -> Manifest
+    # optional state-carry streaming: cfg -> (init_fn(batch, device),
+    # step_fn(params, state, *chunks) -> (state, out), delay_samples).
+    # CONTRACT: every state leaf that init_fn(batch, device) returns folds the
+    # batch axis BATCH-MAJOR (viewing the folded axis as (batch, sub) recovers
+    # the lane), and no leaf is batch-independent: StreamingServer infers each
+    # leaf's lane axis from the batch-1 and batch-K shapes and masks per-lane
+    # updates on it; StreamingServer.verify_lane_isolation() checks it.
+    make_stream: Callable[[object], tuple] | None = None
 
 
 _REGISTRY: dict[str, ModelSpec] = {}

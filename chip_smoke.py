@@ -10,8 +10,10 @@ Phases, each of which raises (non-zero exit) on failure:
    source, all started together; each one's build time.
 3. Kernels B1/B2: the STFT and ISTFT kernels against their plain PyTorch
    versions and against a float64 numpy DFT, at the MossFormerGAN, GTCRN and
-   ZipEnhancer serving shapes and three further geometries (odd 319/160
-   constant, Mel-Band 2048/441 reflect, DFSMN 1920/960 uncentred), with
+   ZipEnhancer serving shapes, DFSMN's served synthesis (4, 96000) and
+   GTCRN's stream step (8, 1280) 512/256 uncentred, and three further
+   geometries (odd 319/160 constant, Mel-Band 2048/441 reflect, DFSMN
+   1920/960 uncentred), with
    kernel / plain / torch.stft-istft timings (B2 also as a sum of kernel
    times beside torch.istft's), the card's bound for the same function (an
    FFT's operations, or the bytes read and written, whichever takes longer)
@@ -21,6 +23,8 @@ Phases, each of which raises (non-zero exit) on failure:
    references (error at most 2 × the plain version's), at the MossFormerGAN
    and ZipEnhancer serving shapes, with kernel / plain / library timings and
    the card's bound (f32 operations at 67 TFLOP/s or bytes at 3.35 TB/s).
+   B4 is held also at DFSMN's FSMN memory (C 256, k 20, no pads) of a 6 s
+   and a 30 s request and of a stream step.
    B4 takes its weight as the model's (C, 1, k) seen through a (k, C) view,
    and is held also off the served paths: C = 66 (scalar path), dilation 3,
    and an x 4 bytes past a 16-byte boundary.
@@ -63,7 +67,7 @@ Phases, each of which raises (non-zero exit) on failure:
    the module must be within 40 dB SNR of the same port on the CPU, each
    source.
 
-11. Export and serve imported checkpoints: for each of the four families at
+11. Export and serve imported checkpoints: for each of the five families at
    its default (full) width and depth, a synthetic upstream-layout state
    dict from a fixed seed (``tests/test_torch_ckpt_builders.py``) goes
    through ``export_artifact`` into a temporary directory, its smoke request
@@ -71,19 +75,40 @@ Phases, each of which raises (non-zero exit) on failure:
    loaded onto the card must equal ``params_from_numpy`` of the in-memory
    import tree bit for bit; then ``Session`` serves a 7 s (GTCRN) or 6 s
    request on it three times after a warm-up, each forward launching what
-   phases 5, 6, 8 and 10 launch, and one fold or window on the card must be
+   phases 5, 6, 8, 10 and 12 launch, and one fold or window on the card must be
    within 40 dB SNR of the same artifact on the CPU, each source (ZipEnhancer's
    fold starts with 201 silent samples).  Prints import, export and load
    seconds and the request's latency beside the random-weight latency of
    the same family and request size from this run, then one JSON line.
+12. Serving DFSMN (run before phase 11, which compares against its
+   latency): ``Session`` for ``dfsmn`` at full width and depth (hidden 256,
+   depth 9, lorder 20, 120 mels, 48 kHz; random parameters from seed 0)
+   answers a 6 s and a 30 s request; every forward must launch B2 once, B4
+   9 times and B1, B3, B5, B6 never; one 6 s request is profiled, and one
+   2 s window must be within 40 dB SNR of the same port on the CPU.
+13. Streaming: ``StreamingServer`` for ``gtcrn`` and for ``dfsmn`` (8
+   lanes, 4-hop blocks) on the card with ``jit=True`` (one captured CUDA
+   graph of the step, replayed every tick) and with ``jit=False``.  Eight
+   clips (7 s GTCRN, 6 s DFSMN) go through ``push_many`` in irregular
+   chunks, then each lane is flushed.  Each lane's output must be as long as
+   its input, within 1 LSB of the eager server's and ≥ 40 dB against a CPU
+   ``StreamingSession`` on the same clip; the captured step must launch B1
+   once (GTCRN) or B4 9 times (DFSMN), the wrappers' counters must stay at 0
+   over the graphed drive (a replay launches inside the graph: the path's
+   launches are captured × replays) and count that many a step on the eager
+   one; ``verify_lane_isolation()`` must pass on the card.  Prints the
+   step's device and wall time, graph and eager, the launches a step, the
+   tick's median wall time, the server's set-up with and without capture,
+   the RTF a stream at 8 live lanes and ``latency_samples``; one trace of a
+   few replays is held against the counting rule.
 
-Phases 6, 8 and 10 print the launches of one forward, all of them and the
-ported kernels'.  The last line is ``{"ok": true, "device": {...}}``; the
-line before it lists every kernel as JSON (its launches summed over the
-four served paths and phase 11's four, with the count of each path beside
-it, and its times at its first serving shape), and the line before that the
-card.  Without CUDA the script exits non-zero
-and prints no result.
+Phases 6, 8, 10 and 12 print the launches of one forward, all of them and
+the ported kernels'.  The last line is ``{"ok": true, "device": {...}}``;
+the line before it lists every kernel as JSON (its launches summed over the
+five served paths, phase 11's five and the two graphed stream paths, with
+the count of each path beside it, and its times at its first serving
+shape), and the line before that the card.  Without CUDA the script exits
+non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -127,6 +152,10 @@ ZIP_PER_FORWARD = {"stft_packed": 1, "istft_packed": 1, "dwconv1d": 16, "dwconv1
 # on B6; no STFT
 SS_PER_FORWARD = {"stft_packed": 0, "istft_packed": 0, "dwconv1d": 96, "dwconv1d_tiled": 24,
                   "quad_attention": 24, "relpos_scores": 0}
+# DFSMN launches per forward: the synthesis ISTFT (B2) once and the 9 FSMN
+# memories (B4); its analysis is a framed matrix product, no B1
+DFSMN_PER_FORWARD = {"stft_packed": 0, "istft_packed": 1, "dwconv1d": 9, "dwconv1d_tiled": 0,
+                     "quad_attention": 0, "relpos_scores": 0}
 # ~1 ms at the H100's clock: longer than the host takes to issue any timed call
 SPIN_CYCLES = 2_000_000
 
@@ -205,6 +234,10 @@ def kernel_sum_ms(fn, iters: int = 20) -> float:
 
     rows = cuda_rows(run, {}, calls=iters)
     return sum(e.self_device_time_total for e in rows) / 1e3 / iters
+
+
+def _ms(value, absent: str) -> str:
+    return absent if value is None else f"{value:.4f}"
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -315,6 +348,12 @@ def check_kernels(dev) -> dict:
         # radix 3 (1920 = 2^7·3·5), no centre padding
         ("dfsmn 1920/960 hamming_periodic uncentred",
          StftConfig(1920, 960, window="hamming_periodic", center=False), 2, 19200),
+        # DFSMN's served synthesis shape: a 6 s request, 4 windows of 99 frames
+        ("dfsmn 1920/960 hamming_periodic uncentred",
+         StftConfig(1920, 960, window="hamming_periodic", center=False), 4, 96000),
+        # GTCRN's stream step: 8 lanes of 4 hops after the 256-sample tail
+        ("gtcrn stream 512/256 hann_sqrt uncentred",
+         StftConfig(512, 256, window="hann_sqrt", pad_mode="reflect", center=False), 8, 1280),
     ]
     rng = np.random.default_rng(0)
     serving = {}
@@ -378,8 +417,14 @@ def check_kernels(dev) -> dict:
             return_complex=True))
         istft_row["ms"] = device_ms(lambda: K.istft_packed_cuda(spec, cfg))
         istft_row["plain_ms"] = device_ms(lambda: K.plain_istft_packed(spec, cfg))
-        istft_row["library_ms"] = kernel_sum_ms(lambda: torch.istft(
-            spec_c, cfg.n_fft, cfg.hop, window=win_t, center=cfg.center))
+        # torch.istft refuses a window whose overlap-add envelope reaches zero
+        # (NOLA), as an uncentred hann_sqrt's does at its first sample
+        envelope = np.zeros(cfg.n_fft + cfg.hop * (n_t - 1))
+        for t in range(n_t):
+            envelope[t * cfg.hop: t * cfg.hop + cfg.n_fft] += win ** 2
+        envelope = envelope[cfg.half: -cfg.half] if cfg.center else envelope
+        istft_row["library_ms"] = None if envelope.min() < 1e-11 else kernel_sum_ms(
+            lambda: torch.istft(spec_c, cfg.n_fft, cfg.hop, window=win_t, center=cfg.center))
         # the wrapper by the same method as the library, for a like-for-like comparison
         wrapper_sum_ms = kernel_sum_ms(lambda: K.istft_packed_cuda(spec, cfg))
 
@@ -410,13 +455,14 @@ def check_kernels(dev) -> dict:
                   f"vs f64 kernel {row['err64_kernel']:.2e} plain {row['err64_plain']:.2e}; "
                   f"device ms: kernel (wrapper) {row['ms']:.4f}, "
                   f"plain {row['plain_ms']:.4f}, torch.{name.split('_')[0]} "
-                  f"{row['library_ms']:.4f}; bound {row['bound_ms'] * 1e3:.3f} us "
+                  f"{_ms(row['library_ms'], 'refuses the window (NOLA)')}; bound {row['bound_ms'] * 1e3:.3f} us "
                   f"({row['bound_by']}); the kernel's FFTs, {frames[name]} frames, "
                   f"{plan_gflop:.4f} GFLOP ({plan_gflop * 1e15 / peak:.3f} us at the "
                   f"{kind} peak)", flush=True)
         print(f"kernel istft_packed {label:43s} ({b:2d}, {length}): device ms per call, "
               f"CUDA events: kernel {istft_row['ms']:.4f}; sum of kernel device times: "
-              f"kernel {wrapper_sum_ms:.4f}, torch.istft {istft_row['library_ms']:.4f}",
+              f"kernel {wrapper_sum_ms:.4f}, torch.istft "
+              f"{_ms(istft_row['library_ms'], 'refuses the window (NOLA)')}",
               flush=True)
         if not serving:  # the first case
             serving = {"stft_packed": stft_row, "istft_packed": istft_row}
@@ -463,6 +509,14 @@ B4_CASES = [
     ("zip 30 s f conv", (7712, 101, 64), 31, (15, 15), 1),
     ("zip 30 s t conv", (3232, 241, 64), 31, (15, 15), 1),
     ("B5 dilated", (4, 4000, 256), 39, (38, 38), 2),
+]
+# DFSMN's FSMN memory (C 256, k 20, no pads: the lorder − 1 history frames
+# lead each row): a 6 s request (4 windows of 99 frames), a 30 s request
+# (16), and a stream step of 8 lanes of 4 frames
+B4_DFSMN_CASES = [
+    ("dfsmn fsmn", (4, 118, 256), 20, (0, 0), 1),
+    ("dfsmn 30 s fsmn", (16, 118, 256), 20, (0, 0), 1),
+    ("dfsmn stream fsmn", (8, 23, 256), 20, (0, 0), 1),
 ]
 # (label, (B, T, C), k, (lo, hi), dilation, offset): B4 off the served paths,
 # on the general routes: the scalar path (C % 4 != 0), dilation 3, and an x
@@ -574,6 +628,8 @@ def check_gan_kernels(dev) -> dict:
     serving = {}
     for label, shape, k, pads, dil in B4_CASES:
         serving.setdefault("dwconv1d", hold_b4(gen, dev, label, shape, k, pads, dil))
+    for label, shape, k, pads, dil in B4_DFSMN_CASES:
+        hold_b4(gen, dev, label, shape, k, pads, dil)
     for label, shape, k, pads, dil, offset in B4_OFFPATH_CASES:
         hold_b4(gen, dev, label, shape, k, pads, dil, offset=offset)
     for label, n, s, mask in B6_CASES:
@@ -584,24 +640,26 @@ def check_gan_kernels(dev) -> dict:
 # ── phase 5 ────────────────────────────────────────────────────────────────
 
 
-def noisy_speech(n: int, seed: int, pitch: float = 140.0, rate: float = 3.0) -> np.ndarray:
-    """Synthetic speech-band int16 audio: a gliding harmonic voice (around
-    ``pitch`` Hz) under a syllable-rate envelope (``rate`` Hz), plus white noise."""
+def noisy_speech(n: int, seed: int, pitch: float = 140.0, rate: float = 3.0,
+                 sr: int = SR) -> np.ndarray:
+    """Synthetic speech-band int16 audio at ``sr`` Hz: a gliding harmonic voice
+    (around ``pitch`` Hz) under a syllable-rate envelope (``rate`` Hz), plus
+    white noise."""
     rng = np.random.default_rng(seed)
-    t = np.arange(n) / SR
+    t = np.arange(n) / sr
     f0 = pitch + 30.0 * np.sin(2 * np.pi * 0.5 * t)
-    phase = 2 * np.pi * np.cumsum(f0) / SR
+    phase = 2 * np.pi * np.cumsum(f0) / sr
     voiced = sum(np.sin(k * phase) / k for k in range(1, 11))
     voiced *= (0.5 + 0.5 * np.sin(2 * np.pi * rate * t)) ** 2
     x = 0.3 * voiced / np.abs(voiced).max() + 0.05 * rng.standard_normal(n)
     return np.clip(np.round(x * 32767), -32768, 32767).astype(np.int16)
 
 
-def speech_mix(n: int, seed: int) -> np.ndarray:
+def speech_mix(n: int, seed: int, sr: int = SR) -> np.ndarray:
     """Two synthetic voices (140 Hz at 3 syllables/s, 230 Hz at 4.3/s), each
     with its own noise, mixed at equal level: a separation request."""
-    a = noisy_speech(n, seed).astype(np.int32)
-    b = noisy_speech(n, seed + 1000, pitch=230.0, rate=4.3).astype(np.int32)
+    a = noisy_speech(n, seed, sr=sr).astype(np.int32)
+    b = noisy_speech(n, seed + 1000, pitch=230.0, rate=4.3, sr=sr).astype(np.int32)
     return ((a + b) // 2).astype(np.int16)
 
 
@@ -689,14 +747,14 @@ PROFILE_KEYS = {"stft_packed": "::stft_kernel", "istft_packed": "::istft_kernel"
 
 def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latency: dict,
                    lead_silence: int = 0, clip=noisy_speech) -> dict:
-    """Phases 6, 8 and 10: serve ``name`` at full width and depth on its
+    """Phases 6, 8, 10 and 12: serve ``name`` at full width and depth on its
     manifest's windows (the GAN's and ZipEnhancer's 6 s windows are each
     folded into 1.5 s fold windows); returns the kernels' launch counts over
-    the measured requests, whose audio ``clip(n, seed)`` makes, and puts the
-    6 s request's median latency (ms) into ``latency``.  Every output
-    source is checked.  The clip held card against CPU (one fold window, or
-    one window where the model does not fold) starts with ``lead_silence``
-    zero samples."""
+    the measured requests, whose audio ``clip(n, seed, sr=rate)`` makes at
+    the manifest's input rate (DFSMN's 48 kHz), and puts the 6 s request's
+    median latency (ms) into ``latency``.  Every output source is checked.
+    The clip held card against CPU (one fold window, or one window where the
+    model does not fold) starts with ``lead_silence`` zero samples."""
     from audiojax_torch.runtime import registry
     from audiojax_torch.runtime.session import Session
 
@@ -706,9 +764,11 @@ def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latenc
     window = manifest.input_audio_length
     fold = getattr(cfg, "fold_window", 0)
     head = manifest.pad_head
+    sr = manifest.in_sample_rate
     model = spec.make_module(spec.init_params(0, cfg, "cuda"), cfg)
     session = Session(model, manifest, device="cuda")
-    requests = [("6 s", clip(6 * SR, seeds[0])), ("30 s", clip(30 * SR, seeds[1]))]
+    requests = [("6 s", clip(6 * sr, seeds[0], sr=sr)),
+                ("30 s", clip(30 * sr, seeds[1], sr=sr))]
     t0 = time.perf_counter()
     session.process(requests[0][1])  # warm-up: cuBLAS, cuDNN and allocator set-up
     print(f"serve {name} warm-up (6 s request): "
@@ -775,7 +835,7 @@ def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latenc
 
     # card vs CPU on one fold window (or one window), through the module
     length = fold or window
-    clip_np = clip(length, seeds[2])
+    clip_np = clip(length, seeds[2], sr=sr)
     clip_np[:lead_silence] = 0
     x = torch.from_numpy(clip_np[None])
     cpu_model = spec.make_module(spec.init_params(0, cfg, "cpu"), cfg)
@@ -788,13 +848,13 @@ def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latenc
         card_out, cpu_out = (card_out,), (cpu_out,)
     for i, (c, h) in enumerate(zip(card_out, cpu_out)):
         snr = snr_db(h.numpy(), c.cpu().numpy())
-        print(f"serve {name} {length / SR:g} s {'fold' if fold else 'window'} card vs CPU"
+        print(f"serve {name} {length / sr:g} s {'fold' if fold else 'window'} card vs CPU"
               f"{f' source {i}' if len(card_out) > 1 else ''}: SNR {snr:.2f} dB (CPU forward "
               f"{cpu_s:.1f} s)", flush=True)
         if not snr >= MIN_SNR_DB:
             fail(f"{name} card vs CPU SNR {snr:.2f} dB < {MIN_SNR_DB}")
     if lead_silence:
-        frame0_witness(name, model, cpu_model, clip(length, seeds[2]))
+        frame0_witness(name, model, cpu_model, clip(length, seeds[2], sr=sr))
     return counts
 
 
@@ -973,6 +1033,7 @@ IMPORTED = [
     ("mossformergan_se", 6, GAN_PER_FORWARD, 42, noisy_speech, 0),
     ("zipenhancer", 6, ZIP_PER_FORWARD, 43, noisy_speech, 201),
     ("mossformer2_ss", 6, SS_PER_FORWARD, 44, speech_mix, 0),
+    ("dfsmn", 6, DFSMN_PER_FORWARD, 45, noisy_speech, 0),
 ]
 
 
@@ -1049,7 +1110,8 @@ def serve_imported(card: str, random_ms: dict) -> dict:
 
         model = spec.make_module(params, cfg)
         session = Session(model, manifest, device="cuda")
-        audio = clip(seconds * SR, seed)
+        sr = manifest.in_sample_rate
+        audio = clip(seconds * sr, seed, sr=sr)
         session.process(audio)  # warm-up: this model's first request
         for mod in kernel_modules():
             mod.reset_launches()
@@ -1075,7 +1137,7 @@ def serve_imported(card: str, random_ms: dict) -> dict:
 
         # card vs CPU on one fold window (or one window), through the module
         length = getattr(cfg, "fold_window", 0) or manifest.input_audio_length
-        clip_np = clip(length, seed + 100)
+        clip_np = clip(length, seed + 100, sr=sr)
         clip_np[:lead_silence] = 0
         x = torch.from_numpy(clip_np[None])
         with torch.inference_mode():
@@ -1086,7 +1148,7 @@ def serve_imported(card: str, random_ms: dict) -> dict:
         if not isinstance(card_out, tuple):
             card_out, cpu_out = (card_out,), (cpu_out,)
         snrs = [snr_db(h.numpy(), c.cpu().numpy()) for c, h in zip(card_out, cpu_out)]
-        print(f"imported {name} {length / SR:g} s card vs CPU: SNR "
+        print(f"imported {name} {length / sr:g} s card vs CPU: SNR "
               f"{', '.join(f'{v:.2f}' for v in snrs)} dB (CPU forward {cpu_s:.1f} s)", flush=True)
         if not min(snrs) >= MIN_SNR_DB:
             fail(f"imported {name} card vs CPU SNR {min(snrs):.2f} dB < {MIN_SNR_DB}")
@@ -1096,6 +1158,212 @@ def serve_imported(card: str, random_ms: dict) -> dict:
                         "card_vs_cpu_db": [round(v, 2) for v in snrs]})
         del model, session, params, cpu_params
     print(json.dumps({"imported": summary}), flush=True)
+    return by_path
+
+
+# ── phase 13 ───────────────────────────────────────────────────────────────
+
+STREAM_LANES, STREAM_BLOCK_HOPS = 8, 4
+NO_LAUNCHES = {"stft_packed": 0, "istft_packed": 0, "dwconv1d": 0, "dwconv1d_tiled": 0,
+               "quad_attention": 0, "relpos_scores": 0}
+# (model, clip seconds, the ported kernels' launches a step, first clip seed):
+# GTCRN's step analyses its block on B1 (its synthesis is a matrix product and
+# an overlap-add); DFSMN's runs its 9 FSMN memories on B4 (its analysis and
+# synthesis are matrix products)
+STREAMS = [
+    ("gtcrn", 7, {**NO_LAUNCHES, "stft_packed": 1}, 60),
+    ("dfsmn", 6, {**NO_LAUNCHES, "dwconv1d": 9}, 70),
+]
+TIMED_STEPS = 50  # steps timed apart from the drive, each way
+TRACED_REPLAYS = 5
+
+
+def launch_counts() -> dict:
+    return {k: n for mod in kernel_modules() for k, n in mod.launches.items()}
+
+
+def drive_streams(server, clips: list, seed: int) -> tuple:
+    """Open a lane per clip, push all clips through ``push_many`` in irregular
+    chunks (sizes from ``seed``, each lane its own), then flush each lane.
+    Returns the lanes' outputs, each tick's wall seconds and the drive's."""
+    ticks, inner = [], server._tick
+
+    def timed(ready):
+        t0 = time.perf_counter()
+        out = inner(ready)
+        ticks.append(time.perf_counter() - t0)
+        return out
+
+    server._tick = timed
+    rng = np.random.default_rng(seed)
+    sids = [server.open() for _ in clips]
+    outs = {sid: [] for sid in sids}
+    pos = [0] * len(clips)
+    t0 = time.perf_counter()
+    while any(p < c.size for p, c in zip(pos, clips)):
+        pushes = {}
+        for i, (sid, clip) in enumerate(zip(sids, clips)):
+            if pos[i] < clip.size:
+                size = int(rng.integers(1, 3 * server.block))
+                pushes[sid] = clip[pos[i]:pos[i] + size]
+                pos[i] += size
+        for sid, out in server.push_many(pushes).items():
+            outs[sid].append(out)
+    for sid in sids:
+        outs[sid].append(server.flush(sid))
+    total = time.perf_counter() - t0
+    del server._tick  # the class's own again
+    for sid in sids:
+        server.close(sid)
+    return [np.concatenate(outs[sid]) for sid in sids], np.array(ticks), total
+
+
+def graph_trace(card: str, name: str, server, per_step: dict) -> None:
+    """torch.profiler traces of a few replays of the server's graph, held
+    against the counting rule (launches = captured × replays).  The profiler
+    there has dropped device records at times, so a trace is taken again (up
+    to 4 times) until it agrees; a trace with fewer launches is reported,
+    not failed, and one with more fails."""
+    want = {k: n * TRACED_REPLAYS for k, n in per_step.items()}
+    for attempt in range(1, 5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(TRACED_REPLAYS):
+                server._graph.replay()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
+        seen = {k: sum(e.count for e in rows if PROFILE_KEYS[k] in e.key) for k in per_step}
+        if any(seen[k] > want[k] for k in want):
+            fail(f"stream {name}: a trace shows {seen}, more than captured × replays {want}")
+        if seen == want:
+            break
+    if not rows:
+        print(f"stream {name} graph trace: no device records over {TRACED_REPLAYS} replays "
+              "(the counting rule stands unchecked by the profiler here)", flush=True)
+        return
+    busy = sum(e.self_device_time_total for e in rows) / 1e3 / TRACED_REPLAYS
+    n = sum(e.count for e in rows)
+    print(f"stream {name} graph trace over {TRACED_REPLAYS} replays (attempt {attempt}): {n} "
+          f"device launches ({n / TRACED_REPLAYS:g} a replay), device busy {busy:.4f} ms a "
+          f"replay; ported kernels {seen}, captured × replays {want}: "
+          f"{'agree' if seen == want else 'fewer (records dropped)'}  [{card}]", flush=True)
+
+
+def serve_streams(card: str) -> dict:
+    """Phase 13; returns each graphed stream path's kernel launches
+    (captured × replays)."""
+    from audiojax_torch.runtime import registry
+    from audiojax_torch.runtime.streaming import StreamingServer, StreamingSession
+
+    by_path = {}
+    for name, seconds, per_step, seed in STREAMS:
+        spec = registry.get(name)
+        cfg = spec.make_config()
+        sr = spec.make_manifest(cfg).in_sample_rate
+        params = spec.init_params(0, cfg, "cuda")
+        clips = [noisy_speech(seconds * sr, seed + i, pitch=110.0 + 20.0 * i, sr=sr)
+                 for i in range(STREAM_LANES)]
+        servers, build_s = {}, {}
+        for jit in (True, False):
+            t0 = time.perf_counter()
+            servers[jit] = StreamingServer(spec, params, cfg, max_streams=STREAM_LANES,
+                                           block_hops=STREAM_BLOCK_HOPS, jit=jit, device="cuda")
+            torch.cuda.synchronize()
+            build_s[jit] = time.perf_counter() - t0
+        graph, eager = servers[True], servers[False]
+        if graph.captured_launches != per_step:
+            fail(f"stream {name}: the captured step launches {graph.captured_launches}, "
+                 f"expected {per_step}")
+
+        runs = {}
+        for jit, srv in servers.items():
+            for mod in kernel_modules():
+                mod.reset_launches()
+            srv.replays = 0
+            runs[jit] = drive_streams(srv, clips, seed)
+            counts, n_ticks = launch_counts(), len(runs[jit][1])
+            if jit:
+                # a replay launches in the graph, not through the wrappers
+                if any(counts.values()) or srv.replays != n_ticks:
+                    fail(f"stream {name} graph: wrapper counts {counts} (expected none), "
+                         f"{srv.replays} replays for {n_ticks} ticks")
+                by_path[f"{name}_stream"] = {k: n * srv.replays
+                                             for k, n in srv.captured_launches.items()}
+            elif counts != {k: n * n_ticks for k, n in per_step.items()}:
+                fail(f"stream {name} eager: {counts} over {n_ticks} steps, expected {per_step} "
+                     "a step")
+        (outs_g, ticks_g, drive_g), (outs_e, ticks_e, drive_e) = runs[True], runs[False]
+
+        cpu_params = spec.init_params(0, cfg, "cpu")
+        worst_lsb, snrs = 0, []
+        for i, clip in enumerate(clips):
+            g, e = outs_g[i], outs_e[i]
+            if g.dtype != np.int16 or g.shape != clip.shape or e.shape != clip.shape:
+                fail(f"stream {name} lane {i}: {g.dtype} {g.shape} / {e.shape}, expected "
+                     f"int16 {clip.shape}")
+            if not np.any(g):
+                fail(f"stream {name} lane {i}: all-zero output")
+            worst_lsb = max(worst_lsb, int(np.abs(g.astype(np.int32) - e).max()))
+            cpu = StreamingSession(spec, cpu_params, cfg, block_hops=STREAM_BLOCK_HOPS,
+                                   jit=False, device="cpu")
+            snrs.append(snr_db(np.concatenate([cpu.push(clip), cpu.flush()]), g))
+        print(f"stream {name} {STREAM_LANES} lanes × {seconds} s (block {graph.block} samples, "
+              f"irregular pushes): out length == in length; graph vs eager on the card max "
+              f"{worst_lsb} LSB; graph vs CPU StreamingSession SNR min {min(snrs):.2f} dB "
+              f"(lanes {', '.join(f'{v:.2f}' for v in snrs)})", flush=True)
+        if worst_lsb > 1:
+            fail(f"stream {name}: graph and eager differ by {worst_lsb} LSB")
+        if not min(snrs) >= MIN_SNR_DB:
+            fail(f"stream {name}: card vs CPU SNR {min(snrs):.2f} dB < {MIN_SNR_DB}")
+        graph.verify_lane_isolation()
+        print(f"stream {name}: verify_lane_isolation() passed on the card", flush=True)
+
+        # the step alone, all lanes active on distinct blocks
+        rng = np.random.default_rng(seed)
+        blocks = torch.from_numpy(rng.integers(-8000, 8000, (STREAM_LANES, graph.block))
+                                  .astype(np.int16)).cuda()
+        active = torch.ones(STREAM_LANES, dtype=torch.bool, device="cuda")
+        graph._active.copy_(active)
+        graph._blocks[0].copy_(blocks)
+        graph_ms = device_ms(graph._graph.replay, iters=TIMED_STEPS)
+        rows = cuda_rows(lambda: [eager._masked_step(active, blocks) for _ in range(10)], {},
+                         calls=10)
+        step_launches = sum(e.count for e in rows) / 10
+        eager_busy = sum(e.self_device_time_total for e in rows) / 1e3 / 10
+        walls = {}
+        for jit, srv in servers.items():
+            run = srv._graph.replay if jit else (lambda: srv._masked_step(active, blocks))
+            t = []
+            for _ in range(TIMED_STEPS):
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                t.append(time.perf_counter() - t0)
+            walls[jit] = float(np.median(t)) * 1e3
+        graph_trace(card, name, graph, per_step)
+        print(f"stream {name} eager step, top kernels (device ms a step, launches a step):",
+              flush=True)
+        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
+            print(f"  {e.self_device_time_total / 1e3 / 10:9.4f} ms {e.count / 10:7g}x  "
+                  f"{e.key[:90]}", flush=True)
+        audio_ms = graph.block / sr * 1e3
+        print(f"stream {name} step ({STREAM_LANES} × {graph.block} samples = {audio_ms:g} ms of "
+              f"audio a lane): graph device {graph_ms:.4f} ms (CUDA events, median of "
+              f"{TIMED_STEPS}), wall {walls[True]:.4f} ms; eager device busy {eager_busy:.4f} "
+              f"ms (sum of its kernels), wall {walls[False]:.4f} ms; launches a step "
+              f"{step_launches:g} (eager trace), ported {per_step}; captured "
+              f"{graph.captured_launches}  [{card}]", flush=True)
+        print(f"stream {name} tick (push_many, copies in and out included), median of "
+              f"{len(ticks_g)} / {len(ticks_e)}: graph {np.median(ticks_g) * 1e3:.4f} ms, eager "
+              f"{np.median(ticks_e) * 1e3:.4f} ms; RTF a stream at {STREAM_LANES} live lanes: "
+              f"graph {drive_g / seconds:.6f}, eager {drive_e / seconds:.6f}; server set-up "
+              f"(with warm-up and capture) {build_s[True]:.3f} s, without capture "
+              f"{build_s[False]:.3f} s; latency_samples {graph.latency_samples} = "
+              f"{graph.latency_samples / sr * 1e3:g} ms  [{card}]", flush=True)
+        del servers, graph, eager
     return by_path
 
 
@@ -1148,9 +1416,16 @@ def main() -> int:
     rows.update(check_ss_kernels(dev))
     by_path["mossformer2_ss"] = serve_windowed(card, "mossformer2_ss", SS_PER_FORWARD,
                                                (31, 32, 33), latency, clip=speech_mix)
+    # phase 12 before phase 11, which compares against its latency
+    t0 = time.perf_counter()
+    by_path["dfsmn"] = serve_windowed(card, "dfsmn", DFSMN_PER_FORWARD, (51, 52, 53), latency)
+    print(f"phase 12 in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     by_path.update(serve_imported(card, latency))
     print(f"phase 11 in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    by_path.update(serve_streams(card))
+    print(f"phase 13 in {time.perf_counter() - t0:.1f} s", flush=True)
 
     sources = {
         "stft_packed": ("audiojax_torch/csrc/stft.cu", "audiojax/ops/stft_pallas.py:207"),

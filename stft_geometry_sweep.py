@@ -4,7 +4,7 @@
     python3 stft_geometry_sweep.py
 
 For each serving shape of ``chip_smoke.py``'s phase 3 (and its odd, Mel-Band
-and DFSMN geometries) this prints ``torch.stft``'s device time and then
+and DFSMN geometries, DFSMN's 6 s synthesis and GTCRN's stream step) this prints ``torch.stft``'s device time and then
 B1's device time at each count of frames a block and B2's at each count of
 hop-rows a block and frames transformed at a time (µs, CUDA events behind a
 spin kernel, median of 20; ``chip_smoke.device_ms``), launched through
@@ -39,7 +39,10 @@ def main() -> int:
               ("zip", C(400, 100, window="hann", pad_mode="reflect"), 4, 24000),
               ("odd", C(319, 160, window="hamming", pad_mode="constant"), 4, 16000),
               ("mel", C(2048, 441, window="hann", pad_mode="reflect"), 2, 88200),
-              ("dfsmn", C(1920, 960, window="hamming_periodic", center=False), 2, 19200)]
+              ("dfsmn", C(1920, 960, window="hamming_periodic", center=False), 2, 19200),
+              ("dfsmn 6 s", C(1920, 960, window="hamming_periodic", center=False), 4, 96000),
+              ("gtcrn stream", C(512, 256, window="hann_sqrt", pad_mode="reflect", center=False),
+               8, 1280)]
 
     for name, cfg, b, length in shapes:
         x = torch.randn(b, length, device=dev)

@@ -1,10 +1,10 @@
-"""Synthetic upstream-layout checkpoints for the four families the port serves.
+"""Synthetic upstream-layout checkpoints for the five families the port serves.
 
 ``build_<family>_state_dict(cfg, seed)`` returns a dict of CPU float32
 tensors under the upstream module names, at any config (the defaults are
 full width and depth).  The key sets are those of the JAX package's own
 importer tests (``tests/test_importers.py``: ``_gtcrn_state_dict`` and the
-inline MossFormer2-SS, MossFormerGAN-SE and ZipEnhancer builders), plus
+inline MossFormer2-SS, MossFormerGAN-SE, ZipEnhancer and DFSMN builders), plus
 GTCRN's frozen ERB bank (``erb.erb_fc`` / ``erb.ierb_fc``, set to the
 analytic bank the model bakes in).  Values come from numpy's generator at
 ``seed``: weights uniform in ±1/sqrt(fan_in) (torch's default init), norm
@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from audiojax_torch.importers import import_checkpoint
+from audiojax_torch.models.dfsmn import DfsmnConfig, init_dfsmn_numpy
 from audiojax_torch.models.gtcrn import GtcrnConfig, init_gtcrn_numpy
 from audiojax_torch.models.mossformer2_ss import MossFormer2SsConfig, init_mossformer2_ss_numpy
 from audiojax_torch.models.mossformergan_se import MossFormerGanConfig, init_mossformergan_numpy
@@ -32,9 +33,10 @@ from audiojax_torch.models.zipenhancer import ZipEnhancerConfig, init_zipenhance
 from audiojax_torch.nn.erb import erb_filters
 
 # The tiny widths of the port's model tests (tests/test_torch_mossformergan.py,
-# tests/test_torch_zipenhancer.py, tests/test_torch_mossformer2_ss.py); GTCRN
-# is small at its defaults.
+# tests/test_torch_zipenhancer.py, tests/test_torch_mossformer2_ss.py,
+# tests/test_torch_dfsmn.py); GTCRN is small at its defaults.
 TINY = {
+    "dfsmn": dict(depth=2, hidden=32, lorder=6),
     "gtcrn": {},
     "mossformergan_se": dict(emb_dim=16, emb_ks=2, uv_channels=24, n_blocks=1, dense_depth=2,
                              lorder=4, mf_hidden=32, mf_vdim=16, mf_qk=16, mf_rot=8,
@@ -47,7 +49,8 @@ TINY = {
                            fsmn_inner=32, dw_kernel=5, rot_dim=8, lorder=5),
 }
 CONFIGS = {"gtcrn": GtcrnConfig, "mossformergan_se": MossFormerGanConfig,
-           "zipenhancer": ZipEnhancerConfig, "mossformer2_ss": MossFormer2SsConfig}
+           "zipenhancer": ZipEnhancerConfig, "mossformer2_ss": MossFormer2SsConfig,
+           "dfsmn": DfsmnConfig}
 
 
 def tiny_config(name: str):
@@ -55,8 +58,8 @@ def tiny_config(name: str):
 
 
 def import_kwargs(name: str, cfg) -> dict:
-    """GTCRN's importer takes no config; the others take ``cfg=``."""
-    return {} if name == "gtcrn" else {"cfg": cfg}
+    """GTCRN's and DFSMN's importers take no config; the others take ``cfg=``."""
+    return {} if name in ("gtcrn", "dfsmn") else {"cfg": cfg}
 
 
 class _StateDict:
@@ -381,7 +384,26 @@ def build_mossformer2_ss_state_dict(cfg: MossFormer2SsConfig = MossFormer2SsConf
     return s.sd
 
 
+# ── DFSMN ────────────────────────────────────────────────────────────────────
+
+
+def build_dfsmn_state_dict(cfg: DfsmnConfig = DfsmnConfig(), seed: int = 0) -> dict:
+    """ModelScope ``speech_dfsmn_ans_psm_48k_causal`` layout (the inline
+    builder of the JAX tests' ``test_import_dfsmn_matches_torch_semantics``):
+    the FSMN memory is a (C, 1, lorder, 1) Conv2d weight."""
+    s = _StateDict(seed)
+    c = cfg.hidden
+    s.linear("linear1.linear", c, cfg.n_mels)
+    for i in range(cfg.depth):
+        s.linear(f"deepfsmn.{i}.linear", c, c)
+        s.linear(f"deepfsmn.{i}.project", c, c, bias=False)
+        s.weight(f"deepfsmn.{i}.conv1", (c, 1, cfg.lorder, 1), cfg.lorder)
+    s.linear("linear2.linear", cfg.stft_bins, c)
+    return s.sd
+
+
 BUILDERS = {
+    "dfsmn": build_dfsmn_state_dict,
     "gtcrn": build_gtcrn_state_dict,
     "mossformergan_se": build_mossformergan_se_state_dict,
     "zipenhancer": build_zipenhancer_state_dict,
@@ -392,7 +414,8 @@ BUILDERS = {
 # ── the builders' own tests (no JAX) ─────────────────────────────────────────
 
 INIT_NUMPY = {"gtcrn": init_gtcrn_numpy, "mossformergan_se": init_mossformergan_numpy,
-              "zipenhancer": init_zipenhancer_numpy, "mossformer2_ss": init_mossformer2_ss_numpy}
+              "zipenhancer": init_zipenhancer_numpy, "mossformer2_ss": init_mossformer2_ss_numpy,
+              "dfsmn": init_dfsmn_numpy}
 
 
 def flat_tree(tree, path="") -> dict:
@@ -435,11 +458,12 @@ def test_builder_dict_is_read_whole(name, tmp_path):
     assert all(g in ((1,), ()) for g, _ in odd.values()), odd
 
 
-def test_builders_are_seeded():
-    cfg = tiny_config("mossformer2_ss")
-    a, b = (build_mossformer2_ss_state_dict(cfg, seed=3) for _ in range(2))
-    c = build_mossformer2_ss_state_dict(cfg, seed=4)
-    assert all(torch.equal(a[k], b[k]) for k in a)
-    assert not torch.equal(a["mossformer_ss.enc.conv1d.weight"],
-                           c["mossformer_ss.enc.conv1d.weight"])
+@pytest.mark.parametrize("name,key", [("mossformer2_ss", "mossformer_ss.enc.conv1d.weight"),
+                                      ("dfsmn", "deepfsmn.1.conv1.weight")])
+def test_builders_are_seeded(name, key):
+    cfg = tiny_config(name)
+    a, b = (BUILDERS[name](cfg, seed=3) for _ in range(2))
+    c = BUILDERS[name](cfg, seed=4)
+    assert list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a[key], c[key])
 

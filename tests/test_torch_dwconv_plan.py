@@ -36,7 +36,7 @@ TOL = 1e-5
 # chip_smoke.py: the served ones on the vector path, the off-path ones on the
 # path their C and alignment take
 SHAPES = ([(*shape, k, *pads, dil, 1, True) for _, shape, k, pads, dil in
-           chip_smoke.B4_CASES + chip_smoke.B4_SS_CASES]
+           chip_smoke.B4_CASES + chip_smoke.B4_SS_CASES + chip_smoke.B4_DFSMN_CASES]
           + [(*shape, k, *pads, dil, 2, True) for _, shape, k, pads, dil in
              chip_smoke.B5_SS_CASES]
           + [(*shape, k, *pads, dil, 1, shape[2] % 4 == 0 and offset == 0)

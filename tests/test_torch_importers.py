@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 
 from audiojax.importers import import_checkpoint as jimport
+from audiojax.models import dfsmn as JDF
 from audiojax.models import gtcrn as JG
 from audiojax.models import mossformer2_ss as JSS
 from audiojax.models import mossformergan_se as JGAN
@@ -44,8 +45,10 @@ MIN_SNR_DB = 40.0
 MIN_REF_RMS = 100.0  # LSB
 FAMILIES = sorted(BUILDERS)
 JCONFIGS = {"gtcrn": JG.GtcrnConfig, "mossformergan_se": JGAN.MossFormerGanConfig,
-            "zipenhancer": JZIP.ZipEnhancerConfig, "mossformer2_ss": JSS.MossFormer2SsConfig}
-SEEDS = {"gtcrn": 11, "mossformergan_se": 12, "zipenhancer": 13, "mossformer2_ss": 14}
+            "zipenhancer": JZIP.ZipEnhancerConfig, "mossformer2_ss": JSS.MossFormer2SsConfig,
+            "dfsmn": JDF.DfsmnConfig}
+SEEDS = {"gtcrn": 11, "mossformergan_se": 12, "zipenhancer": 13, "mossformer2_ss": 14,
+         "dfsmn": 15}
 
 
 def _configs(name):
@@ -163,7 +166,8 @@ REQUIRED = {"gtcrn": "dpgrnn2.inter_rnn.rnn1.weight_hh_l0",
             "mossformergan_se": "blocks.0.inter_se.max_pool_layer.2.weight",
             "zipenhancer": "zip_enhancer.TSConformer.encoders.1.encoder.f_layers.0.norm.log_scale",
             "mossformer2_ss": "mossformer_ss.mask_net.mdl.intra_mdl.mossformerM.fsmn.1"
-                              ".gated_fsmn.fsmn.conv.conv2.weight"}
+                              ".gated_fsmn.fsmn.conv.conv2.weight",
+            "dfsmn": "deepfsmn.1.project.weight"}
 
 
 @pytest.mark.parametrize("name", FAMILIES)
@@ -217,7 +221,7 @@ def test_unwrap_keeps_the_tracker():
     assert list(stripped) == ["a.weight"]
 
 
-@pytest.mark.parametrize("name", ["dfsmn", "mossformer2_se", "h_gtcrn", "no_such_model"])
+@pytest.mark.parametrize("name", ["ul_unas", "mossformer2_se", "h_gtcrn", "no_such_model"])
 def test_unported_family_names_roadmap(imported, name):
     with pytest.raises(KeyError, match="ROADMAP A.9") as e:
         timport(name, imported["gtcrn"][2])

@@ -46,7 +46,9 @@ def test_import_pulls_in_no_jax():
         "        'audiojax_torch.models.mossformer2_ss', 'audiojax_torch.importers.common',\n"
         "        'audiojax_torch.importers.gtcrn', 'audiojax_torch.importers.mossformergan_se',\n"
         "        'audiojax_torch.importers.zipenhancer', 'audiojax_torch.importers.mossformer2_ss',\n"
-        "        'audiojax_torch.runtime.checkpoint', 'audiojax_torch.runtime.export'} <= set(mods)\n"
+        "        'audiojax_torch.runtime.checkpoint', 'audiojax_torch.runtime.export',\n"
+        "        'audiojax_torch.runtime.streaming', 'audiojax_torch.models.dfsmn',\n"
+        "        'audiojax_torch.frontend.kaldi', 'audiojax_torch.importers.dfsmn'} <= set(mods)\n"
         "assert len(mods) > 15, mods\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'audiojax', 'flax', 'msgpack'))\n"
@@ -214,10 +216,38 @@ def test_cli_denoises_on_cpu(tmp_path, capsys):
     assert "RTF" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("name,rate", [("gtcrn", 16000), ("dfsmn", 48000)])
+def test_cli_streams_on_cpu(name, rate, tmp_path, capsys):
+    """``--stream`` pushes the whole clip through a StreamingSession, flushes,
+    and writes as many samples as it read; the printed latency is one block
+    plus n_fft − hop."""
+    audio = np.round(np.random.default_rng(1).standard_normal(rate // 2 + 123) * 2000)
+    src, dst = tmp_path / "noisy.wav", tmp_path / "clean.wav"
+    _write_wav(src, audio.astype(np.int16), rate)
+    rc = cli.main(["--model", name, "--input", str(src), "--output", str(dst), "--device", "cpu",
+                   "--stream", "--block-hops", "2"])
+    assert rc == 0
+    with wave.open(str(dst), "rb") as w:
+        assert w.getframerate() == rate and w.getnframes() == audio.size
+        assert np.any(np.frombuffer(w.readframes(w.getnframes()), "<i2"))
+    cfg = registry.get(name).make_config()
+    latency = 2 * cfg.hop + cfg.n_fft - cfg.hop
+    out = capsys.readouterr().out
+    assert "streaming RTF" in out and f"algorithmic latency {latency} samples" in out
+
+
+def test_cli_stream_refuses_a_model_without_streaming(tmp_path, capsys):
+    src = tmp_path / "in.wav"
+    _write_wav(src, np.zeros(16000, np.int16))
+    assert cli.main(["--model", "zipenhancer", "--input", str(src), "--device", "cpu",
+                     "--stream"]) == 2
+    assert "streaming models: ['dfsmn', 'gtcrn']" in capsys.readouterr().err
+
+
 def test_cli_list_and_default_device(no_cuda, tmp_path, capsys):
     assert cli.main(["--list"]) == 0
-    assert capsys.readouterr().out.split() == ["gtcrn", "mossformer2_ss", "mossformergan_se",
-                                               "zipenhancer"]
+    assert capsys.readouterr().out.split() == ["dfsmn", "gtcrn", "mossformer2_ss",
+                                               "mossformergan_se", "zipenhancer"]
     src = tmp_path / "in.wav"
     _write_wav(src, np.zeros(16000, np.int16))
     with pytest.raises(RuntimeError, match='device="cpu"'):

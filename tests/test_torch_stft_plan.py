@@ -11,6 +11,8 @@ B2's in its own float64 to 1e-12.  The emulated kernels are held against the
 plain versions and the JAX package (2e-5 × max|ref|, the tolerance of
 ``tests/test_torch_dsp.py``).  The wrappers' refusals are held without a card.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -259,10 +261,13 @@ def test_emulated_kernels_take_the_scales():
 # ── launch geometry ────────────────────────────────────────────────────────
 
 # (config, batch, length): the serving shapes of GTCRN (30 s, 7 s, 1.3 s),
-# MossFormerGAN (30 s, 6 s), ZipEnhancer (6 s), and the other checked ones
+# MossFormerGAN (30 s, 6 s), ZipEnhancer (6 s), GTCRN's stream step (8 lanes
+# of 4 hops after the 256-sample tail, uncentred), DFSMN's 6 s request (4
+# windows of 99 frames), and the other checked ones
+GTCRN_STREAM = dataclasses.replace(ZOO[0], center=False)
 SERVING = [(ZOO[0], 16, 32000), (ZOO[0], 4, 32000), (ZOO[0], 1, 32000), (ZOO[2], 32, 24000),
-           (ZOO[2], 4, 24000), (ZOO[1], 4, 24000), (ZOO[4], 4, 16000), (ZOO[5], 2, 88200),
-           (ZOO[6], 2, 19200)]
+           (ZOO[2], 4, 24000), (ZOO[1], 4, 24000), (GTCRN_STREAM, 8, 1280), (ZOO[6], 4, 96000),
+           (ZOO[4], 4, 16000), (ZOO[5], 2, 88200), (ZOO[6], 2, 19200)]
 
 
 @pytest.mark.parametrize("cfg,batch,length", SERVING,
