@@ -11,7 +11,7 @@ key means the upstream layout drifted, and the import aborts with the
 leftover keys instead of dropping weights.  ``report_path`` writes a JSON
 audit report with the same keys as the JAX package's.
 
-The port has importers for the five families it serves; each other family's
+The port has importers for the eight families it serves; each other family's
 importer comes with that family's slice (ROADMAP A.9).
 """
 from __future__ import annotations
@@ -24,8 +24,11 @@ from . import common
 from .common import KeyTracker, unwrap_state_dict
 from .dfsmn import import_dfsmn
 from .gtcrn import import_gtcrn
+from .mossformer2_se import import_mossformer2_se
 from .mossformer2_ss import import_mossformer2_ss
 from .mossformergan_se import import_mossformergan_se
+from .nkf import import_nkf
+from .ul_unas import import_ul_unas
 from .zipenhancer import import_zipenhancer
 
 _IMPORTERS = {
@@ -34,6 +37,9 @@ _IMPORTERS = {
     "mossformergan_se": import_mossformergan_se,
     "zipenhancer": import_zipenhancer,
     "mossformer2_ss": import_mossformer2_ss,
+    "mossformer2_se": import_mossformer2_se,
+    "ul_unas": import_ul_unas,
+    "nkf_aec": import_nkf,
 }
 
 # torch bookkeeping buffers that carry no weights — ignored, not drift.
@@ -46,9 +52,9 @@ def import_checkpoint(model_name: str, ckpt, *, strict: bool = True, report_path
     """Upstream state dict (or a wrapper of one) → numpy parameter tree.
 
     ``kw`` goes to the family's importer (``cfg=`` for all but GTCRN and
-    DFSMN).  With ``strict`` (the default) unread checkpoint keys raise
-    ``ValueError``; a key the recipe needs and the checkpoint lacks raises
-    ``KeyError``."""
+    DFSMN; UL-UNAS's and NKF's take it and need none).  With ``strict`` (the
+    default) unread checkpoint keys raise ``ValueError``; a key the recipe
+    needs and the checkpoint lacks raises ``KeyError``."""
     if model_name not in _IMPORTERS:
         raise KeyError(
             f"no importer registered for {model_name!r} in the port; available: "
@@ -82,4 +88,5 @@ def import_checkpoint(model_name: str, ckpt, *, strict: bool = True, report_path
 
 
 __all__ = ["common", "import_checkpoint", "import_dfsmn", "import_gtcrn",
-           "import_mossformergan_se", "import_mossformer2_ss", "import_zipenhancer"]
+           "import_mossformergan_se", "import_mossformer2_se", "import_mossformer2_ss",
+           "import_nkf", "import_ul_unas", "import_zipenhancer"]

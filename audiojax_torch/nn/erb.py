@@ -6,7 +6,9 @@ triangular ERB-spaced bands and expanded back with the transposed filters.
 Filters are numpy constants, copied to each device once.
 
 Layout: channel-last ``(..., F, C)`` feature maps; the band product
-contracts the F axis.
+contracts the F axis.  A model that carries its own bank (UL-UNAS's imported
+``erb.fc`` / ``erb.ifc``) passes it as ``weight``, in the JAX package's
+layout: ``(F_high, n_erb)`` to compress, ``(n_erb, F_high)`` to expand.
 """
 from __future__ import annotations
 
@@ -64,16 +66,16 @@ def _filters(n_low: int, n_erb: int, n_fft: int, scale: float, device: torch.dev
 
 
 def erb_compress(x: torch.Tensor, n_low: int, n_erb: int, n_fft: int = 512, *,
-                 scale: float = 21.4) -> torch.Tensor:
+                 weight: torch.Tensor | None = None, scale: float = 21.4) -> torch.Tensor:
     """(…, F, C) → (…, n_low + n_erb, C): pass low bins, band the high bins."""
-    fb, _ = _filters(n_low, n_erb, n_fft, scale, x.device)
+    fb = _filters(n_low, n_erb, n_fft, scale, x.device)[0] if weight is None else weight.t()
     banded = torch.matmul(fb, x[..., n_low:, :])
     return torch.cat([x[..., :n_low, :], banded], dim=-2)
 
 
 def erb_expand(x: torch.Tensor, n_low: int, n_erb: int, n_fft: int = 512, *,
-               scale: float = 21.4) -> torch.Tensor:
+               weight: torch.Tensor | None = None, scale: float = 21.4) -> torch.Tensor:
     """(…, n_low + n_erb, C) → (…, F, C): transposed-filter expansion."""
-    _, fb_t = _filters(n_low, n_erb, n_fft, scale, x.device)
+    fb_t = _filters(n_low, n_erb, n_fft, scale, x.device)[1] if weight is None else weight.t()
     high = torch.matmul(fb_t, x[..., n_low:, :])
     return torch.cat([x[..., :n_low, :], high], dim=-2)

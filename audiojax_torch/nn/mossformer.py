@@ -4,10 +4,11 @@ dilated gated FSMN, with their rotary and positional tables.
 Counterpart of ``audiojax.nn.mossformer``, with what MossFormerGAN's GAU
 (the rotary tables) and MossFormer2-SS use: ``scale_norm``,
 ``sinusoid_positions``, ``flash_layer`` (MossFormer2-SE/SS form, the
-ConvModules add their depthwise conv to their input), ``instance_norm_t`` and
-``gated_fsmn_block_dilated``.  ``ff_convm`` and the non-dilated
-``gated_fsmn_block`` come with the MossFormer2-SE/SR slices.  Tables are
-computed in numpy float64, cast to float32 and cached, as in the JAX package.
+ConvModules add their depthwise conv to their input), ``gated_fsmn_block``
+(MossFormer2-SE), ``instance_norm_t`` and ``gated_fsmn_block_dilated``
+(MossFormer2-SS).  ``ff_convm`` (MossFormer-SR's) is not ported yet.  Tables
+are computed in numpy float64, cast to float32 and cached, as in the JAX
+package.
 
 On the card the FLASH layer's group-local relu² attention runs on kernel B6
 (``ops.attention_cuda``), every depthwise conv on B4, and the dilated FSMN's
@@ -26,7 +27,7 @@ from ..ops.attention_cuda import fast_quad_attention
 from . import core
 
 __all__ = ["rope_mm_tables", "scale_norm", "sinusoid_positions", "flash_layer",
-           "instance_norm_t", "gated_fsmn_block_dilated"]
+           "gated_fsmn_block", "instance_norm_t", "gated_fsmn_block_dilated"]
 
 
 @lru_cache(maxsize=None)
@@ -153,6 +154,31 @@ def flash_layer(p, x: torch.Tensor, *, group_size: int, qk_dim: int, rot_dim: in
     out = scale_norm(p["out_norm"], out, eps=eps)
     out = _depthwise_res(p["out_conv"], F.silu(core.dense(p["out_lin"], out)))
     return x + out
+
+
+def gated_fsmn_block(p, x: torch.Tensor, *, lorder: int, eps: float = 1e-8) -> torch.Tensor:
+    """Gated_FSMN_Block (MossFormer2-SE). x: (B, T, D).
+
+    PReLU'd dense → LayerNorm → affine-free LayerNorm → fused ``uv`` Linear +
+    SiLU + depthwise ConvModule (B4) → UniDeepFsmn memory on the u half:
+    relu-linear, projection, a symmetric depthwise conv of 2·lorder − 1 taps
+    (B4) and the inner residual → gate by the v half → LayerNorm, dense and
+    the block residual."""
+    h = core.prelu(p["conv1_act"], core.dense(p["conv1"], x))
+    gf_in = core.layer_norm(p["norm1"], h, eps=eps)
+
+    xn = core.layer_norm(None, gf_in, eps=eps)
+    proj = _depthwise_res(p["uv_conv"], F.silu(core.dense(p["uv_lin"], xn)))
+    inner = proj.shape[-1] // 2
+    xu, xv = proj[..., :inner], proj[..., inner:]
+
+    f1 = torch.relu(core.dense(p["mem_lin"], xu))
+    xp = core.dense(p["mem_proj"], f1)
+    mem = core.conv1d(p["mem_conv"], xp, padding=lorder - 1, groups=inner)
+    xu = xu + xp + mem
+
+    y = core.layer_norm(p["norm2"], xv * xu + gf_in, eps=eps)
+    return core.dense(p["conv2"], y) + x
 
 
 def instance_norm_t(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -16,22 +16,31 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["gru", "grouped_gru", "grouped_gru_bidir"]
+__all__ = ["gru_cell", "gru", "gru_bidir", "grouped_gru", "grouped_gru_bidir"]
+
+
+def _cell(xt: torch.Tensor, gh: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """One GRU update from the input and hidden projections (biases added)."""
+    hidden = h.shape[-1]
+    rz = torch.sigmoid(xt[..., : 2 * hidden] + gh[..., : 2 * hidden])
+    r, z = rz[..., :hidden], rz[..., hidden:]
+    n = torch.tanh(xt[..., 2 * hidden :] + r * gh[..., 2 * hidden :])
+    return (1.0 - z) * n + z * h
+
+
+def gru_cell(p, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """One GRU step: x (..., in), h (..., H) → h' (..., H), for models that run
+    their own recurrence (NKF-AEC's Kalman scan)."""
+    return _cell(torch.matmul(x, p["w_i"]) + p["b_i"], torch.matmul(h, p["w_h"]) + p["b_h"], h)
 
 
 def _scan(xp: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor, h: torch.Tensor,
           reverse: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """Recurrence over axis -2 of ``xp (..., T, 3H)``; ``h (..., H)``."""
-    hidden = w_h.shape[-2]
     n_t = xp.shape[-2]
     ys = []
     for t in (range(n_t - 1, -1, -1) if reverse else range(n_t)):
-        xt = xp[..., t, :]
-        gh = torch.matmul(h, w_h) + b_h
-        rz = torch.sigmoid(xt[..., : 2 * hidden] + gh[..., : 2 * hidden])
-        r, z = rz[..., :hidden], rz[..., hidden:]
-        n = torch.tanh(xt[..., 2 * hidden :] + r * gh[..., 2 * hidden :])
-        h = (1.0 - z) * n + z * h
+        h = _cell(xp[..., t, :], torch.matmul(h, w_h) + b_h, h)
         ys.append(h)
     if reverse:
         ys.reverse()
@@ -47,6 +56,18 @@ def gru(p, x: torch.Tensor, h0: torch.Tensor | None = None, *, reverse: bool = F
         h0 = x.new_zeros(x.shape[:-2] + (hidden,))
     ys, h_last = _scan(xp, p["w_h"], p["b_h"], h0, reverse)
     return (ys, h_last) if return_state else ys
+
+
+def gru_bidir(p_fwd, p_bwd, x: torch.Tensor, *, return_state: bool = False):
+    """Bidirectional GRU over ``x (B, T, in)`` → ``[fwd ‖ bwd]`` (B, T, 2H);
+    with ``return_state`` also ``(fwd state after the last step, bwd state
+    after the first)``.  Both directions share one loop: the backward one
+    runs on the time-reversed input as the second of two stacked recurrences."""
+    both = {k: torch.stack([p_fwd[k], p_bwd[k]]) for k in ("w_i", "w_h", "b_i", "b_h")}
+    y, _ = _stacked_scan(both, torch.stack([x, torch.flip(x, dims=(1,))]), None)
+    yf, yb = y[0], torch.flip(y[1], dims=(1,))
+    out = torch.cat([yf, yb], dim=-1)
+    return (out, (yf[:, -1], yb[:, 0])) if return_state else out
 
 
 def _group_split(x: torch.Tensor, groups: int) -> torch.Tensor:

@@ -3,8 +3,9 @@
 The input is a nested dict of numpy arrays, as ``jax.tree.map(np.asarray,
 params)`` gives it; lists (MossFormer2-SS's ``mem_stack``, a list of dicts)
 stay lists in the same order, and their items are converted as leaves of the
-list's key.  The output has the same keys.  Every layout change
-happens here, once:
+list's key; tuples (NKF-AEC's nested stream state) become lists, and 0-d
+leaves (scalar gains and PReLU slopes) stay 0-d.  The output has the same
+keys.  Every layout change happens here, once:
 
   * a 4-D ``w`` is a conv2d kernel stored HWIO ``(kh, kw, in/groups, out)``
     and becomes torch's ``(out, in/groups, kh, kw)``.

@@ -211,8 +211,139 @@ def _register_dfsmn():
     )
 
 
+def _mossformer2_se_manifest(cfg):
+    return Manifest(
+        model_name="mossformer2_se",
+        task="denoise",
+        model_family="mossformer2_se",
+        in_sample_rate=cfg.in_sample_rate,
+        out_sample_rate=cfg.out_sample_rate,
+        model_sample_rate=cfg.sample_rate,
+        input_audio_length=96000 * cfg.in_sample_rate // 48000,
+        window_type="hamming_symmetric",
+        nfft=cfg.n_fft,
+        window_length=cfg.n_fft,
+        hop_length=cfg.hop,
+        pad_mode="constant",
+        center_pad=False,
+        max_dynamic_audio_seconds=6,
+        feature_kind="kaldi_fbank_stft",
+        fold_window_length=cfg.fold_window,
+        batch_fold_inference_default=bool(cfg.fold_window),
+        extra={"n_mels": cfg.n_mels, "depth": cfg.depth},
+    )
+
+
+def _register_mossformer2_se():
+    from ..models.mossformer2_se import MossFormer2SE, MossFormer2SeConfig, init_mossformer2_se
+
+    register(
+        ModelSpec(
+            name="mossformer2_se",
+            task="denoise",
+            make_config=MossFormer2SeConfig,
+            init_params=init_mossformer2_se,
+            make_module=MossFormer2SE,
+            make_manifest=_mossformer2_se_manifest,
+        )
+    )
+
+
+def _ul_unas_manifest(cfg):
+    return Manifest(
+        model_name="ul_unas",
+        task="denoise",
+        model_family="ul-unas",
+        in_sample_rate=cfg.in_sample_rate,
+        out_sample_rate=cfg.out_sample_rate,
+        model_sample_rate=cfg.sample_rate,
+        input_audio_length=32000 * cfg.in_sample_rate // 16000,
+        window_type=cfg.window,
+        nfft=cfg.n_fft,
+        window_length=cfg.n_fft,
+        hop_length=cfg.hop,
+        pad_mode=cfg.pad_mode,
+        center_pad=True,
+        fold_window_length=cfg.fold_window,
+        batch_fold_inference_default=bool(cfg.fold_window),
+    )
+
+
+def _ul_unas_stream(cfg):
+    from ..models.ul_unas import ul_unas_stream_init, ul_unas_stream_step
+
+    return (partial(ul_unas_stream_init, cfg),
+            partial(ul_unas_stream_step, cfg=cfg),
+            cfg.n_fft - cfg.hop)
+
+
+def _register_ul_unas():
+    from ..models.ul_unas import ULUNAS, UlUnasConfig, init_ul_unas
+
+    register(
+        ModelSpec(
+            name="ul_unas",
+            task="denoise",
+            make_config=UlUnasConfig,
+            init_params=init_ul_unas,
+            make_module=ULUNAS,
+            make_manifest=_ul_unas_manifest,
+            make_stream=_ul_unas_stream,
+        )
+    )
+
+
+def _nkf_manifest(cfg):
+    return Manifest(
+        model_name="nkf_aec",
+        task="aec",
+        model_family="nkf",
+        in_sample_rate=cfg.in_sample_rate,
+        out_sample_rate=cfg.out_sample_rate,
+        model_sample_rate=cfg.sample_rate,
+        input_audio_length=32000 * cfg.in_sample_rate // 16000,
+        window_type=cfg.window,
+        nfft=cfg.n_fft,
+        window_length=cfg.n_fft,
+        hop_length=cfg.hop,
+        pad_mode="constant",
+        center_pad=True,
+        num_audio_inputs=2,
+        fold_window_length=cfg.fold_window,
+        batch_fold_inference_default=bool(cfg.fold_window),
+        extra={"filter_order": cfg.filter_order, "fc_dim": cfg.fc_dim, "rnn_dim": cfg.rnn_dim},
+    )
+
+
+def _nkf_stream(cfg):
+    from ..models.nkf_aec import nkf_stream_init, nkf_stream_step
+
+    return (partial(nkf_stream_init, cfg),
+            partial(nkf_stream_step, cfg=cfg),
+            cfg.n_fft - cfg.hop)
+
+
+def _register_nkf():
+    from ..models.nkf_aec import NKF, NkfConfig, init_nkf
+
+    register(
+        ModelSpec(
+            name="nkf_aec",
+            task="aec",
+            make_config=NkfConfig,
+            init_params=init_nkf,
+            make_module=NKF,
+            make_manifest=_nkf_manifest,
+            make_stream=_nkf_stream,
+        )
+    )
+
+
 _register_gtcrn()
 _register_mossformergan()
 _register_zipenhancer()
 _register_mossformer2_ss()
 _register_dfsmn()
+_register_mossformer2_se()
+_register_ul_unas()
+_register_nkf()

@@ -2,16 +2,17 @@
 
 Counterpart of ``audiojax.runtime.streaming``.  ``Session`` serves a model
 stateless per window; for a model whose spec has a ``make_stream`` hook
-(GTCRN, DFSMN) ``StreamingSession`` and ``StreamingServer`` carry the
-model's temporal state from chunk to chunk instead, so the latency falls
-from a window to one block plus the synthesis delay (n_fft − hop).
+(GTCRN, DFSMN, UL-UNAS, NKF-AEC) ``StreamingSession`` and
+``StreamingServer`` carry the model's temporal state from chunk to chunk
+instead, so the latency falls from a window to one block plus the synthesis
+delay (n_fft − hop).
 
-``push`` takes int16 chunks of any length (one per model input); the lane
-buffers them into fixed blocks of ``block_hops`` hops, every tick steps all
-lanes at the one ``(max_streams, block)`` shape and keeps the new state of
-the lanes that had a block, and ``flush`` drains the residual and the
-synthesis delay, so that the total output length equals the total input
-length, aligned with the input.
+``push`` takes int16 chunks of any length (one per model input: an echo
+canceller takes (near, far)); the lane buffers them into fixed blocks of
+``block_hops`` hops, every tick steps all lanes at the one ``(max_streams,
+block)`` shape and keeps the new state of the lanes that had a block, and
+``flush`` drains the residual and the synthesis delay, so that the total
+output length equals the total input length, aligned with the input.
 
 ``jit=True`` (the default, as in the JAX package, where it compiles one
 executable for the step) captures the masked step once per server as one

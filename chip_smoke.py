@@ -11,7 +11,12 @@ Phases, each of which raises (non-zero exit) on failure:
 3. Kernels B1/B2: the STFT and ISTFT kernels against their plain PyTorch
    versions and against a float64 numpy DFT, at the MossFormerGAN, GTCRN and
    ZipEnhancer serving shapes, DFSMN's served synthesis (4, 96000) and
-   GTCRN's stream step (8, 1280) 512/256 uncentred, and three further
+   GTCRN's stream step (8, 1280) 512/256 uncentred, UL-UNAS's (4 and 16,
+   32000) 512/256 hann and its stream step (8, 1280) uncentred, NKF-AEC's
+   far‖near (8 and 32, 32000) 1024/256 hann constant and its stream step
+   (16, 1792) uncentred (the two new stream steps' B1 only: they synthesise
+   with stream_istft), MossFormer2-SE's synthesis (4 and 16 windows of 246
+   frames) 1920/384 symmetric Hamming uncentred, and three further
    geometries (odd 319/160 constant, Mel-Band 2048/441 reflect, DFSMN
    1920/960 uncentred), with
    kernel / plain / torch.stft-istft timings (B2 also as a sum of kernel
@@ -67,15 +72,15 @@ Phases, each of which raises (non-zero exit) on failure:
    the module must be within 40 dB SNR of the same port on the CPU, each
    source.
 
-11. Export and serve imported checkpoints: for each of the five families at
+11. Export and serve imported checkpoints: for each of the eight families at
    its default (full) width and depth, a synthetic upstream-layout state
    dict from a fixed seed (``tests/test_torch_ckpt_builders.py``) goes
    through ``export_artifact`` into a temporary directory, its smoke request
    on the card; the import report must show every key read.  The artifact
    loaded onto the card must equal ``params_from_numpy`` of the in-memory
-   import tree bit for bit; then ``Session`` serves a 7 s (GTCRN) or 6 s
-   request on it three times after a warm-up, each forward launching what
-   phases 5, 6, 8, 10 and 12 launch, and one fold or window on the card must be
+   import tree bit for bit; then ``Session`` serves a 7 s (GTCRN, UL-UNAS) or
+   6 s request on it three times after a warm-up, each forward launching what
+   phases 5, 6, 8, 10, 12, 15, 16 and 17 launch, and one fold or window on the card must be
    within 40 dB SNR of the same artifact on the CPU, each source (ZipEnhancer's
    fold starts with 201 silent samples).  Prints import, export and load
    seconds and the request's latency beside the random-weight latency of
@@ -86,14 +91,15 @@ Phases, each of which raises (non-zero exit) on failure:
    answers a 6 s and a 30 s request; every forward must launch B2 once, B4
    9 times and B1, B3, B5, B6 never; one 6 s request is profiled, and one
    2 s window must be within 40 dB SNR of the same port on the CPU.
-13. Streaming: ``StreamingServer`` for ``gtcrn`` and for ``dfsmn`` (8
-   lanes, 4-hop blocks) on the card with ``jit=True`` (one captured CUDA
-   graph of the step, replayed every tick) and with ``jit=False``.  Eight
-   clips (7 s GTCRN, 6 s DFSMN) go through ``push_many`` in irregular
+13. Streaming: ``StreamingServer`` for ``gtcrn``, ``dfsmn``, ``ul_unas`` and
+   ``nkf_aec`` (8 lanes, 4-hop blocks) on the card with ``jit=True`` (one
+   captured CUDA graph of the step, replayed every tick) and with
+   ``jit=False``.  Eight clips (7 s GTCRN and UL-UNAS, 6 s DFSMN and NKF,
+   whose lanes push (near, far) pairs) go through ``push_many`` in irregular
    chunks, then each lane is flushed.  Each lane's output must be as long as
    its input, within 1 LSB of the eager server's and ≥ 40 dB against a CPU
    ``StreamingSession`` on the same clip; the captured step must launch B1
-   once (GTCRN) or B4 9 times (DFSMN), the wrappers' counters must stay at 0
+   once (GTCRN, UL-UNAS, NKF) or B4 9 times (DFSMN), the wrappers' counters must stay at 0
    over the graphed drive (a replay launches inside the graph: the path's
    launches are captured × replays) and count that many a step on the eager
    one; ``verify_lane_isolation()`` must pass on the card.  Prints the
@@ -102,16 +108,39 @@ Phases, each of which raises (non-zero exit) on failure:
    the RTF a stream at 8 live lanes and ``latency_samples``; one trace of a
    few replays is held against the counting rule.
 
-Phases 6, 8, 10 and 12 print the launches of one forward, all of them and
-the ported kernels'.  The last line is ``{"ok": true, "device": {...}}``;
-the line before it lists every kernel as JSON (its launches summed over the
-five served paths, phase 11's five and the two graphed stream paths, with
-the count of each path beside it, and its times at its first serving
-shape), and the line before that the card.  Without CUDA the script exits
-non-zero and prints no result.
+14. Kernels B4/B6 at the MossFormer2-SE serving shapes (a 6 s and a 30 s
+   48 kHz request: 4 and 16 windows of 246 frames): B4 at the FLASH
+   ``in_conv`` (B, 246, 2176) k17, the ``out_conv`` and FSMN ``uv_conv``
+   (B, 246, 512) k17 and the FSMN memory (B, 246, 256) k39 pads 19; B6 at
+   the FLASH group attention (B, 256, K 128, V 2048).  Held and timed as in
+   phase 9.
+15. Serving MossFormer2-SE: ``Session`` for ``mossformer2_se`` at full width
+   and depth (dim 512, 24 layers, 961 bins, 48 kHz; random parameters from
+   seed 0; 2 s windows) answers a 6 s and a 30 s request (4 and 16 windows);
+   every forward must launch B2 once, B4 96 times, B6 24 times and B1, B3,
+   B5 never; one 6 s request is profiled, and one 2 s window must be within
+   40 dB SNR of the same port on the CPU.
+16. Serving UL-UNAS: the same for ``ul_unas`` (16 kHz, 2 s windows) on a 7 s
+   and a 30 s request; every forward must launch B1 once and B2 once.
+17. Serving NKF-AEC: the same for ``nkf_aec`` (16 kHz, 2 s windows, two
+   inputs) on a 6 s and a 30 s (near, far) pair through
+   ``Session.process(near, far)``, near being speech plus a delayed,
+   filtered copy of the far end; every forward must launch B1 once (far‖near
+   stacked) and B2 once; the echo-return-loss gain on an echo-only pair is
+   printed, with no gate (random weights).
+
+Phases 6, 8, 10, 12, 15, 16 and 17 print the launches of one forward, all
+of them and the ported kernels'.  They run in the order 1–10, 12, 14–17, 11,
+13 (phase 11 compares against the random-weight latencies).  The last line
+is ``{"ok": true, "device": {...}}``; the line before it lists every kernel
+as JSON (its launches summed over the eight served paths, phase 11's eight
+and the four graphed stream paths, with the count of each path beside it,
+and its times at its first serving shape), and the line before that the
+card.  Without CUDA the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -156,8 +185,20 @@ SS_PER_FORWARD = {"stft_packed": 0, "istft_packed": 0, "dwconv1d": 96, "dwconv1d
 # memories (B4); its analysis is a framed matrix product, no B1
 DFSMN_PER_FORWARD = {"stft_packed": 0, "istft_packed": 1, "dwconv1d": 9, "dwconv1d_tiled": 0,
                      "quad_attention": 0, "relpos_scores": 0}
+# MossFormer2-SE launches per forward: in each of 24 layers, 4 depthwise convs
+# (FLASH in_conv and out_conv, FSMN uv_conv and its memory) on B4 and the
+# FLASH group attention on B6; the synthesis on B2; its analysis is a framed
+# matrix product, no B1
+SE_PER_FORWARD = {"stft_packed": 0, "istft_packed": 1, "dwconv1d": 96, "dwconv1d_tiled": 0,
+                  "quad_attention": 24, "relpos_scores": 0}
+# UL-UNAS and NKF-AEC launches per forward: one STFT (NKF's over far‖near
+# stacked) and one ISTFT; their 2-D convs run on cuDNN
+UL_PER_FORWARD = {"stft_packed": 1, "istft_packed": 1, "dwconv1d": 0, "dwconv1d_tiled": 0,
+                  "quad_attention": 0, "relpos_scores": 0}
+NKF_PER_FORWARD = UL_PER_FORWARD
 # ~1 ms at the H100's clock: longer than the host takes to issue any timed call
 SPIN_CYCLES = 2_000_000
+GUARD_SPINS = 32
 
 
 def fail(msg: str):
@@ -168,6 +209,16 @@ def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def spin_guard() -> None:
+    """A short spin and GUARD_SPINS shorter ones, then a sync: launches a
+    profiler trace may lose in place of the measured call's (every spin is
+    left out of the rows by name)."""
+    torch.cuda._sleep(1000)
+    for _ in range(GUARD_SPINS):
+        torch.cuda._sleep(100)
+    torch.cuda.synchronize()
 
 
 def cuda_rows(fn, expect: dict[str, int], calls: int = 1) -> list:
@@ -183,13 +234,12 @@ def cuda_rows(fn, expect: dict[str, int], calls: int = 1) -> list:
     previous = None
     for _ in range(8):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            # a short spin before and after the measured call, left out of the
-            # rows: a trace has been seen to lose the launch at either end
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
+            # spins before and after the measured call, left out of the rows:
+            # a trace has been seen to lose the first few launches (up to ~10
+            # of a 19k-launch UL-UNAS request) and the one at the end
+            spin_guard()
             fn()
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
+            spin_guard()
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
         launches = sum(e.count for e in rows)
@@ -323,15 +373,20 @@ def rel_err(a: np.ndarray, ref: np.ndarray) -> float:
 def check_kernels(dev) -> dict:
     """Phase 3; returns each kernel's row at the MossFormerGAN 30 s serving shape."""
     from audiojax_torch.dsp.stft import StftConfig, _window_np, num_frames
+    from audiojax_torch.models.mossformer2_se import MossFormer2SeConfig
     from audiojax_torch.models.mossformergan_se import MossFormerGanConfig
+    from audiojax_torch.models.nkf_aec import NkfConfig
+    from audiojax_torch.models.ul_unas import UlUnasConfig
     from audiojax_torch.models.zipenhancer import ZipEnhancerConfig
     from audiojax_torch.ops import stft_cuda as K
+
+    ul_cfg, nkf_cfg, se_cfg = UlUnasConfig(), NkfConfig(), MossFormer2SeConfig()
 
     gtcrn = StftConfig(512, 256, window="hann_sqrt", pad_mode="reflect")
     gan = MossFormerGanConfig().stft
     gan_fold = MossFormerGanConfig().fold_window
     zip_cfg = ZipEnhancerConfig()
-    cases = [  # (label, config, batch, length)
+    cases = [  # (label, config, batch, length[, B2 held too: default True])
         # MossFormerGAN serving shapes: 30 s request (8 windows, 32 folds), 6 s (4 folds)
         ("mossformergan 400/100 hamming reflect", gan, 32, gan_fold),
         ("mossformergan 400/100 hamming reflect", gan, 4, gan_fold),
@@ -354,10 +409,29 @@ def check_kernels(dev) -> dict:
         # GTCRN's stream step: 8 lanes of 4 hops after the 256-sample tail
         ("gtcrn stream 512/256 hann_sqrt uncentred",
          StftConfig(512, 256, window="hann_sqrt", pad_mode="reflect", center=False), 8, 1280),
+        # UL-UNAS: a 7 s request (4 windows), a 30 s one (16) and its stream step
+        ("ul_unas 512/256 hann reflect", ul_cfg.stft, 4, 32000),
+        ("ul_unas 512/256 hann reflect", ul_cfg.stft, 16, 32000),
+        ("ul_unas stream 512/256 hann uncentred",
+         dataclasses.replace(ul_cfg.stft, center=False), 8, 1280, False),
+        # NKF-AEC: far‖near of a 6 s request (2 × 4 windows), of a 30 s one
+        # (2 × 16), and its stream step (near‖far of 8 lanes, 3 hops of tail)
+        ("nkf_aec 1024/256 hann constant", nkf_cfg.stft, 8, 32000),
+        ("nkf_aec 1024/256 hann constant", nkf_cfg.stft, 32, 32000),
+        ("nkf_aec stream 1024/256 hann uncentred",
+         dataclasses.replace(nkf_cfg.stft, center=False), 16, 1792, False),
+        # MossFormer2-SE's synthesis at a 6 s and a 30 s request: 4 and 16
+        # windows of 246 frames (its analysis is a product, as in JAX)
+        ("mossformer2_se 1920/384 hamming_symmetric uncentred", se_cfg.frame_cfg, 4, 96000),
+        ("mossformer2_se 1920/384 hamming_symmetric uncentred", se_cfg.frame_cfg, 16, 96000),
     ]
     rng = np.random.default_rng(0)
     serving = {}
-    for label, cfg, b, length in cases:
+    for label, cfg, b, length, *synthesis in cases:
+        # a stream step's geometry holds B1 only: its synthesis is
+        # stream_istft, and an uncentred hann's envelope (sin⁴ at the first
+        # samples) makes an offline ISTFT's first samples divide by ~1e-10
+        with_b2 = not synthesis or synthesis[0]
         x64 = rng.standard_normal((b, length))
         x = torch.from_numpy(x64.astype(np.float32)).to(dev)
         win = _window_np(cfg)
@@ -377,29 +451,33 @@ def check_kernels(dev) -> dict:
         e64_k, e64_p = rel_err(k_np, ref), rel_err(p_np, ref)
         stft_row = {"err_vs_plain": e_plain, "max_abs_err": float(np.abs(k_np - p_np).max()),
                     "err64_kernel": e64_k, "err64_plain": e64_p}
-
-        # B2: ISTFT of the kernel's spectrum
+        rows = {"stft_packed": stft_row}
         spec = ker
-        ref_i = ref_istft64(k_np.astype(np.float64), cfg, win)
-        iker = K.istft_packed_cuda(spec, cfg)
-        iplain = K.plain_istft_packed(spec, cfg)
-        torch.cuda.synchronize()
-        ik_np, ip_np = iker.cpu().numpy(), iplain.cpu().numpy()
-        if ik_np.shape != ip_np.shape or not np.isfinite(ik_np).all():
-            fail(f"istft {label}: shape {ik_np.shape} vs {ip_np.shape} or non-finite")
-        ie_plain = float(np.abs(ik_np - ip_np).max() / np.abs(ip_np).max())
-        ie64_k, ie64_p = rel_err(ik_np, ref_i), rel_err(ip_np, ref_i)
-        istft_row = {"err_vs_plain": ie_plain, "max_abs_err": float(np.abs(ik_np - ip_np).max()),
-                     "err64_kernel": ie64_k, "err64_plain": ie64_p}
 
-        # out_length: the exact-length contract
-        out_len = length - cfg.hop // 2
-        ol_k = K.istft_packed_cuda(spec, cfg, out_length=out_len).cpu().numpy()
-        ol_p = K.plain_istft_packed(spec, cfg, out_length=out_len).cpu().numpy()
-        if ol_k.shape != (b, out_len) or np.abs(ol_k - ol_p).max() > TOL_VS_PLAIN * np.abs(ol_p).max():
-            fail(f"istft out_length {label}: {ol_k.shape}, err {np.abs(ol_k - ol_p).max()}")
+        if with_b2:
+            # B2: ISTFT of the kernel's spectrum
+            ref_i = ref_istft64(k_np.astype(np.float64), cfg, win)
+            iker = K.istft_packed_cuda(spec, cfg)
+            iplain = K.plain_istft_packed(spec, cfg)
+            torch.cuda.synchronize()
+            ik_np, ip_np = iker.cpu().numpy(), iplain.cpu().numpy()
+            if ik_np.shape != ip_np.shape or not np.isfinite(ik_np).all():
+                fail(f"istft {label}: shape {ik_np.shape} vs {ip_np.shape} or non-finite")
+            ie_plain = float(np.abs(ik_np - ip_np).max() / np.abs(ip_np).max())
+            ie64_k, ie64_p = rel_err(ik_np, ref_i), rel_err(ip_np, ref_i)
+            rows["istft_packed"] = istft_row = {
+                "err_vs_plain": ie_plain, "max_abs_err": float(np.abs(ik_np - ip_np).max()),
+                "err64_kernel": ie64_k, "err64_plain": ie64_p}
 
-        for name, row in (("stft_packed", stft_row), ("istft_packed", istft_row)):
+            # out_length: the exact-length contract
+            out_len = length - cfg.hop // 2
+            ol_k = K.istft_packed_cuda(spec, cfg, out_length=out_len).cpu().numpy()
+            ol_p = K.plain_istft_packed(spec, cfg, out_length=out_len).cpu().numpy()
+            if (ol_k.shape != (b, out_len)
+                    or np.abs(ol_k - ol_p).max() > TOL_VS_PLAIN * np.abs(ol_p).max()):
+                fail(f"istft out_length {label}: {ol_k.shape}, err {np.abs(ol_k - ol_p).max()}")
+
+        for name, row in rows.items():
             if not row["err_vs_plain"] <= TOL_VS_PLAIN:
                 fail(f"{name} {label} ({b}, {length}): kernel vs plain {row['err_vs_plain']:.3e}")
             if not row["err64_kernel"] <= 2.0 * row["err64_plain"]:
@@ -407,45 +485,52 @@ def check_kernels(dev) -> dict:
                      f"{row['err64_plain']:.3e}")
 
         # device time per call at this shape (kernel: the wrapper's whole call)
-        spec_c = torch.view_as_complex(
-            torch.stack([spec[..., : cfg.f_bins], spec[..., cfg.f_bins:]], dim=-1)
-        ).transpose(1, 2).contiguous()
         stft_row["ms"] = device_ms(lambda: K.stft_packed_cuda(x, cfg))
         stft_row["plain_ms"] = device_ms(lambda: K.plain_stft_packed(x, cfg))
         stft_row["library_ms"] = device_ms(lambda: torch.stft(
             x, cfg.n_fft, cfg.hop, window=win_t, center=cfg.center, pad_mode=cfg.pad_mode,
             return_complex=True))
-        istft_row["ms"] = device_ms(lambda: K.istft_packed_cuda(spec, cfg))
-        istft_row["plain_ms"] = device_ms(lambda: K.plain_istft_packed(spec, cfg))
-        # torch.istft refuses a window whose overlap-add envelope reaches zero
-        # (NOLA), as an uncentred hann_sqrt's does at its first sample
-        envelope = np.zeros(cfg.n_fft + cfg.hop * (n_t - 1))
-        for t in range(n_t):
-            envelope[t * cfg.hop: t * cfg.hop + cfg.n_fft] += win ** 2
-        envelope = envelope[cfg.half: -cfg.half] if cfg.center else envelope
-        istft_row["library_ms"] = None if envelope.min() < 1e-11 else kernel_sum_ms(
-            lambda: torch.istft(spec_c, cfg.n_fft, cfg.hop, window=win_t, center=cfg.center))
-        # the wrapper by the same method as the library, for a like-for-like comparison
-        wrapper_sum_ms = kernel_sum_ms(lambda: K.istft_packed_cuda(spec, cfg))
-
         # The least work of each function (float32 in, float32 out): per
         # frame one FFT plus the window product (and, for the ISTFT, the
         # overlap-add sum and the COLA scaling) at the float32 rate, against
         # its input read once and its output written once.  The kernels' own
         # FFT operations, counted from their plan, are printed apart at the
         # rate of the type each computes in (B1 float32, B2 float64).
-        out_len_full = ik_np.shape[-1]
         spec_bytes, win_bytes = 4.0 * b * n_t * f2, 4.0 * cfg.n_fft
         stft_row["bound_ms"], stft_row["bound_by"] = bound(
             b * n_t * (fft_flops(cfg.n_fft) + cfg.n_fft),
             4.0 * b * length + win_bytes + spec_bytes)
-        istft_row["bound_ms"], istft_row["bound_by"] = bound(
-            b * n_t * (fft_flops(cfg.n_fft) + 2 * cfg.n_fft) + b * out_len_full,
-            spec_bytes + win_bytes + 4.0 * b * out_len_full)
-        frames = {"stft_packed": b * n_t, "istft_packed": istft_frames(cfg, b, n_t)}
+        frames = {"stft_packed": b * n_t}
+        if with_b2:
+            spec_c = torch.view_as_complex(
+                torch.stack([spec[..., : cfg.f_bins], spec[..., cfg.f_bins:]], dim=-1)
+            ).transpose(1, 2).contiguous()
+            istft_row["ms"] = device_ms(lambda: K.istft_packed_cuda(spec, cfg))
+            istft_row["plain_ms"] = device_ms(lambda: K.plain_istft_packed(spec, cfg))
+            # torch.istft refuses a window whose overlap-add envelope reaches zero
+            # (NOLA), as an uncentred hann_sqrt's does at its first sample
+            envelope = np.zeros(cfg.n_fft + cfg.hop * (n_t - 1))
+            for t in range(n_t):
+                envelope[t * cfg.hop: t * cfg.hop + cfg.n_fft] += win ** 2
+            envelope = envelope[cfg.half: -cfg.half] if cfg.center else envelope
+            istft_row["library_ms"] = None
+            if envelope.min() >= 1e-11:
+                try:
+                    istft_row["library_ms"] = kernel_sum_ms(lambda: torch.istft(
+                        spec_c, cfg.n_fft, cfg.hop, window=win_t, center=cfg.center))
+                except RuntimeError as e:  # the library's refusal, not the port's failure
+                    print(f"torch.istft refuses {label} ({b}, {length}): {e}", flush=True)
+            # the wrapper by the same method as the library, for a like-for-like comparison
+            wrapper_sum_ms = kernel_sum_ms(lambda: K.istft_packed_cuda(spec, cfg))
+            out_len_full = ik_np.shape[-1]
+            istft_row["bound_ms"], istft_row["bound_by"] = bound(
+                b * n_t * (fft_flops(cfg.n_fft) + 2 * cfg.n_fft) + b * out_len_full,
+                spec_bytes + win_bytes + 4.0 * b * out_len_full)
+            frames["istft_packed"] = istft_frames(cfg, b, n_t)
 
-        for name, row, peak, kind in (("stft_packed", stft_row, PEAK_F32_FLOPS, "f32"),
-                                      ("istft_packed", istft_row, PEAK_F64_FLOPS, "f64")):
+        for name, row in rows.items():
+            peak, kind = (PEAK_F32_FLOPS, "f32") if name == "stft_packed" else (PEAK_F64_FLOPS,
+                                                                                 "f64")
             plan_gflop = frames[name] * plan_flops(cfg) / 1e9
             if row["ms"] < row["bound_ms"]:  # faster than the card can be: a timing fault
                 fail(f"{name} {label}: {row['ms']:.4f} ms is below its bound "
@@ -459,13 +544,17 @@ def check_kernels(dev) -> dict:
                   f"({row['bound_by']}); the kernel's FFTs, {frames[name]} frames, "
                   f"{plan_gflop:.4f} GFLOP ({plan_gflop * 1e15 / peak:.3f} us at the "
                   f"{kind} peak)", flush=True)
-        print(f"kernel istft_packed {label:43s} ({b:2d}, {length}): device ms per call, "
-              f"CUDA events: kernel {istft_row['ms']:.4f}; sum of kernel device times: "
-              f"kernel {wrapper_sum_ms:.4f}, torch.istft "
-              f"{_ms(istft_row['library_ms'], 'refuses the window (NOLA)')}",
-              flush=True)
+        if with_b2:
+            print(f"kernel istft_packed {label:43s} ({b:2d}, {length}): device ms per call, "
+                  f"CUDA events: kernel {istft_row['ms']:.4f}; sum of kernel device times: "
+                  f"kernel {wrapper_sum_ms:.4f}, torch.istft "
+                  f"{_ms(istft_row['library_ms'], 'refuses the window (NOLA)')}",
+                  flush=True)
+        else:
+            print(f"kernel istft_packed {label:43s} ({b:2d}, {length}): not held here (the "
+                  "stream step synthesises with stream_istft)", flush=True)
         if not serving:  # the first case
-            serving = {"stft_packed": stft_row, "istft_packed": istft_row}
+            serving = dict(rows)
     return serving
 
 
@@ -663,6 +752,24 @@ def speech_mix(n: int, seed: int, sr: int = SR) -> np.ndarray:
     return ((a + b) // 2).astype(np.int16)
 
 
+def echo_pair(n: int, seed: int, sr: int = SR, local: bool = True) -> tuple:
+    """An echo-cancellation request (near, far): the far end is a voice
+    (230 Hz at 4.3 syllables/s); the near end is a local voice (140 Hz at
+    3/s) plus the far end through an echo path (2.5 ms late, a decaying
+    four-tap response, −6 dB), or the echo alone (``local=False``)."""
+    far = noisy_speech(n, seed + 500, pitch=230.0, rate=4.3, sr=sr)
+    path = np.r_[np.zeros(40), 0.5, 0.25, -0.125, 0.0625]
+    near = np.convolve(far.astype(np.float64), path)[:n]
+    if local:
+        near = near + noisy_speech(n, seed, sr=sr)
+    return np.clip(np.round(near), -32768, 32767).astype(np.int16), far
+
+
+def _inputs(audio) -> tuple:
+    """A request's model inputs: one clip, or a tuple of them (near, far)."""
+    return audio if isinstance(audio, tuple) else (audio,)
+
+
 def snr_db(ref: np.ndarray, out: np.ndarray) -> float:
     ref, out = ref.astype(np.float64), out.astype(np.float64)
     err = float(np.sum((ref - out) ** 2))
@@ -746,15 +853,17 @@ PROFILE_KEYS = {"stft_packed": "::stft_kernel", "istft_packed": "::istft_kernel"
 
 
 def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latency: dict,
-                   lead_silence: int = 0, clip=noisy_speech) -> dict:
-    """Phases 6, 8, 10 and 12: serve ``name`` at full width and depth on its
-    manifest's windows (the GAN's and ZipEnhancer's 6 s windows are each
-    folded into 1.5 s fold windows); returns the kernels' launch counts over
-    the measured requests, whose audio ``clip(n, seed, sr=rate)`` makes at
-    the manifest's input rate (DFSMN's 48 kHz), and puts the 6 s request's
-    median latency (ms) into ``latency``.  Every output source is checked.
-    The clip held card against CPU (one fold window, or one window where the
-    model does not fold) starts with ``lead_silence`` zero samples."""
+                   lead_silence: int = 0, clip=noisy_speech, seconds: tuple = (6, 30)) -> dict:
+    """Phases 6, 8, 10, 12, 15, 16 and 17: serve ``name`` at full width and
+    depth on its manifest's windows (the GAN's and ZipEnhancer's 6 s windows
+    are each folded into 1.5 s fold windows); returns the kernels' launch
+    counts over the measured requests of ``seconds``, whose audio
+    ``clip(n, seed, sr=rate)`` makes at the manifest's input rate (DFSMN's and
+    SE's 48 kHz; a tuple of clips for a two-input model), and puts the first
+    request's median latency (ms) into ``latency``.  Every output source is
+    checked.  The clip held card against CPU (one fold window, or one window
+    where the model does not fold) starts with ``lead_silence`` zero samples.
+    An echo canceller also prints its echo-return-loss gain."""
     from audiojax_torch.runtime import registry
     from audiojax_torch.runtime.session import Session
 
@@ -767,11 +876,11 @@ def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latenc
     sr = manifest.in_sample_rate
     model = spec.make_module(spec.init_params(0, cfg, "cuda"), cfg)
     session = Session(model, manifest, device="cuda")
-    requests = [("6 s", clip(6 * sr, seeds[0], sr=sr)),
-                ("30 s", clip(30 * sr, seeds[1], sr=sr))]
+    requests = [(f"{sec} s", _inputs(clip(sec * sr, seed, sr=sr)))
+                for sec, seed in zip(seconds, seeds)]
     t0 = time.perf_counter()
-    session.process(requests[0][1])  # warm-up: cuBLAS, cuDNN and allocator set-up
-    print(f"serve {name} warm-up (6 s request): "
+    session.process(*requests[0][1])  # warm-up: cuBLAS, cuDNN and allocator set-up
+    print(f"serve {name} warm-up ({requests[0][0]} request): "
           f"{(time.perf_counter() - t0) * 1e3:.3f} ms  [{card}]", flush=True)
 
     for mod in kernel_modules():
@@ -779,15 +888,16 @@ def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latenc
     torch.cuda.reset_peak_memory_stats()
     runs = {label: [] for label, _ in requests}
     for _ in range(SERVE_REPEATS):  # the two requests in turn, SERVE_REPEATS times
-        for label, audio in requests:
-            runs[label].append(session.process(audio))
+        for label, ins in requests:
+            runs[label].append(session.process(*ins))
     counts = {k: n for mod in kernel_modules() for k, n in mod.launches.items()}
     forwards = SERVE_REPEATS * len(requests)  # one forward per request
     expect = {k: forwards * n for k, n in per_forward.items()}
     if counts != expect:
         fail(f"{name} serving launched {counts}, expected {expect}")
 
-    for label, audio in requests:
+    for label, ins in requests:
+        audio = ins[0]
         for r in runs[label]:
             if len(r.outputs) != manifest.output_sources:
                 fail(f"request {label}: {len(r.outputs)} sources, expected "
@@ -803,7 +913,9 @@ def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latenc
         n_win = -(-(audio.size + head) // window)
         bucket = 1 << (n_win - 1).bit_length()
         folds = f", {window // fold * bucket} folds" if fold else ""
-        print(f"serve {name} {label:5s} ({audio.size} samples{f' + {head} head' if head else ''}"
+        print(f"serve {name} {label:5s} ({audio.size} samples"
+              f"{f' × {len(ins)} inputs' if len(ins) > 1 else ''}"
+              f"{f' + {head} head' if head else ''}"
               f", {n_win} windows → {bucket}{folds}; {manifest.output_sources} source(s)): "
               f"elapsed ms median {med:.3f} (min {ms[0]:.3f}, max {ms[-1]:.3f}, n={len(ms)}), "
               f"RTF median {med / 1e3 / runs[label][0].audio_duration_s:.6f}  [{card}]",
@@ -812,9 +924,9 @@ def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latenc
           f"{counts}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
 
-    label, audio = requests[0]
+    label, ins = requests[0]
     elapsed_ms = latency[name] = float(np.median([r.elapsed_s * 1e3 for r in runs[label]]))
-    rows = cuda_rows(lambda: session.process(audio),
+    rows = cuda_rows(lambda: session.process(*ins),
                      {PROFILE_KEYS[k]: n for k, n in per_forward.items()})
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     print(f"profile {name} {label}: {sum(e.count for e in rows)} device launches, "
@@ -835,14 +947,15 @@ def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latenc
 
     # card vs CPU on one fold window (or one window), through the module
     length = fold or window
-    clip_np = clip(length, seeds[2], sr=sr)
-    clip_np[:lead_silence] = 0
-    x = torch.from_numpy(clip_np[None])
+    clips = _inputs(clip(length, seeds[2], sr=sr))
+    for c in clips:
+        c[:lead_silence] = 0
+    xs = [torch.from_numpy(c[None]) for c in clips]
     cpu_model = spec.make_module(spec.init_params(0, cfg, "cpu"), cfg)
     with torch.inference_mode():
-        card_out = model(x.cuda())
+        card_out = model(*[x.cuda() for x in xs])
         t0 = time.perf_counter()
-        cpu_out = cpu_model(x)
+        cpu_out = cpu_model(*xs)
     cpu_s = time.perf_counter() - t0
     if not isinstance(card_out, tuple):
         card_out, cpu_out = (card_out,), (cpu_out,)
@@ -855,6 +968,12 @@ def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latenc
             fail(f"{name} card vs CPU SNR {snr:.2f} dB < {MIN_SNR_DB}")
     if lead_silence:
         frame0_witness(name, model, cpu_model, clip(length, seeds[2], sr=sr))
+    if manifest.task == "aec":  # no gate: the weights are random
+        near, far = clip(seconds[0] * sr, seeds[2] + 1, sr=sr, local=False)
+        out = session.process(near, far).audio.astype(np.float64)
+        erle = 10.0 * np.log10(np.sum(near.astype(np.float64) ** 2) / max(np.sum(out ** 2), 1.0))
+        print(f"serve {name} echo-only {seconds[0]} s pair: echo-return-loss gain {erle:.2f} dB "
+              "(random weights, no gate)", flush=True)
     return counts
 
 
@@ -984,6 +1103,29 @@ B6_SS_CASES = [("ss flash group", 64, 256), ("ss 30 s flash group", 256, 256)]  
 SS_F64_ROWS = 4  # float64 on the host is slow at T = 3999 and V = 2048
 
 
+# MossFormer2-SE at its serving shapes: a 6 s 48 kHz request is 4 windows of
+# 246 frames, a 30 s request 16.  (label, (B, T, C), k, (lo, hi), dilation)
+# for B4; (label, N, S) for B6 (one FLASH group of 256 a window, K 128, V 2048)
+B4_SE_CASES = [
+    ("se flash in_conv", (4, 246, 2176), 17, (8, 8), 1),
+    ("se out_conv, uv_conv", (4, 246, 512), 17, (8, 8), 1),
+    ("se fsmn memory", (4, 246, 256), 39, (19, 19), 1),
+    ("se 30 s flash in_conv", (16, 246, 2176), 17, (8, 8), 1),
+    ("se 30 s out_conv, uv_conv", (16, 246, 512), 17, (8, 8), 1),
+    ("se 30 s fsmn memory", (16, 246, 256), 39, (19, 19), 1),
+]
+B6_SE_CASES = [("se flash group", 4, 256), ("se 30 s flash group", 16, 256)]
+
+
+def check_se_kernels(dev) -> None:
+    """Phase 14: B4 and B6 at the MossFormer2-SE serving shapes."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for label, shape, k, pads, dil in B4_SE_CASES:
+        hold_b4(gen, dev, label, shape, k, pads, dil, f64_rows=SS_F64_ROWS)
+    for label, n, s in B6_SE_CASES:
+        hold_b6(gen, dev, label, n, s, False, dk=128, dv=2048, f64_rows=SS_F64_ROWS)
+
+
 def check_ss_kernels(dev) -> dict:
     """Phase 9; returns B5's row at its first serving shape."""
     import torch.nn.functional as F
@@ -1034,6 +1176,9 @@ IMPORTED = [
     ("zipenhancer", 6, ZIP_PER_FORWARD, 43, noisy_speech, 201),
     ("mossformer2_ss", 6, SS_PER_FORWARD, 44, speech_mix, 0),
     ("dfsmn", 6, DFSMN_PER_FORWARD, 45, noisy_speech, 0),
+    ("mossformer2_se", 6, SE_PER_FORWARD, 46, noisy_speech, 0),
+    ("ul_unas", 7, UL_PER_FORWARD, 47, noisy_speech, 0),
+    ("nkf_aec", 6, NKF_PER_FORWARD, 48, echo_pair, 0),
 ]
 
 
@@ -1111,11 +1256,12 @@ def serve_imported(card: str, random_ms: dict) -> dict:
         model = spec.make_module(params, cfg)
         session = Session(model, manifest, device="cuda")
         sr = manifest.in_sample_rate
-        audio = clip(seconds * sr, seed, sr=sr)
-        session.process(audio)  # warm-up: this model's first request
+        ins = _inputs(clip(seconds * sr, seed, sr=sr))
+        audio = ins[0]
+        session.process(*ins)  # warm-up: this model's first request
         for mod in kernel_modules():
             mod.reset_launches()
-        runs = [session.process(audio) for _ in range(SERVE_REPEATS)]
+        runs = [session.process(*ins) for _ in range(SERVE_REPEATS)]
         counts = {k: n for mod in kernel_modules() for k, n in mod.launches.items()}
         expect = {k: SERVE_REPEATS * n for k, n in per_forward.items()}
         if counts != expect:
@@ -1137,13 +1283,14 @@ def serve_imported(card: str, random_ms: dict) -> dict:
 
         # card vs CPU on one fold window (or one window), through the module
         length = getattr(cfg, "fold_window", 0) or manifest.input_audio_length
-        clip_np = clip(length, seed + 100, sr=sr)
-        clip_np[:lead_silence] = 0
-        x = torch.from_numpy(clip_np[None])
+        clips = _inputs(clip(length, seed + 100, sr=sr))
+        for c in clips:
+            c[:lead_silence] = 0
+        xs = [torch.from_numpy(c[None]) for c in clips]
         with torch.inference_mode():
-            card_out = model(x.cuda())
+            card_out = model(*[x.cuda() for x in xs])
             t0 = time.perf_counter()
-            cpu_out = spec.make_module(cpu_params, cfg)(x)
+            cpu_out = spec.make_module(cpu_params, cfg)(*xs)
         cpu_s = time.perf_counter() - t0
         if not isinstance(card_out, tuple):
             card_out, cpu_out = (card_out,), (cpu_out,)
@@ -1167,12 +1314,15 @@ STREAM_LANES, STREAM_BLOCK_HOPS = 8, 4
 NO_LAUNCHES = {"stft_packed": 0, "istft_packed": 0, "dwconv1d": 0, "dwconv1d_tiled": 0,
                "quad_attention": 0, "relpos_scores": 0}
 # (model, clip seconds, the ported kernels' launches a step, first clip seed):
-# GTCRN's step analyses its block on B1 (its synthesis is a matrix product and
-# an overlap-add); DFSMN's runs its 9 FSMN memories on B4 (its analysis and
-# synthesis are matrix products)
+# GTCRN's and UL-UNAS's steps analyse their block on B1 (their synthesis is a
+# matrix product and an overlap-add), NKF's its near‖far blocks in one B1
+# call; DFSMN's runs its 9 FSMN memories on B4 (its analysis and synthesis
+# are matrix products)
 STREAMS = [
     ("gtcrn", 7, {**NO_LAUNCHES, "stft_packed": 1}, 60),
     ("dfsmn", 6, {**NO_LAUNCHES, "dwconv1d": 9}, 70),
+    ("ul_unas", 7, {**NO_LAUNCHES, "stft_packed": 1}, 80),
+    ("nkf_aec", 6, {**NO_LAUNCHES, "stft_packed": 1}, 90),
 ]
 TIMED_STEPS = 50  # steps timed apart from the drive, each way
 TRACED_REPLAYS = 5
@@ -1183,9 +1333,10 @@ def launch_counts() -> dict:
 
 
 def drive_streams(server, clips: list, seed: int) -> tuple:
-    """Open a lane per clip, push all clips through ``push_many`` in irregular
-    chunks (sizes from ``seed``, each lane its own), then flush each lane.
-    Returns the lanes' outputs, each tick's wall seconds and the drive's."""
+    """Open a lane per clip (a tuple of one clip per model input), push all
+    clips through ``push_many`` in irregular chunks (sizes from ``seed``, each
+    lane its own), then flush each lane.  Returns the lanes' outputs, each
+    tick's wall seconds and the drive's."""
     ticks, inner = [], server._tick
 
     def timed(ready):
@@ -1200,12 +1351,12 @@ def drive_streams(server, clips: list, seed: int) -> tuple:
     outs = {sid: [] for sid in sids}
     pos = [0] * len(clips)
     t0 = time.perf_counter()
-    while any(p < c.size for p, c in zip(pos, clips)):
+    while any(p < c[0].size for p, c in zip(pos, clips)):
         pushes = {}
         for i, (sid, clip) in enumerate(zip(sids, clips)):
-            if pos[i] < clip.size:
+            if pos[i] < clip[0].size:
                 size = int(rng.integers(1, 3 * server.block))
-                pushes[sid] = clip[pos[i]:pos[i] + size]
+                pushes[sid] = tuple(c[pos[i]:pos[i] + size] for c in clip)
                 pos[i] += size
         for sid, out in server.push_many(pushes).items():
             outs[sid].append(out)
@@ -1227,12 +1378,10 @@ def graph_trace(card: str, name: str, server, per_step: dict) -> None:
     want = {k: n * TRACED_REPLAYS for k, n in per_step.items()}
     for attempt in range(1, 5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
+            spin_guard()
             for _ in range(TRACED_REPLAYS):
                 server._graph.replay()
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
+            spin_guard()
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
         seen = {k: sum(e.count for e in rows if PROFILE_KEYS[k] in e.key) for k in per_step}
@@ -1260,12 +1409,16 @@ def serve_streams(card: str) -> dict:
 
     by_path = {}
     for name, seconds, per_step, seed in STREAMS:
+        t_model = time.perf_counter()
         spec = registry.get(name)
         cfg = spec.make_config()
         sr = spec.make_manifest(cfg).in_sample_rate
         params = spec.init_params(0, cfg, "cuda")
-        clips = [noisy_speech(seconds * sr, seed + i, pitch=110.0 + 20.0 * i, sr=sr)
-                 for i in range(STREAM_LANES)]
+        if spec.make_manifest(cfg).num_audio_inputs == 2:
+            clips = [echo_pair(seconds * sr, seed + i, sr=sr) for i in range(STREAM_LANES)]
+        else:
+            clips = [(noisy_speech(seconds * sr, seed + i, pitch=110.0 + 20.0 * i, sr=sr),)
+                     for i in range(STREAM_LANES)]
         servers, build_s = {}, {}
         for jit in (True, False):
             t0 = time.perf_counter()
@@ -1301,15 +1454,15 @@ def serve_streams(card: str) -> dict:
         worst_lsb, snrs = 0, []
         for i, clip in enumerate(clips):
             g, e = outs_g[i], outs_e[i]
-            if g.dtype != np.int16 or g.shape != clip.shape or e.shape != clip.shape:
+            if g.dtype != np.int16 or g.shape != clip[0].shape or e.shape != clip[0].shape:
                 fail(f"stream {name} lane {i}: {g.dtype} {g.shape} / {e.shape}, expected "
-                     f"int16 {clip.shape}")
+                     f"int16 {clip[0].shape}")
             if not np.any(g):
                 fail(f"stream {name} lane {i}: all-zero output")
             worst_lsb = max(worst_lsb, int(np.abs(g.astype(np.int32) - e).max()))
             cpu = StreamingSession(spec, cpu_params, cfg, block_hops=STREAM_BLOCK_HOPS,
                                    jit=False, device="cpu")
-            snrs.append(snr_db(np.concatenate([cpu.push(clip), cpu.flush()]), g))
+            snrs.append(snr_db(np.concatenate([cpu.push(*clip), cpu.flush()]), g))
         print(f"stream {name} {STREAM_LANES} lanes × {seconds} s (block {graph.block} samples, "
               f"irregular pushes): out length == in length; graph vs eager on the card max "
               f"{worst_lsb} LSB; graph vs CPU StreamingSession SNR min {min(snrs):.2f} dB "
@@ -1323,19 +1476,20 @@ def serve_streams(card: str) -> dict:
 
         # the step alone, all lanes active on distinct blocks
         rng = np.random.default_rng(seed)
-        blocks = torch.from_numpy(rng.integers(-8000, 8000, (STREAM_LANES, graph.block))
-                                  .astype(np.int16)).cuda()
+        blocks = [torch.from_numpy(rng.integers(-8000, 8000, (STREAM_LANES, graph.block))
+                                   .astype(np.int16)).cuda() for _ in range(graph.n_inputs)]
         active = torch.ones(STREAM_LANES, dtype=torch.bool, device="cuda")
         graph._active.copy_(active)
-        graph._blocks[0].copy_(blocks)
+        for static, b in zip(graph._blocks, blocks):
+            static.copy_(b)
         graph_ms = device_ms(graph._graph.replay, iters=TIMED_STEPS)
-        rows = cuda_rows(lambda: [eager._masked_step(active, blocks) for _ in range(10)], {},
+        rows = cuda_rows(lambda: [eager._masked_step(active, *blocks) for _ in range(10)], {},
                          calls=10)
         step_launches = sum(e.count for e in rows) / 10
         eager_busy = sum(e.self_device_time_total for e in rows) / 1e3 / 10
         walls = {}
         for jit, srv in servers.items():
-            run = srv._graph.replay if jit else (lambda: srv._masked_step(active, blocks))
+            run = srv._graph.replay if jit else (lambda: srv._masked_step(active, *blocks))
             t = []
             for _ in range(TIMED_STEPS):
                 t0 = time.perf_counter()
@@ -1364,6 +1518,7 @@ def serve_streams(card: str) -> dict:
               f"{build_s[False]:.3f} s; latency_samples {graph.latency_samples} = "
               f"{graph.latency_samples / sr * 1e3:g} ms  [{card}]", flush=True)
         del servers, graph, eager
+        print(f"stream {name} in {time.perf_counter() - t_model:.1f} s", flush=True)
     return by_path
 
 
@@ -1399,33 +1554,41 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
 
-    build_all()
-    rows = check_kernels(dev)
-    rows.update(check_gan_kernels(dev))
+    def phase(n: int, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        print(f"phase {n} in {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    phase(2, build_all)
+    rows = phase(3, check_kernels, dev)
+    rows.update(phase(4, check_gan_kernels, dev))
     latency = {}
-    by_path = {"gtcrn": serve(card, latency)}
-    by_path["mossformergan_se"] = serve_windowed(card, "mossformergan_se", GAN_PER_FORWARD,
-                                                 (11, 12, 13), latency)
-    rows.update(check_zip_kernels(dev))
+    by_path = {"gtcrn": phase(5, serve, card, latency)}
+    by_path["mossformergan_se"] = phase(6, serve_windowed, card, "mossformergan_se",
+                                        GAN_PER_FORWARD, (11, 12, 13), latency)
+    rows.update(phase(7, check_zip_kernels, dev))
     # the first frame of a reflect-padded fold window is symmetric and its
     # phase feature the sign of rounding noise: the clip held card against CPU
     # starts with that frame's 201 samples silent (frame0_witness holds the
     # cause on the same clip without them)
-    by_path["zipenhancer"] = serve_windowed(card, "zipenhancer", ZIP_PER_FORWARD, (21, 22, 23),
-                                            latency, lead_silence=201)
-    rows.update(check_ss_kernels(dev))
-    by_path["mossformer2_ss"] = serve_windowed(card, "mossformer2_ss", SS_PER_FORWARD,
-                                               (31, 32, 33), latency, clip=speech_mix)
-    # phase 12 before phase 11, which compares against its latency
-    t0 = time.perf_counter()
-    by_path["dfsmn"] = serve_windowed(card, "dfsmn", DFSMN_PER_FORWARD, (51, 52, 53), latency)
-    print(f"phase 12 in {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    by_path.update(serve_imported(card, latency))
-    print(f"phase 11 in {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    by_path.update(serve_streams(card))
-    print(f"phase 13 in {time.perf_counter() - t0:.1f} s", flush=True)
+    by_path["zipenhancer"] = phase(8, serve_windowed, card, "zipenhancer", ZIP_PER_FORWARD,
+                                   (21, 22, 23), latency, lead_silence=201)
+    rows.update(phase(9, check_ss_kernels, dev))
+    by_path["mossformer2_ss"] = phase(10, serve_windowed, card, "mossformer2_ss",
+                                      SS_PER_FORWARD, (31, 32, 33), latency, clip=speech_mix)
+    # phases 12 and 14–17 before phase 11, which compares against their latency
+    by_path["dfsmn"] = phase(12, serve_windowed, card, "dfsmn", DFSMN_PER_FORWARD,
+                             (51, 52, 53), latency)
+    phase(14, check_se_kernels, dev)
+    by_path["mossformer2_se"] = phase(15, serve_windowed, card, "mossformer2_se",
+                                      SE_PER_FORWARD, (54, 55, 56), latency)
+    by_path["ul_unas"] = phase(16, serve_windowed, card, "ul_unas", UL_PER_FORWARD,
+                               (57, 58, 59), latency, seconds=(7, 30))
+    by_path["nkf_aec"] = phase(17, serve_windowed, card, "nkf_aec", NKF_PER_FORWARD,
+                               (61, 62, 63), latency, clip=echo_pair)
+    by_path.update(phase(11, serve_imported, card, latency))
+    by_path.update(phase(13, serve_streams, card))
 
     sources = {
         "stft_packed": ("audiojax_torch/csrc/stft.cu", "audiojax/ops/stft_pallas.py:207"),

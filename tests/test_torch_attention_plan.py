@@ -34,7 +34,8 @@ MAX_BLOCKS = 2**31 - 1
 
 # (N, S, K, V, mask) of every B6 serving shape; (N, S) of every B3 one
 B6_SERVED = ([(n, s, 128, 128, mask) for _, n, s, mask in chip_smoke.B6_CASES]
-             + [(n, s, 128, 2048, False) for _, n, s in chip_smoke.B6_SS_CASES])
+             + [(n, s, 128, 2048, False) for _, n, s in
+                chip_smoke.B6_SS_CASES + chip_smoke.B6_SE_CASES])
 B3_SERVED = [(n, s) for _, n, s in chip_smoke.B3_CASES]
 B3_H, B3_D, B3_P = 4, 32, 4
 

@@ -1,15 +1,21 @@
-"""Synthetic upstream-layout checkpoints for the five families the port serves.
+"""Synthetic upstream-layout checkpoints for the eight families the port serves.
 
 ``build_<family>_state_dict(cfg, seed)`` returns a dict of CPU float32
 tensors under the upstream module names, at any config (the defaults are
 full width and depth).  The key sets are those of the JAX package's own
-importer tests (``tests/test_importers.py``: ``_gtcrn_state_dict`` and the
+importer tests (``tests/test_importers.py``: ``_gtcrn_state_dict``,
+``_ul_unas_state_dict``, ``_m2se_state_dict``, the NKF KGNet replica and the
 inline MossFormer2-SS, MossFormerGAN-SE, ZipEnhancer and DFSMN builders), plus
 GTCRN's frozen ERB bank (``erb.erb_fc`` / ``erb.ierb_fc``, set to the
-analytic bank the model bakes in).  Values come from numpy's generator at
-``seed``: weights uniform in ±1/sqrt(fan_in) (torch's default init), norm
-gains in [0.5, 1.5], small shifts, BatchNorm statistics as those tests draw
-them, PReLU slopes 0.25.
+analytic bank the model bakes in; UL-UNAS's learned bank is set to it too).
+Values come from numpy's generator at ``seed``: weights uniform in
+±1/sqrt(fan_in) (torch's default init), norm gains in [0.5, 1.5], small
+shifts, BatchNorm statistics as those tests draw them, PReLU slopes 0.25
+(NKF's 0.2 and 0.1, as its replica's), AffinePReLU gains N(1, 0.1).  NKF's
+last KGNet layer (weight and bias) is drawn at ``RANDOM_GAIN_SCALE`` times
+that bound, as the port's random init draws it: a Kalman gain of torch's
+default scale makes the filter's recurrence overflow float32 at speech
+levels.
 
 This module imports torch, numpy and the port only, never JAX: the card's
 ``chip_smoke.py`` builds its checkpoints from it.  Its own tests check that
@@ -28,13 +34,17 @@ from audiojax_torch.importers import import_checkpoint
 from audiojax_torch.models.dfsmn import DfsmnConfig, init_dfsmn_numpy
 from audiojax_torch.models.gtcrn import GtcrnConfig, init_gtcrn_numpy
 from audiojax_torch.models.mossformer2_ss import MossFormer2SsConfig, init_mossformer2_ss_numpy
+from audiojax_torch.models.mossformer2_se import MossFormer2SeConfig, init_mossformer2_se_numpy
 from audiojax_torch.models.mossformergan_se import MossFormerGanConfig, init_mossformergan_numpy
+from audiojax_torch.models.nkf_aec import RANDOM_GAIN_SCALE, NkfConfig, init_nkf_numpy
+from audiojax_torch.models.ul_unas import UlUnasConfig, init_ul_unas_numpy
 from audiojax_torch.models.zipenhancer import ZipEnhancerConfig, init_zipenhancer_numpy
 from audiojax_torch.nn.erb import erb_filters
 
 # The tiny widths of the port's model tests (tests/test_torch_mossformergan.py,
 # tests/test_torch_zipenhancer.py, tests/test_torch_mossformer2_ss.py,
-# tests/test_torch_dfsmn.py); GTCRN is small at its defaults.
+# tests/test_torch_dfsmn.py, tests/test_torch_mossformer2_se.py); GTCRN,
+# UL-UNAS (a fixed NAS plan) and NKF are small at their defaults.
 TINY = {
     "dfsmn": dict(depth=2, hidden=32, lorder=6),
     "gtcrn": {},
@@ -47,10 +57,15 @@ TINY = {
                         pos_dim=16, encoder_downsample=((1, 1), (2, 2)), fold_window=0),
     "mossformer2_ss": dict(dim=64, depth=2, group_size=16, qk_dim=32, vu_dim=96,
                            fsmn_inner=32, dw_kernel=5, rot_dim=8, lorder=5),
+    "mossformer2_se": dict(dim=64, depth=2, group_size=16, qk_dim=32, vu_dim=96,
+                           fsmn_inner=32, dw_kernel=5, rot_dim=8, lorder=5),
+    "ul_unas": {},
+    "nkf_aec": {},
 }
 CONFIGS = {"gtcrn": GtcrnConfig, "mossformergan_se": MossFormerGanConfig,
            "zipenhancer": ZipEnhancerConfig, "mossformer2_ss": MossFormer2SsConfig,
-           "dfsmn": DfsmnConfig}
+           "dfsmn": DfsmnConfig, "mossformer2_se": MossFormer2SeConfig,
+           "ul_unas": UlUnasConfig, "nkf_aec": NkfConfig}
 
 
 def tiny_config(name: str):
@@ -112,8 +127,8 @@ class _StateDict:
         self.uniform(f"{key}.running_var", (c,), 0.5, 2.0)
         self.sd[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
 
-    def prelu(self, key: str, n: int = 1) -> None:
-        self.put(f"{key}.weight", np.full((n,), 0.25))
+    def prelu(self, key: str, n: int = 1, slope: float = 0.25) -> None:
+        self.put(f"{key}.weight", np.full((n,), slope))
 
     def gru(self, key: str, inp: int, hidden: int, bidirectional: bool = False) -> None:
         bound = 1.0 / math.sqrt(hidden)
@@ -402,12 +417,170 @@ def build_dfsmn_state_dict(cfg: DfsmnConfig = DfsmnConfig(), seed: int = 0) -> d
     return s.sd
 
 
+# ── MossFormer2-SE ───────────────────────────────────────────────────────────
+
+
+def build_mossformer2_se_state_dict(cfg: MossFormer2SeConfig = MossFormer2SeConfig(),
+                                    seed: int = 0) -> dict:
+    """ClearVoice MossFormer2-SE-48K layout (``_m2se_state_dict`` of the JAX tests)."""
+    s = _StateDict(seed)
+    P = "mossformer_se"
+    mm = f"{P}.mdl.intra_mdl.mossformerM"
+    d, qk, vu, inner, feat = cfg.dim, cfg.qk_dim, cfg.vu_dim, cfg.fsmn_inner, 3 * cfg.n_mels
+
+    def ffconvm(key, o, i, scale_norm=True):
+        if scale_norm:
+            s.uniform(f"{key}.mdl.0.g", (1,), 0.5, 1.5)
+        else:
+            s.norm(f"{key}.mdl.0", (i,))
+        s.linear(f"{key}.mdl.1", o, i)
+        s.conv(f"{key}.mdl.3.sequential.1.conv", o, o, (cfg.dw_kernel,), groups=o, bias=False)
+
+    s.norm(f"{P}.norm", (feat,))
+    s.linear(f"{P}.conv1d_encoder", d, feat, k1=True)
+    s.uniform(f"{P}.pos_enc.scale", (1,), 0.0, 1.0)
+    for i in range(cfg.depth):
+        fl = f"{mm}.layers.{i}"
+        ffconvm(f"{fl}.to_hidden", 2 * vu, d)
+        ffconvm(f"{fl}.to_qk", qk, d)
+        s.normal(f"{fl}.qk_offset_scale.gamma", (4, qk), 0.1, mean=1.0)
+        s.normal(f"{fl}.qk_offset_scale.beta", (4, qk), 0.05)
+        ffconvm(f"{fl}.to_out", d, vu)
+        fb = f"{mm}.fsmn.{i}"
+        s.linear(f"{fb}.conv1.0", inner, d, k1=True)
+        s.prelu(f"{fb}.conv1.1")
+        s.norm(f"{fb}.norm1", (inner,))
+        ffconvm(f"{fb}.gated_fsmn.to_u", inner, inner, scale_norm=False)
+        ffconvm(f"{fb}.gated_fsmn.to_v", inner, inner, scale_norm=False)
+        s.linear(f"{fb}.gated_fsmn.fsmn.linear", inner, inner)
+        s.linear(f"{fb}.gated_fsmn.fsmn.project", inner, inner, bias=False)
+        s.conv(f"{fb}.gated_fsmn.fsmn.conv1", inner, inner, (2 * cfg.lorder - 1, 1),
+               groups=inner, bias=False)
+        s.norm(f"{fb}.norm2", (inner,))
+        s.linear(f"{fb}.conv2", d, inner, k1=True)
+    s.norm(f"{P}.mdl.intra_mdl.norm", (d,))
+    s.norm(f"{P}.mdl.intra_norm", (d,))
+    s.prelu(f"{P}.prelu")
+    s.weight(f"{P}.conv1d_out", (2 * d, d, 1), d, 2 * d)
+    s.linear(f"{P}.output.0", d, d, k1=True)
+    s.linear(f"{P}.output_gate.0", d, d, k1=True)
+    s.linear(f"{P}.conv1_decoder", cfg.stft_bins, d, bias=False, k1=True)
+    return s.sd
+
+
+# ── UL-UNAS ──────────────────────────────────────────────────────────────────
+
+
+def build_ul_unas_state_dict(cfg: UlUnasConfig = UlUnasConfig(), seed: int = 0) -> dict:
+    """The converted ULUNAS layout (``_ul_unas_state_dict`` of the JAX tests),
+    at the model's fixed NAS plan."""
+    from audiojax_torch.models.ul_unas import (_CHANNELS, _GROUPS, _KERNELS, _STRIDES, _TYPES,
+                                               _WIDTHS)
+
+    s = _StateDict(seed)
+
+    def aprelu(key, c, w):
+        s.normal(f"{key}.affine_weight", (1, c, 1, w), 0.1, mean=1.0)
+        s.normal(f"{key}.affine_bias", (1, c, 1, w), 0.05)
+        s.put(f"{key}.slope_weight", np.full((1, c, 1, 1), 0.25))
+
+    def ctfa(key, c):
+        s.gru(f"{key}.ta_gru", c, 2 * c)
+        s.linear(f"{key}.ta_fc", c, 2 * c)
+        s.gru(f"{key}.fa.gru", cfg.fa_ratio, cfg.fa_ratio, bidirectional=True)
+        s.linear(f"{key}.fa.fc", cfg.fa_ratio, 2 * cfg.fa_ratio)
+
+    def in_width(w, stride, deconv):
+        return (w // 2 + 1 if deconv else w * 2 - 1) if stride == 2 else w
+
+    def conv(key, cin, cout, k, groups, deconv):
+        if deconv:
+            s.deconv(key, cin, cout, k, groups)
+        else:
+            s.conv(key, cout, cin, k, groups)
+
+    def block(key, btype, cin, cout, w, k, stride, groups, deconv=False, last=False):
+        if btype == 0:
+            conv(f"{key}.conv", cin, cout, k, groups, deconv)
+            s.bn(f"{key}.bn", cout)
+            if not last:
+                aprelu(f"{key}.act", cout, w)
+            ctfa(f"{key}.ctfa", cout)
+            return
+        pre = "pconv" if btype == 1 else "pconv1"
+        s.conv(f"{key}.{pre}_conv", cout, cin, (1, 1), groups)
+        s.bn(f"{key}.{pre}_bn", cout)
+        aprelu(f"{key}.{pre}_act", cout, in_width(w, stride, deconv))
+        conv(f"{key}.dconv_conv", cout, cout, k, cout, deconv)
+        s.bn(f"{key}.dconv_bn", cout)
+        if btype == 2 or not last:
+            aprelu(f"{key}.dconv_act", cout, w)
+        if btype == 1:
+            ctfa(f"{key}.dconv_ctfa", cout)
+            return
+        s.conv(f"{key}.pconv2_conv", cout, cout, (1, 1), groups)
+        s.bn(f"{key}.pconv2_bn", cout)
+        ctfa(f"{key}.pconv2_ctfa", cout)
+
+    bank = erb_filters(cfg.n_low, cfg.n_erb, cfg.n_fft)
+    s.put("erb.erb_fc.weight", bank)
+    s.put("erb.ierb_fc.weight", bank.T)
+    n = len(_TYPES)
+    cin = 1
+    for i in range(n):
+        block(f"encoder.en_convs.{i}", _TYPES[i], cin, _CHANNELS[i], _WIDTHS[i], _KERNELS[i],
+              _STRIDES[i], _GROUPS[i])
+        cin = _CHANNELS[i]
+    for j, i in enumerate(range(n - 1, 0, -1)):
+        block(f"decoder.de_convs.{j}", _TYPES[i], _CHANNELS[i], _CHANNELS[i - 1],
+              _WIDTHS[i - 1], _KERNELS[i], _STRIDES[i], _GROUPS[i], deconv=True)
+    block(f"decoder.de_convs.{n - 1}", _TYPES[0], _CHANNELS[0], 1, cfg.n_low + cfg.n_erb,
+          _KERNELS[0], _STRIDES[0], _GROUPS[0], deconv=True, last=True)
+
+    c, w = _CHANNELS[-1], _WIDTHS[-1]
+    for key in ("dpgrnn.0", "dpgrnn.1"):
+        for sub in ("rnn1", "rnn2"):
+            s.gru(f"{key}.intra_rnn.{sub}", c // 2, c // 4, bidirectional=True)
+            s.gru(f"{key}.inter_rnn.{sub}", c // 2, c // 2)
+        for fc in ("intra_fc", "inter_fc"):
+            s.linear(f"{key}.{fc}", c, c)
+        for ln in ("intra_ln", "inter_ln"):
+            s.norm(f"{key}.{ln}", (w, c))
+    return s.sd
+
+
+# ── NKF-AEC ──────────────────────────────────────────────────────────────────
+
+
+def build_nkf_aec_state_dict(cfg: NkfConfig = NkfConfig(), seed: int = 0) -> dict:
+    """The upstream KGNet layout (the NKF replica of the JAX tests'
+    ``test_import_nkf_kgnet_matches_torch_replica``); the last layer drawn at
+    ``RANDOM_GAIN_SCALE`` of torch's bound."""
+    s = _StateDict(seed)
+    d_in, fc, rnn, order = 2 * cfg.filter_order + 1, cfg.fc_dim, cfg.rnn_dim, cfg.filter_order
+    for part in ("real", "imag"):
+        s.linear(f"kg_net.fc_in.0.linear_{part}", fc, d_in)
+        s.linear(f"kg_net.fc_out.0.linear_{part}", fc, rnn)
+        key = f"kg_net.fc_out.2.linear_{part}"
+        s.linear(key, order, fc)
+        for name in ("weight", "bias"):
+            s.sd[f"{key}.{name}"] = s.sd[f"{key}.{name}"] * RANDOM_GAIN_SCALE
+    s.prelu("kg_net.fc_in.1.prelu", slope=0.2)
+    s.prelu("kg_net.fc_out.1.prelu", slope=0.1)
+    for part in ("r", "i"):
+        s.gru(f"kg_net.complex_gru.gru_{part}", fc, rnn)
+    return s.sd
+
+
 BUILDERS = {
     "dfsmn": build_dfsmn_state_dict,
     "gtcrn": build_gtcrn_state_dict,
     "mossformergan_se": build_mossformergan_se_state_dict,
     "zipenhancer": build_zipenhancer_state_dict,
     "mossformer2_ss": build_mossformer2_ss_state_dict,
+    "mossformer2_se": build_mossformer2_se_state_dict,
+    "ul_unas": build_ul_unas_state_dict,
+    "nkf_aec": build_nkf_aec_state_dict,
 }
 
 
@@ -415,7 +588,11 @@ BUILDERS = {
 
 INIT_NUMPY = {"gtcrn": init_gtcrn_numpy, "mossformergan_se": init_mossformergan_numpy,
               "zipenhancer": init_zipenhancer_numpy, "mossformer2_ss": init_mossformer2_ss_numpy,
-              "dfsmn": init_dfsmn_numpy}
+              "dfsmn": init_dfsmn_numpy, "mossformer2_se": init_mossformer2_se_numpy,
+              "ul_unas": init_ul_unas_numpy, "nkf_aec": init_nkf_numpy}
+# leaves an imported tree has and a random one does not: UL-UNAS's learned ERB
+# bank (random parameters take the analytic bank)
+IMPORT_ONLY = {"ul_unas": {"/erb/fc": (192, 64), "/erb/ifc": (64, 192)}}
 
 
 def flat_tree(tree, path="") -> dict:
@@ -435,7 +612,7 @@ def test_builder_dict_is_read_whole(name, tmp_path):
     BatchNorm's step counters are ignored), the dict holds CPU float32 weights,
     and the tree has the keys of the port's own init tree, with the shapes of
     its leaves or the (1,) and () that upstream PReLU slopes and scalar
-    parameters have."""
+    parameters have (and, for UL-UNAS, its imported ERB bank)."""
     import json
 
     cfg = tiny_config(name)
@@ -452,6 +629,7 @@ def test_builder_dict_is_read_whole(name, tmp_path):
     assert report["consumed"] + len(report["ignored_buffers"]) == len(sd)
 
     want = {k: v.shape for k, v in flat_tree(INIT_NUMPY[name](0, cfg)).items()}
+    want.update(IMPORT_ONLY.get(name, {}))
     got = {k: v.shape for k, v in flat_tree(tree).items()}
     assert sorted(got) == sorted(want)
     odd = {k: (got[k], want[k]) for k in got if got[k] != want[k]}

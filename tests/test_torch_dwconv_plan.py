@@ -36,7 +36,8 @@ TOL = 1e-5
 # chip_smoke.py: the served ones on the vector path, the off-path ones on the
 # path their C and alignment take
 SHAPES = ([(*shape, k, *pads, dil, 1, True) for _, shape, k, pads, dil in
-           chip_smoke.B4_CASES + chip_smoke.B4_SS_CASES + chip_smoke.B4_DFSMN_CASES]
+           chip_smoke.B4_CASES + chip_smoke.B4_SS_CASES + chip_smoke.B4_DFSMN_CASES
+           + chip_smoke.B4_SE_CASES]
           + [(*shape, k, *pads, dil, 2, True) for _, shape, k, pads, dil in
              chip_smoke.B5_SS_CASES]
           + [(*shape, k, *pads, dil, 1, shape[2] % 4 == 0 and offset == 0)
@@ -196,11 +197,13 @@ def test_taps_staged_once_each_warp_coalesced(b, t, c, k, lo, hi, dil, m, vector
 
 
 def test_served_plans_carry_or_take_whole_rows():
-    """Every GAN and ZipEnhancer shape takes whole batch rows; every
-    MossFormer2-SS shape carries its halo over at least two tiles a block."""
+    """Every shape whose output rows fit 32 time threads of 8 (T_out ≤ 256: the
+    GAN, ZipEnhancer, DFSMN and MossFormer2-SE shapes) takes whole batch rows;
+    every MossFormer2-SS shape carries its halo over at least two tiles a
+    block."""
     for b, t, c, k, lo, hi, dil, m, vector in SHAPES[:-len(chip_smoke.B4_OFFPATH_CASES)]:
         plan = D.dwconv_launch(b, t, c, k, lo, hi, dil, m, vector=vector)
-        if t <= 241:
+        if t + lo + hi - dil * (k - 1) <= 256:
             assert not plan.carry and plan.ipb >= 1
         else:
             assert plan.carry and plan.ipb >= 2

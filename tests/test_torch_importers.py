@@ -1,15 +1,17 @@
 """The port's checkpoint importers against audiojax.importers.
 
 Each family's synthetic upstream-layout dict (``test_torch_ckpt_builders``)
-goes through both packages' ``import_checkpoint``.  GTCRN runs at its
-defaults, the other three at the tiny widths of the port's model tests.
+goes through both packages' ``import_checkpoint``.  GTCRN, UL-UNAS and NKF
+run at their defaults, the others at the tiny widths of the port's model
+tests.
 
 Trees: the same key paths and shapes, float32 everywhere, and values equal
 bit for bit — both packages run the same float64 numpy recipes and cast
 once.  Forward: the port's ``Session`` on its tree (CPU) against the JAX
 ``Session`` on the JAX tree, ≥ 40 dB int16 SNR for each source, with a
 reference output of at least 100 LSB RMS so that the gate measures
-something.  ZipEnhancer's clip starts with 201 silent samples: the first
+something; NKF takes a (near, far) pair.  ZipEnhancer's clip starts with
+201 silent samples: the first
 STFT frame's phase feature is otherwise the sign of rounding noise
 (``tests/test_torch_zipenhancer.py``).  Drift fails closed in both
 packages, with equal messages and equal JSON reports.
@@ -26,13 +28,16 @@ import jax.numpy as jnp
 from audiojax.importers import import_checkpoint as jimport
 from audiojax.models import dfsmn as JDF
 from audiojax.models import gtcrn as JG
+from audiojax.models import mossformer2_se as JSE
 from audiojax.models import mossformer2_ss as JSS
 from audiojax.models import mossformergan_se as JGAN
+from audiojax.models import nkf_aec as JNKF
+from audiojax.models import ul_unas as JUL
 from audiojax.models import zipenhancer as JZIP
 from audiojax.runtime import registry as jregistry
 from audiojax.runtime.session import Session as JSession
 from reference_loader import snr_db
-from test_importers import _gtcrn_state_dict
+from test_importers import _gtcrn_state_dict, _m2se_state_dict, _ul_unas_state_dict
 from test_torch_ckpt_builders import BUILDERS, TINY, flat_tree, import_kwargs, tiny_config
 
 from audiojax_torch.importers import import_checkpoint as timport
@@ -46,9 +51,10 @@ MIN_REF_RMS = 100.0  # LSB
 FAMILIES = sorted(BUILDERS)
 JCONFIGS = {"gtcrn": JG.GtcrnConfig, "mossformergan_se": JGAN.MossFormerGanConfig,
             "zipenhancer": JZIP.ZipEnhancerConfig, "mossformer2_ss": JSS.MossFormer2SsConfig,
-            "dfsmn": JDF.DfsmnConfig}
+            "dfsmn": JDF.DfsmnConfig, "mossformer2_se": JSE.MossFormer2SeConfig,
+            "ul_unas": JUL.UlUnasConfig, "nkf_aec": JNKF.NkfConfig}
 SEEDS = {"gtcrn": 11, "mossformergan_se": 12, "zipenhancer": 13, "mossformer2_ss": 14,
-         "dfsmn": 15}
+         "dfsmn": 15, "mossformer2_se": 16, "ul_unas": 17, "nkf_aec": 18}
 
 
 def _configs(name):
@@ -92,6 +98,36 @@ def test_gtcrn_builder_keys_are_the_jax_tests():
     assert all(tuple(ours[k].shape) == tuple(theirs[k].shape) for k in theirs)
 
 
+def _nkf_key_shapes(cfg) -> dict:
+    """The key set of the JAX tests' NKF KGNet replica, from the same torch modules."""
+    nn = torch.nn
+    d_in, fc, rnn = 2 * cfg.filter_order + 1, cfg.fc_dim, cfg.rnn_dim
+    mods = {"kg_net.fc_in.0": (d_in, fc), "kg_net.fc_out.0": (rnn, fc),
+            "kg_net.fc_out.2": (fc, cfg.filter_order)}
+    out = {f"{k}.linear_{part}.{n}": tuple(v.shape) for k, (i, o) in mods.items()
+           for part in ("real", "imag") for n, v in nn.Linear(i, o).state_dict().items()}
+    out.update({f"{k}.prelu.weight": (1,) for k in ("kg_net.fc_in.1", "kg_net.fc_out.1")})
+    out.update({f"kg_net.complex_gru.gru_{part}.{n}": tuple(v.shape) for part in ("r", "i")
+                for n, v in nn.GRU(fc, rnn, batch_first=True).state_dict().items()})
+    return out
+
+
+@pytest.mark.parametrize("name", ["mossformer2_se", "ul_unas", "nkf_aec"])
+def test_builder_keys_are_the_jax_tests(name):
+    """The MossFormer2-SE, UL-UNAS and NKF builders' keys and shapes are those of
+    the JAX tests' ``_m2se_state_dict``, ``_ul_unas_state_dict`` and NKF replica."""
+    cfg = tiny_config(name)
+    ours = {k: tuple(v.shape) for k, v in BUILDERS[name](cfg, seed=0).items()}
+    if name == "mossformer2_se":
+        theirs = {k: tuple(v.shape)
+                  for k, v in _m2se_state_dict(JCONFIGS[name](**TINY[name])).items()}
+    elif name == "ul_unas":
+        theirs = {k: tuple(v.shape) for k, v in _ul_unas_state_dict().items()}
+    else:
+        theirs = _nkf_key_shapes(cfg)
+    assert ours == theirs
+
+
 def _clip(name, n, seed):
     rng = np.random.default_rng(seed)
     t = np.arange(n) / 16000
@@ -108,19 +144,20 @@ def _clip(name, n, seed):
 
 @pytest.mark.parametrize("name", FAMILIES)
 def test_session_on_imported_tree_matches_jax(imported, name):
-    """One window of each family's manifest (GTCRN and SS 2 s, the GAN and
-    ZipEnhancer 6 s unfolded at the tiny config) through both Sessions."""
+    """One window of each family's manifest (GTCRN, UL-UNAS, NKF, SS, DFSMN and
+    SE 2 s, the GAN and ZipEnhancer 6 s unfolded at the tiny config) through
+    both Sessions; NKF takes a (near, far) pair."""
     jcfg, tcfg, _, jtree, ttree = imported[name]
     jspec, tspec = jregistry.get(name), tregistry.get(name)
     manifest = tspec.make_manifest(tcfg)
-    clip = _clip(name, 16000, SEEDS[name])
+    clips = [_clip(name, 16000, SEEDS[name] + i) for i in range(manifest.num_audio_inputs)]
     ref = JSession(jspec.make_forward(jcfg), jax.tree.map(jnp.asarray, jtree),
-                   jspec.make_manifest(jcfg)).process(clip)
+                   jspec.make_manifest(jcfg)).process(*clips)
     out = TSession(tspec.make_module(params_from_numpy(ttree, device="cpu"), tcfg), manifest,
-                   device="cpu").process(clip)
+                   device="cpu").process(*clips)
     assert len(out.outputs) == len(ref.outputs) == manifest.output_sources
     for r, o in zip(ref.outputs, out.outputs):
-        assert o.dtype == np.int16 and o.shape == r.shape == clip.shape
+        assert o.dtype == np.int16 and o.shape == r.shape == clips[0].shape
         assert np.sqrt(np.mean(r.astype(np.float64) ** 2)) >= MIN_REF_RMS
         assert snr_db(r, o) >= MIN_SNR_DB
 
@@ -167,7 +204,11 @@ REQUIRED = {"gtcrn": "dpgrnn2.inter_rnn.rnn1.weight_hh_l0",
             "zipenhancer": "zip_enhancer.TSConformer.encoders.1.encoder.f_layers.0.norm.log_scale",
             "mossformer2_ss": "mossformer_ss.mask_net.mdl.intra_mdl.mossformerM.fsmn.1"
                               ".gated_fsmn.fsmn.conv.conv2.weight",
-            "dfsmn": "deepfsmn.1.project.weight"}
+            "dfsmn": "deepfsmn.1.project.weight",
+            "mossformer2_se": "mossformer_se.mdl.intra_mdl.mossformerM.fsmn.1"
+                              ".gated_fsmn.fsmn.conv1.weight",
+            "ul_unas": "dpgrnn.1.inter_rnn.rnn1.weight_hh_l0",
+            "nkf_aec": "kg_net.fc_out.2.linear_imag.weight"}
 
 
 @pytest.mark.parametrize("name", FAMILIES)
@@ -221,7 +262,7 @@ def test_unwrap_keeps_the_tracker():
     assert list(stripped) == ["a.weight"]
 
 
-@pytest.mark.parametrize("name", ["ul_unas", "mossformer2_se", "h_gtcrn", "no_such_model"])
+@pytest.mark.parametrize("name", ["sdaec", "deep_echo", "h_gtcrn", "no_such_model"])
 def test_unported_family_names_roadmap(imported, name):
     with pytest.raises(KeyError, match="ROADMAP A.9") as e:
         timport(name, imported["gtcrn"][2])

@@ -48,7 +48,10 @@ def test_import_pulls_in_no_jax():
         "        'audiojax_torch.importers.zipenhancer', 'audiojax_torch.importers.mossformer2_ss',\n"
         "        'audiojax_torch.runtime.checkpoint', 'audiojax_torch.runtime.export',\n"
         "        'audiojax_torch.runtime.streaming', 'audiojax_torch.models.dfsmn',\n"
-        "        'audiojax_torch.frontend.kaldi', 'audiojax_torch.importers.dfsmn'} <= set(mods)\n"
+        "        'audiojax_torch.frontend.kaldi', 'audiojax_torch.importers.dfsmn',\n"
+        "        'audiojax_torch.models.mossformer2_se', 'audiojax_torch.models.ul_unas',\n"
+        "        'audiojax_torch.models.nkf_aec', 'audiojax_torch.importers.ul_unas',\n"
+        "        'audiojax_torch.importers.nkf'} <= set(mods)\n"
         "assert len(mods) > 15, mods\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'audiojax', 'flax', 'msgpack'))\n"
@@ -216,7 +219,7 @@ def test_cli_denoises_on_cpu(tmp_path, capsys):
     assert "RTF" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("name,rate", [("gtcrn", 16000), ("dfsmn", 48000)])
+@pytest.mark.parametrize("name,rate", [("gtcrn", 16000), ("dfsmn", 48000), ("ul_unas", 16000)])
 def test_cli_streams_on_cpu(name, rate, tmp_path, capsys):
     """``--stream`` pushes the whole clip through a StreamingSession, flushes,
     and writes as many samples as it read; the printed latency is one block
@@ -241,13 +244,15 @@ def test_cli_stream_refuses_a_model_without_streaming(tmp_path, capsys):
     _write_wav(src, np.zeros(16000, np.int16))
     assert cli.main(["--model", "zipenhancer", "--input", str(src), "--device", "cpu",
                      "--stream"]) == 2
-    assert "streaming models: ['dfsmn', 'gtcrn']" in capsys.readouterr().err
+    assert ("streaming models: ['dfsmn', 'gtcrn', 'nkf_aec', 'ul_unas']"
+            in capsys.readouterr().err)
 
 
 def test_cli_list_and_default_device(no_cuda, tmp_path, capsys):
     assert cli.main(["--list"]) == 0
-    assert capsys.readouterr().out.split() == ["dfsmn", "gtcrn", "mossformer2_ss",
-                                               "mossformergan_se", "zipenhancer"]
+    assert capsys.readouterr().out.split() == ["dfsmn", "gtcrn", "mossformer2_se",
+                                               "mossformer2_ss", "mossformergan_se", "nkf_aec",
+                                               "ul_unas", "zipenhancer"]
     src = tmp_path / "in.wav"
     _write_wav(src, np.zeros(16000, np.int16))
     with pytest.raises(RuntimeError, match='device="cpu"'):

@@ -263,15 +263,27 @@ def test_emulated_kernels_take_the_scales():
 # (config, batch, length): the serving shapes of GTCRN (30 s, 7 s, 1.3 s),
 # MossFormerGAN (30 s, 6 s), ZipEnhancer (6 s), GTCRN's stream step (8 lanes
 # of 4 hops after the 256-sample tail, uncentred), DFSMN's 6 s request (4
-# windows of 99 frames), and the other checked ones
+# windows of 99 frames), UL-UNAS's 7 s and 30 s requests and stream step,
+# NKF-AEC's far‖near of a 6 s and a 30 s request and its near‖far stream
+# step, MossFormer2-SE's 6 s and 30 s synthesis, and the other checked ones
 GTCRN_STREAM = dataclasses.replace(ZOO[0], center=False)
+UL_UNAS = StftConfig(512, 256, window="hann", pad_mode="reflect")
+NKF = ZOO[3]
 SERVING = [(ZOO[0], 16, 32000), (ZOO[0], 4, 32000), (ZOO[0], 1, 32000), (ZOO[2], 32, 24000),
            (ZOO[2], 4, 24000), (ZOO[1], 4, 24000), (GTCRN_STREAM, 8, 1280), (ZOO[6], 4, 96000),
            (ZOO[4], 4, 16000), (ZOO[5], 2, 88200), (ZOO[6], 2, 19200)]
+SERVING_IDS = [f"{c.n_fft}-{c.hop}-{b}x{n}" for c, b, n in SERVING]
+SERVING_NEW = [(UL_UNAS, 4, 32000), (UL_UNAS, 16, 32000),
+               (dataclasses.replace(UL_UNAS, center=False), 8, 1280), (NKF, 8, 32000),
+               (NKF, 32, 32000), (dataclasses.replace(NKF, center=False), 16, 1792),
+               (ZOO[7], 4, 96000), (ZOO[7], 16, 96000)]
+SERVING += SERVING_NEW
+SERVING_IDS += [f"{c.n_fft}-{c.hop}-{c.window}-{'c' if c.center else 'u'}-{b}x{n}"
+                for c, b, n in SERVING_NEW]
 
 
 @pytest.mark.parametrize("cfg,batch,length", SERVING,
-                         ids=[f"{c.n_fft}-{c.hop}-{b}x{n}" for c, b, n in SERVING])
+                         ids=SERVING_IDS)
 def test_launch_geometry_fits_and_fills_the_card(cfg, batch, length):
     """Shared memory within a block's 227 KB; at least one block per SM
     wherever there are that many frames (B1) or hop-rows (B2)."""

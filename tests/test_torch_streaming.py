@@ -4,7 +4,8 @@ The same numpy inputs (seeded) go through both packages, with parameters
 carried by ``params_from_numpy``: ``stream_istft`` / ``steady_cola_np``, the
 grouped GRU's carried state, GTCRN's stream step chunk for chunk, and the
 ``StreamingServer`` (``jit=False``: the CPU has no CUDA graph) against the
-JAX package's server on the same clips and pushes.  Then the JAX package's
+JAX package's server on the same clips and pushes, for every streaming model
+(NKF-AEC's lanes push (near, far) pairs).  Then the JAX package's
 own server, session and stream-contract tests, ported (``tests/
 test_streaming_server.py``, ``tests/test_runtime.py``, ``tests/
 test_gtcrn.py``).
@@ -28,6 +29,8 @@ from audiojax.dsp.stft import steady_cola_np as jax_steady_cola_np
 from audiojax.dsp.stft import stream_istft as jax_stream_istft
 from audiojax.models import dfsmn as JDF
 from audiojax.models import gtcrn as JG
+from audiojax.models import nkf_aec as JNKF
+from audiojax.models import ul_unas as JUL
 from audiojax.nn import rnn as JR
 from audiojax.runtime import registry as jregistry
 from audiojax.runtime.streaming import StreamingServer as JServer
@@ -36,6 +39,7 @@ from test_torch_ckpt_builders import flat_tree
 from audiojax_torch.dsp import stft as TD
 from audiojax_torch.models import dfsmn as TDF
 from audiojax_torch.models import gtcrn as TG
+from audiojax_torch.models.nkf_aec import RANDOM_GAIN_SCALE
 from audiojax_torch.nn import rnn as TR
 from audiojax_torch.params import params_from_numpy
 from audiojax_torch.runtime import registry
@@ -76,6 +80,20 @@ def gtcrn_params():
 def dfsmn_params():
     cfg = JDF.DfsmnConfig(**DFSMN_TINY)
     pj = JDF.init_dfsmn(jax.random.PRNGKey(3), cfg)
+    return pj, params_from_numpy(jax.tree.map(np.asarray, pj), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def ul_unas_params():
+    pj = JUL.init_ul_unas(jax.random.PRNGKey(4), JUL.UlUnasConfig())
+    return pj, params_from_numpy(jax.tree.map(np.asarray, pj), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def nkf_aec_params():
+    """JAX's draw with ``fc_out`` damped as the port's random init damps it."""
+    pj = JNKF.init_nkf(jax.random.PRNGKey(5), JNKF.NkfConfig())
+    pj["fc_out"] = jax.tree.map(lambda a: a * RANDOM_GAIN_SCALE, pj["fc_out"])
     return pj, params_from_numpy(jax.tree.map(np.asarray, pj), device="cpu")
 
 
@@ -234,33 +252,46 @@ def test_gtcrn_stream_tracks_default_offline_interior():
 
 
 def _drive(server, clips, cuts):
-    """Open a lane per clip, push every clip's [a, b) slices in turn through
-    ``push_many``, flush each lane; the lanes' outputs."""
+    """Open a lane per clip (an array, or a tuple of one array per model
+    input), push every clip's [a, b) slices in turn through ``push_many``,
+    flush each lane; the lanes' outputs."""
     sids = [server.open() for _ in clips]
     outs = {sid: [] for sid in sids}
+
+    def part(c, a, b):
+        return tuple(x[a:b] for x in c) if isinstance(c, tuple) else c[a:b]
+
     for a, b in zip(cuts[:-1], cuts[1:]):
-        for sid, out in server.push_many({sid: c[a:b] for sid, c in zip(sids, clips)}).items():
+        for sid, out in server.push_many({sid: part(c, a, b)
+                                          for sid, c in zip(sids, clips)}).items():
             outs[sid].append(out)
     for sid in sids:
         outs[sid].append(server.flush(sid))
     return [np.concatenate(outs[sid]) for sid in sids]
 
 
-@pytest.mark.parametrize("name", ["gtcrn", "dfsmn"])
-def test_server_matches_jax_server(name, gtcrn_params, dfsmn_params):
+@pytest.mark.parametrize("name", ["gtcrn", "dfsmn", "ul_unas", "nkf_aec"])
+def test_server_matches_jax_server(name, request):
     """Three lanes, irregular pushes through ``push_many``, block_hops 2: the
-    port's server (jit=False) and the JAX package's (jit=True), within 1 LSB."""
-    pj, pt = gtcrn_params if name == "gtcrn" else dfsmn_params
+    port's server (jit=False) and the JAX package's (jit=True), within 1 LSB.
+    NKF-AEC is the real two-input case: each lane pushes a (near, far) pair,
+    the near end holding a delayed, scaled copy of its far end."""
+    pj, pt = request.getfixturevalue(f"{name}_params")
     jspec = jregistry.get(name)
     jcfg = jspec.make_config(**(DFSMN_TINY if name == "dfsmn" else {}))
     spec, cfg = _port(name)
-    clips = _clips(3, 9 * cfg.hop + 77, seed=4)
-    cuts = [0, 300, 1000, 1000 + 2 * cfg.hop + 5, clips[0].size]
+    n = 9 * cfg.hop + 77
+    clips = _clips(3, n, seed=4)
+    if name == "nkf_aec":
+        fars = _clips(3, n, seed=5)
+        clips = [((c // 2 + np.roll(f, 37) // 2).astype(np.int16), f)
+                 for c, f in zip(clips, fars)]
+    cuts = [0, 300, 1000, 1000 + 2 * cfg.hop + 5, n]
     ref = _drive(JServer(jspec, pj, jcfg, max_streams=4, block_hops=2, jit=True), clips, cuts)
     got = _drive(StreamingServer(spec, pt, cfg, max_streams=4, block_hops=2, jit=False,
                                  device="cpu"), clips, cuts)
-    for r, g, c in zip(ref, got, clips):
-        assert g.dtype == np.int16 and g.shape == r.shape == c.shape
+    for r, g in zip(ref, got):
+        assert g.dtype == np.int16 and g.shape == r.shape == (n,)
         assert _lsb(r, g) <= 1
 
 
@@ -348,12 +379,17 @@ def test_push_many_single_step_per_block_round():
         assert _lsb(got, ref) <= 1
 
 
-@pytest.mark.parametrize("name", ["gtcrn", "dfsmn"])
+@pytest.mark.parametrize("name", ["gtcrn", "dfsmn", "ul_unas", "nkf_aec"])
 def test_lane_isolation_all_streaming_models(name):
     """verify_lane_isolation holds the lane-axis inference (batch-major state
     folds) for each streaming model: GTCRN's nested dict with the inter-GRU
-    states folded (2, B·33, 8), DFSMN's list of FSMN memories (B, 19, 32)."""
+    states folded (2, B·33, 8), DFSMN's list of FSMN memories (B, 19, 32),
+    UL-UNAS's conv caches (the kt = 1 blocks' zero-length ones among them)
+    and inter-GRU states (2, B·33, 8), NKF's nested tuples with the GRU
+    states folded (B·513, 18)."""
     _, _, srv = _server(name, seed=1, max_streams=3, block_hops=1)
+    if name == "ul_unas":
+        assert any(t.numel() == 0 for t in srv._state)
     srv.verify_lane_isolation()
 
 
