@@ -1,7 +1,7 @@
 """audiojax_torch — the PyTorch/CUDA port of audiojax for NVIDIA Hopper.
 
 The package mirrors ``audiojax``'s layout (``dsp``, ``nn``, ``ops``,
-``models``, ``importers``, ``runtime``) with the same module and function
+``models``, ``importers``, ``runtime``, ``utils``) with the same module and function
 names, so each port module has exactly one counterpart in the JAX package.  It imports
 torch and numpy only: never ``jax`` and nothing of ``audiojax``.
 

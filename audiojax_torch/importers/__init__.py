@@ -11,7 +11,7 @@ key means the upstream layout drifted, and the import aborts with the
 leftover keys instead of dropping weights.  ``report_path`` writes a JSON
 audit report with the same keys as the JAX package's.
 
-The port has importers for the eight families it serves; each other family's
+The port has importers for the eleven families it serves; each other family's
 importer comes with that family's slice (ROADMAP A.9).
 """
 from __future__ import annotations
@@ -22,12 +22,15 @@ from pathlib import Path
 
 from . import common
 from .common import KeyTracker, unwrap_state_dict
+from .deep_echo import import_deep_echo
 from .dfsmn import import_dfsmn
+from .dfsmn_aec import import_dfsmn_aec
 from .gtcrn import import_gtcrn
 from .mossformer2_se import import_mossformer2_se
 from .mossformer2_ss import import_mossformer2_ss
 from .mossformergan_se import import_mossformergan_se
 from .nkf import import_nkf
+from .sdaec import import_sdaec
 from .ul_unas import import_ul_unas
 from .zipenhancer import import_zipenhancer
 
@@ -40,6 +43,9 @@ _IMPORTERS = {
     "mossformer2_se": import_mossformer2_se,
     "ul_unas": import_ul_unas,
     "nkf_aec": import_nkf,
+    "sdaec": import_sdaec,
+    "deep_echo": import_deep_echo,
+    "dfsmn_aec": import_dfsmn_aec,
 }
 
 # torch bookkeeping buffers that carry no weights — ignored, not drift.
@@ -52,7 +58,8 @@ def import_checkpoint(model_name: str, ckpt, *, strict: bool = True, report_path
     """Upstream state dict (or a wrapper of one) → numpy parameter tree.
 
     ``kw`` goes to the family's importer (``cfg=`` for all but GTCRN and
-    DFSMN; UL-UNAS's and NKF's take it and need none).  With ``strict`` (the
+    DFSMN; UL-UNAS's, NKF's, SDAEC's and Deep-Echo's take it and need none;
+    DFSMN-AEC's reads its backend from it and also takes ``cmvn=``).  With ``strict`` (the
     default) unread checkpoint keys raise ``ValueError``; a key the recipe
     needs and the checkpoint lacks raises ``KeyError``."""
     if model_name not in _IMPORTERS:
@@ -87,6 +94,7 @@ def import_checkpoint(model_name: str, ckpt, *, strict: bool = True, report_path
     return params
 
 
-__all__ = ["common", "import_checkpoint", "import_dfsmn", "import_gtcrn",
-           "import_mossformergan_se", "import_mossformer2_se", "import_mossformer2_ss",
-           "import_nkf", "import_ul_unas", "import_zipenhancer"]
+__all__ = ["common", "import_checkpoint", "import_deep_echo", "import_dfsmn",
+           "import_dfsmn_aec", "import_gtcrn", "import_mossformergan_se",
+           "import_mossformer2_se", "import_mossformer2_ss", "import_nkf", "import_sdaec",
+           "import_ul_unas", "import_zipenhancer"]

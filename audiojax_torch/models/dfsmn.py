@@ -81,12 +81,14 @@ class DfsmnConfig:
         return self.n_fft // 2 + 1
 
 
-def dfsmn_mask_net(p, fbank: torch.Tensor, state=None):
+def dfsmn_mask_net(p, fbank: torch.Tensor, state=None, *, return_trunk: bool = False):
     """(B, T, n_mels) log-fbank → ((B, T, stft_bins) sigmoid mask, new state).
 
     ``state``: optional per-layer causal memories, each (B, lorder − 1,
     hidden); passing the returned state into the next call continues the
-    causal memory exactly (streaming)."""
+    causal memory exactly (streaming).  With ``return_trunk`` the FSMN trunk
+    before the mask head (B, T, hidden) comes third: the DFSMN-AEC VAD head
+    reads it."""
     x = torch.relu(core.dense(p["lin1"], fbank))
     lorder = p["layers"][0]["mem"]["w"].shape[-1]  # torch layout (C, 1, lorder)
     new_state = []
@@ -102,7 +104,8 @@ def dfsmn_mask_net(p, fbank: torch.Tensor, state=None):
         # slice by start: -(lorder-1) with lorder=1 would keep the WHOLE buffer
         new_state.append(mem_in[:, mem_in.shape[1] - (lorder - 1):])
         x = x + mem
-    return torch.sigmoid(core.dense(p["lin2"], x)), new_state
+    mask = torch.sigmoid(core.dense(p["lin2"], x))
+    return (mask, new_state, x) if return_trunk else (mask, new_state)
 
 
 def _analysis(x: torch.Tensor, cfg: DfsmnConfig) -> tuple[torch.Tensor, torch.Tensor]:

@@ -20,6 +20,9 @@ kernel B4 (``ops.dwconv_cuda``) at any width, length and dilation; every
 grouped conv1d with two input channels and one output channel per group
 (torch weight ``(G, 2, k)``, ``groups == G``, ``C == 2G``, stride 1) runs on
 the grouped kernel B5; every other conv runs on ``F.conv1d`` / ``F.conv2d``.
+A conv of one group is not grouped, as in the JAX package's routing: SDAEC's
+(10, 2, 1) alignment conv, two input channels and one output, runs on
+``F.conv1d``.
 """
 from __future__ import annotations
 
@@ -71,10 +74,11 @@ def conv1d(p, x: torch.Tensor, *, stride: int = 1, padding=0, dilation: int = 1,
         lo, hi = max(0, lo), max(0, hi)
     c = x.shape[-1]
     # the kernels read w through its strides: the (k, C) and (k, 2, G) views go uncopied
-    if w.shape[1] == 1 and w.shape[0] == groups == c and stride == 1:
+    if groups > 1 and w.shape[1] == 1 and w.shape[0] == groups == c and stride == 1:
         y = fast_dwconv1d(x.contiguous(), w[:, 0, :].t(), pads=(lo, hi), dilation=dilation)
         return y + p["b"] if "b" in p else y
-    if w.shape[1] == 2 and w.shape[0] == groups and c == 2 * groups and stride == 1:
+    if (groups > 1 and w.shape[1] == 2 and w.shape[0] == groups and c == 2 * groups
+            and stride == 1):
         y = fast_dwconv1d_grouped(x.contiguous(), w.permute(2, 1, 0), pads=(lo, hi),
                                   dilation=dilation)
         return y + p["b"] if "b" in p else y

@@ -1,22 +1,27 @@
-"""GRU layers in PyTorch (torch cell semantics, gate order r|z|n).
+"""GRU and LSTM layers in PyTorch (torch cell semantics).
 
 Counterpart of ``audiojax.nn.rnn``.  The input projection for all time steps
 is hoisted into one matmul before the loop; the loop carries only
 ``h @ w_h``.  Grouped GRUs run every group in one batched matmul over
-stacked ``(G, in, 3H)`` weights.
+stacked ``(G, in, 3H)`` weights, and a bidirectional layer runs both
+directions as two stacked recurrences of one loop, the backward one on the
+time-reversed input.
 
 Weight layout (right-multiplication, as in the JAX package):
-  w_i: (in, 3H), w_h: (H, 3H), b_i / b_h: (3H,); stacked groups add a
-  leading G axis.
+  GRU   w_i: (in, 3H), w_h: (H, 3H), b_i / b_h: (3H,)   gate order r|z|n
+  LSTM  w_i: (in, 4H), w_h: (H, 4H), b_i / b_h: (4H,)   gate order i|f|g|o
+Stacked groups add a leading G axis.
 
 On the card the time loop is a Python loop of small launches; that cost is
 recorded in PERF.md and is left to a later CUDA graph or fused recurrence.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["gru_cell", "gru", "gru_bidir", "grouped_gru", "grouped_gru_bidir"]
+__all__ = ["gru_cell", "gru", "gru_bidir", "grouped_gru", "grouped_gru_bidir", "lstm",
+           "lstm_bidir", "init_lstm_numpy"]
 
 
 def _cell(xt: torch.Tensor, gh: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -113,3 +118,75 @@ def grouped_gru_bidir(p_fwd, p_bwd, x: torch.Tensor, *, groups: int) -> torch.Te
     y, _ = _stacked_scan(both, torch.cat([xs, torch.flip(xs, dims=(2,))]), None)
     yf, yb = y[:groups], torch.flip(y[groups:], dims=(2,))
     return _group_merge(torch.cat([yf, yb], dim=-1))
+
+
+# ── LSTM ─────────────────────────────────────────────────────────────────────
+
+
+def _lstm_loop(xp: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor, h: torch.Tensor,
+               c: torch.Tensor):
+    """Recurrence over axis 0 of the time-major ``xp (T, ..., 4H)``;
+    ``w_h (..., H, 4H)``, ``b_h`` broadcast against ``h @ w_h``, ``h`` / ``c``
+    ``(..., N, H)``.
+
+    A step is eight launches: the hidden product with its bias (one
+    ``addmm`` / ``baddbmm``), its sum with the step's input projection, the
+    gates, and the cell and hidden updates, in the JAX package's order of
+    operations."""
+    hidden = h.shape[-1]
+    batched = w_h.ndim == 3
+    ys = []
+    for xt in xp:
+        gh = torch.baddbmm(b_h, h, w_h) if batched else torch.addmm(b_h, h, w_h)
+        z = xt + gh
+        s = torch.sigmoid(z)  # the g lanes are taken from tanh below
+        c = torch.addcmul(s[..., hidden:2 * hidden] * c, s[..., :hidden],
+                          torch.tanh(z[..., 2 * hidden:3 * hidden]))
+        h = s[..., 3 * hidden:] * torch.tanh(c)
+        ys.append(h)
+    return ys, h, c
+
+
+def lstm(p, x: torch.Tensor, state=None, *, reverse: bool = False, return_state: bool = False):
+    """LSTM over ``x (B, T, in)`` → ``(B, T, H)``; ``state`` is ``(h, c)``, each
+    (B, H); with ``return_state`` also ``(h, c)`` after the last step."""
+    hidden = p["w_h"].shape[0]
+    # time-major, so that each step's slice is contiguous
+    xp = torch.matmul(x.transpose(0, 1), p["w_i"]) + p["b_i"]
+    if state is None:
+        z = x.new_zeros((x.shape[0], hidden))
+        state = (z, z)
+    ys, h, c = _lstm_loop(torch.flip(xp, dims=(0,)) if reverse else xp, p["w_h"], p["b_h"],
+                          *state)
+    if reverse:
+        ys.reverse()
+    y = torch.stack(ys, dim=1)
+    return (y, (h, c)) if return_state else y
+
+
+def lstm_bidir(p_fwd, p_bwd, x: torch.Tensor) -> torch.Tensor:
+    """Bidirectional LSTM over ``x (B, T, in)`` → ``[fwd ‖ bwd]`` (B, T, 2H).
+
+    Both directions share one loop: the backward one runs on the
+    time-reversed input as the second of two stacked recurrences."""
+    hidden = p_fwd["w_h"].shape[0]
+    both = {k: torch.stack([p_fwd[k], p_bwd[k]]) for k in ("w_i", "w_h", "b_i", "b_h")}
+    xt = x.transpose(0, 1)  # (T, B, in)
+    xs = torch.stack([xt, torch.flip(xt, dims=(0,))], dim=1)  # (T, 2, B, in)
+    xp = torch.matmul(xs, both["w_i"]) + both["b_i"][:, None]  # (T, 2, B, 4H)
+    z = x.new_zeros((2, x.shape[0], hidden))
+    ys, _, _ = _lstm_loop(xp, both["w_h"], both["b_h"][:, None], z, z)
+    y = torch.stack(ys)  # (T, 2, B, H)
+    return torch.cat([y[:, 0], torch.flip(y[:, 1], dims=(0,))], dim=-1).transpose(0, 1)
+
+
+def init_lstm_numpy(rng: np.random.Generator, din: int, hidden: int) -> dict:
+    """``audiojax.nn.rnn.init_lstm``'s keys, shapes and distribution (uniform in
+    ±1/sqrt(hidden)), drawn from ``rng``."""
+    s = 1.0 / np.sqrt(hidden)
+
+    def u(shape):
+        return rng.uniform(-s, s, shape).astype(np.float32)
+
+    return {"w_i": u((din, 4 * hidden)), "w_h": u((hidden, 4 * hidden)),
+            "b_i": u((4 * hidden,)), "b_h": u((4 * hidden,))}

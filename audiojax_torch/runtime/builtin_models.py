@@ -339,6 +339,128 @@ def _register_nkf():
     )
 
 
+def _aec319_manifest(name: str, family: str, cfg, extra: dict):
+    """SDAEC's and Deep-Echo's manifest: 10 s windows of (near, far)."""
+    return Manifest(
+        model_name=name,
+        task="aec",
+        model_family=family,
+        in_sample_rate=cfg.in_sample_rate,
+        out_sample_rate=cfg.out_sample_rate,
+        model_sample_rate=cfg.sample_rate,
+        input_audio_length=160000 * cfg.in_sample_rate // 16000,
+        window_type=cfg.window,
+        nfft=cfg.n_fft,
+        window_length=cfg.n_fft,
+        hop_length=cfg.hop,
+        pad_mode="constant",
+        center_pad=True,
+        num_audio_inputs=2,
+        max_dynamic_audio_seconds=30,
+        extra=extra,
+    )
+
+
+def _sdaec_stream(cfg):
+    from ..models.sdaec import sdaec_stream_init, sdaec_stream_step
+
+    return (partial(sdaec_stream_init, cfg),
+            partial(sdaec_stream_step, cfg=cfg),
+            cfg.n_fft - cfg.hop)
+
+
+def _register_sdaec():
+    from ..models.sdaec import SDAEC, SdaecConfig, init_sdaec
+
+    register(
+        ModelSpec(
+            name="sdaec",
+            task="aec",
+            make_config=SdaecConfig,
+            init_params=init_sdaec,
+            make_module=SDAEC,
+            make_manifest=lambda cfg: _aec319_manifest("sdaec", "sdaec", cfg,
+                                                       {"alpha_k": cfg.alpha_k}),
+            make_stream=_sdaec_stream,
+        )
+    )
+
+
+def _deep_echo_stream(cfg):
+    from ..models.deep_echo import deep_echo_stream_init, deep_echo_stream_step
+
+    return (partial(deep_echo_stream_init, cfg),
+            partial(deep_echo_stream_step, cfg=cfg),
+            cfg.n_fft - cfg.hop)
+
+
+def _register_deep_echo():
+    from ..models.deep_echo import DeepEcho, DeepEchoConfig, init_deep_echo
+
+    register(
+        ModelSpec(
+            name="deep_echo",
+            task="aec",
+            make_config=DeepEchoConfig,
+            init_params=init_deep_echo,
+            make_module=DeepEcho,
+            make_manifest=lambda cfg: _aec319_manifest("deep_echo", "deep-echo", cfg,
+                                                       {"echo_order": cfg.echo_order}),
+            make_stream=_deep_echo_stream,
+        )
+    )
+
+
+def _dfsmn_aec_manifest(cfg):
+    return Manifest(
+        model_name="dfsmn_aec",
+        task="aec",
+        model_family="dfsmn_aec",
+        in_sample_rate=cfg.in_sample_rate,
+        out_sample_rate=cfg.out_sample_rate,
+        model_sample_rate=cfg.sample_rate,
+        input_audio_length=32000 * cfg.in_sample_rate // 16000,
+        window_type="hamming_symmetric",
+        nfft=cfg.frame_len,
+        window_length=cfg.frame_len,
+        hop_length=cfg.hop,
+        center_pad=False,
+        num_audio_inputs=2,
+        max_dynamic_audio_seconds=30,
+        feature_kind="kaldi_fbank_stft",
+        extra={"backend": cfg.backend, "n_mels": cfg.n_mels, "output_vad": cfg.output_vad},
+    )
+
+
+def _dfsmn_aec_stream(cfg):
+    """The cascade streams with the SDAEC or Deep-Echo backend and no VAD
+    output; its latency is 2·hop."""
+    from ..models.dfsmn_aec import dfsmn_aec_stream_init, dfsmn_aec_stream_step
+
+    if cfg.output_vad or cfg.backend not in ("sdaec", "deep_echo"):
+        raise ValueError("streaming DFSMN-AEC serving needs a streamable backend "
+                         "and output_vad=False (use the model API directly for VAD)")
+    return (partial(dfsmn_aec_stream_init, cfg),
+            partial(dfsmn_aec_stream_step, cfg=cfg),
+            2 * cfg.hop)
+
+
+def _register_dfsmn_aec():
+    from ..models.dfsmn_aec import DfsmnAEC, DfsmnAecConfig, init_dfsmn_aec
+
+    register(
+        ModelSpec(
+            name="dfsmn_aec",
+            task="aec",
+            make_config=DfsmnAecConfig,
+            init_params=init_dfsmn_aec,
+            make_module=DfsmnAEC,
+            make_manifest=_dfsmn_aec_manifest,
+            make_stream=_dfsmn_aec_stream,
+        )
+    )
+
+
 _register_gtcrn()
 _register_mossformergan()
 _register_zipenhancer()
@@ -347,3 +469,6 @@ _register_dfsmn()
 _register_mossformer2_se()
 _register_ul_unas()
 _register_nkf()
+_register_sdaec()
+_register_deep_echo()
+_register_dfsmn_aec()

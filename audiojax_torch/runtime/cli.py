@@ -10,26 +10,30 @@
     python -m audiojax_torch.runtime.cli --model mossformer2_se --input noisy48k.wav --output clean.wav
     python -m audiojax_torch.runtime.cli --model ul_unas --input noisy.wav --output clean.wav
     python -m audiojax_torch.runtime.cli --model nkf_aec --input near.wav far.wav --output out.wav
+    python -m audiojax_torch.runtime.cli --model sdaec|deep_echo|dfsmn_aec --input near.wav far.wav
     python -m audiojax_torch.runtime.cli --model gtcrn --artifact art/ --input noisy.wav
     python -m audiojax_torch.runtime.cli --model gtcrn --input noisy.wav --stream [--block-hops 4]
     python -m audiojax_torch.runtime.cli --model nkf_aec --input near.wav far.wav --stream
+    python -m audiojax_torch.runtime.cli --model dfsmn_aec --input near.wav far.wav --stream
     python -m audiojax_torch.runtime.cli --list
 
 With ``--artifact`` the command serves the weights of an artifact that
 ``python -m audiojax_torch.runtime.export`` wrote from an upstream checkpoint,
 with the config the artifact records; ``--model`` must name the artifact's
 model.  Without it, parameters are drawn at random from ``--seed``.  A
-two-input model (the echo canceller ``nkf_aec``) takes two ``--input`` files,
+two-input model (the echo cancellers ``nkf_aec``, ``sdaec``, ``deep_echo``
+and ``dfsmn_aec``) takes two ``--input`` files,
 the microphone (near end) first and the far-end reference second; a wrong
 count of inputs exits 2 with the model's count.  The model runs on the card
 unless ``--device cpu`` is given; without CUDA and without ``--device cpu``
 the command fails.
 
 With ``--stream`` a model that has state-carry streaming (gtcrn, dfsmn,
-ul_unas, nkf_aec) is served through ``StreamingSession`` instead of windows:
-the whole clip is pushed, the stream flushed, and the command prints the
-streaming RTF and the algorithmic latency (one block of ``--block-hops`` hops
-plus n_fft − hop).
+ul_unas, nkf_aec, sdaec, deep_echo, dfsmn_aec) is served through
+``StreamingSession`` instead of windows: the whole clip is pushed, the stream
+flushed, and the command prints the streaming RTF and the algorithmic latency
+(one block of ``--block-hops`` hops plus the model's delay: n_fft − hop, or
+2·hop for ``dfsmn_aec``).
 On the card the step is one captured CUDA graph; on the CPU it runs eagerly.
 """
 from __future__ import annotations
@@ -44,9 +48,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="audiojax_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--model", help="model name: gtcrn, mossformergan_se, zipenhancer, "
-                    "mossformer2_ss, dfsmn, mossformer2_se, ul_unas or nkf_aec (see --list)")
+                    "mossformer2_ss, dfsmn, mossformer2_se, ul_unas, nkf_aec, sdaec, "
+                    "deep_echo or dfsmn_aec (see --list)")
     ap.add_argument("--input", nargs="*", default=[],
-                    help="input wav path(s): near then far for nkf_aec")
+                    help="input wav path(s): near then far for the echo cancellers")
     ap.add_argument("--output", help="output wav path (multi-source models append _0, _1, …)")
     ap.add_argument("--artifact", help="artifact dir with params.pt + manifest.json")
     ap.add_argument("--seed", type=int, default=0, help="random-parameter seed when no artifact")

@@ -2,10 +2,11 @@
 
 Counterpart of ``audiojax.runtime.streaming``.  ``Session`` serves a model
 stateless per window; for a model whose spec has a ``make_stream`` hook
-(GTCRN, DFSMN, UL-UNAS, NKF-AEC) ``StreamingSession`` and
+(GTCRN, DFSMN, UL-UNAS and the echo cancellers NKF-AEC, SDAEC, Deep-Echo
+and DFSMN-AEC) ``StreamingSession`` and
 ``StreamingServer`` carry the model's temporal state from chunk to chunk
 instead, so the latency falls from a window to one block plus the synthesis
-delay (n_fft − hop).
+delay (n_fft − hop; 2·hop for the DFSMN-AEC cascade).
 
 ``push`` takes int16 chunks of any length (one per model input: an echo
 canceller takes (near, far)); the lane buffers them into fixed blocks of

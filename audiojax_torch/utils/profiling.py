@@ -1,0 +1,65 @@
+"""Real-time factor of a model function, on the card or the CPU.
+
+Counterpart of ``audiojax.utils.profiling``, with the same contract: the
+passes are chained (each output feeds the next pass as its input: both are
+int16 of one shape), ``settle`` extra passes run after a warm-up call before
+any timing, and ``repeats`` timed loops of ``iters`` passes each report the
+fastest loop (noise on a shared host only ever adds time).
+
+On the card a loop is timed by CUDA events on the current stream, recorded
+after a synchronize, so the time runs from the loop's first launch to its
+last kernel's end, host gaps included; the JAX package syncs by a host
+transfer, which the card does not need.  On the CPU a loop is timed by the
+host clock.
+"""
+from __future__ import annotations
+
+import time
+
+import torch
+
+__all__ = ["measure_rtf"]
+
+
+def _chain(y):
+    # a multi-output model (separation, AEC + VAD) returns a tuple whose first
+    # output is audio-shaped like the input: it carries the chain
+    return y[0] if isinstance(y, (tuple, list)) else y
+
+
+def measure_rtf(fn, params, audio: torch.Tensor, *, sample_rate: int, iters: int = 20,
+                warmup: bool = True, settle: int = 12, repeats: int = 1) -> dict:
+    """Steady-state real-time factor of ``fn(params, audio) -> audio-like``.
+
+    Returns ``latency_s`` (seconds a pass, from the fastest of ``repeats``
+    loops), ``audio_s`` (the input's duration at ``sample_rate``) and
+    ``rtf`` (their ratio)."""
+    cuda = audio.device.type == "cuda"
+    with torch.inference_mode():
+        if warmup:
+            _chain(fn(params, audio))
+            x = audio
+            for _ in range(settle):
+                x = _chain(fn(params, x))
+        best = float("inf")
+        x = audio
+        for _ in range(max(repeats, 1)):
+            if cuda:
+                torch.cuda.synchronize(audio.device)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(iters):
+                    x = _chain(fn(params, x))
+                end.record()
+                end.synchronize()
+                elapsed = start.elapsed_time(end) / 1e3
+            else:
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    x = _chain(fn(params, x))
+                elapsed = time.perf_counter() - t0
+            best = min(best, elapsed)
+    latency = best / iters
+    duration = audio.shape[-1] / sample_rate
+    return {"latency_s": latency, "audio_s": duration, "rtf": latency / duration}

@@ -1,16 +1,19 @@
-"""Synthetic upstream-layout checkpoints for the eight families the port serves.
+"""Synthetic upstream-layout checkpoints for the eleven families the port serves.
 
 ``build_<family>_state_dict(cfg, seed)`` returns a dict of CPU float32
 tensors under the upstream module names, at any config (the defaults are
 full width and depth).  The key sets are those of the JAX package's own
 importer tests (``tests/test_importers.py``: ``_gtcrn_state_dict``,
-``_ul_unas_state_dict``, ``_m2se_state_dict``, the NKF KGNet replica and the
-inline MossFormer2-SS, MossFormerGAN-SE, ZipEnhancer and DFSMN builders), plus
+``_ul_unas_state_dict``, ``_m2se_state_dict``, ``_sdaec_state_dict``, the NKF
+KGNet replica and the inline MossFormer2-SS, MossFormerGAN-SE, ZipEnhancer,
+DFSMN, Deep-Echo and DFSMN-AEC cascade builders), plus
 GTCRN's frozen ERB bank (``erb.erb_fc`` / ``erb.ierb_fc``, set to the
 analytic bank the model bakes in; UL-UNAS's learned bank is set to it too).
 Values come from numpy's generator at ``seed``: weights uniform in
 ±1/sqrt(fan_in) (torch's default init), norm gains in [0.5, 1.5], small
-shifts, BatchNorm statistics as those tests draw them, PReLU slopes 0.25
+shifts (the ICCRN LayerNorms' (1, C, F, 1) ``w`` and ``b`` too), BatchNorm
+statistics as those tests draw them, LSTM weights uniform in ±1/sqrt(hidden)
+(torch's), PReLU slopes 0.25
 (NKF's 0.2 and 0.1, as its replica's), AffinePReLU gains N(1, 0.1).  NKF's
 last KGNet layer (weight and bias) is drawn at ``RANDOM_GAIN_SCALE`` times
 that bound, as the port's random init draws it: a Kalman gain of torch's
@@ -31,20 +34,24 @@ import pytest
 import torch
 
 from audiojax_torch.importers import import_checkpoint
+from audiojax_torch.models.deep_echo import DeepEchoConfig, init_deep_echo_numpy
 from audiojax_torch.models.dfsmn import DfsmnConfig, init_dfsmn_numpy
+from audiojax_torch.models.dfsmn_aec import DfsmnAecConfig, init_dfsmn_aec_numpy, mask_net_config
 from audiojax_torch.models.gtcrn import GtcrnConfig, init_gtcrn_numpy
 from audiojax_torch.models.mossformer2_ss import MossFormer2SsConfig, init_mossformer2_ss_numpy
 from audiojax_torch.models.mossformer2_se import MossFormer2SeConfig, init_mossformer2_se_numpy
 from audiojax_torch.models.mossformergan_se import MossFormerGanConfig, init_mossformergan_numpy
 from audiojax_torch.models.nkf_aec import RANDOM_GAIN_SCALE, NkfConfig, init_nkf_numpy
+from audiojax_torch.models.sdaec import SdaecConfig, init_sdaec_numpy
 from audiojax_torch.models.ul_unas import UlUnasConfig, init_ul_unas_numpy
 from audiojax_torch.models.zipenhancer import ZipEnhancerConfig, init_zipenhancer_numpy
 from audiojax_torch.nn.erb import erb_filters
 
 # The tiny widths of the port's model tests (tests/test_torch_mossformergan.py,
 # tests/test_torch_zipenhancer.py, tests/test_torch_mossformer2_ss.py,
-# tests/test_torch_dfsmn.py, tests/test_torch_mossformer2_se.py); GTCRN,
-# UL-UNAS (a fixed NAS plan) and NKF are small at their defaults.
+# tests/test_torch_dfsmn.py, tests/test_torch_mossformer2_se.py), the
+# cascade's mask net at DFSMN's; GTCRN, UL-UNAS (a fixed NAS plan), NKF,
+# SDAEC and Deep-Echo are small at their defaults.
 TINY = {
     "dfsmn": dict(depth=2, hidden=32, lorder=6),
     "gtcrn": {},
@@ -61,11 +68,15 @@ TINY = {
                            fsmn_inner=32, dw_kernel=5, rot_dim=8, lorder=5),
     "ul_unas": {},
     "nkf_aec": {},
+    "sdaec": {},
+    "deep_echo": {},
+    "dfsmn_aec": dict(depth=2, hidden=32, lorder=6),
 }
 CONFIGS = {"gtcrn": GtcrnConfig, "mossformergan_se": MossFormerGanConfig,
            "zipenhancer": ZipEnhancerConfig, "mossformer2_ss": MossFormer2SsConfig,
            "dfsmn": DfsmnConfig, "mossformer2_se": MossFormer2SeConfig,
-           "ul_unas": UlUnasConfig, "nkf_aec": NkfConfig}
+           "ul_unas": UlUnasConfig, "nkf_aec": NkfConfig, "sdaec": SdaecConfig,
+           "deep_echo": DeepEchoConfig, "dfsmn_aec": DfsmnAecConfig}
 
 
 def tiny_config(name: str):
@@ -129,6 +140,20 @@ class _StateDict:
 
     def prelu(self, key: str, n: int = 1, slope: float = 0.25) -> None:
         self.put(f"{key}.weight", np.full((n,), slope))
+
+    def lstm(self, key: str, inp: int, hidden: int, layers: int = 1,
+             bidirectional: bool = False) -> None:
+        """nn.LSTM: per layer (and direction) weight_ih / weight_hh / bias_ih /
+        bias_hh, gate order i|f|g|o."""
+        bound = 1.0 / math.sqrt(hidden)
+        for layer in range(layers):
+            d_in = inp if layer == 0 else hidden * (2 if bidirectional else 1)
+            for suffix in ("", "_reverse") if bidirectional else ("",):
+                for name, shape in ((f"weight_ih_l{layer}", (4 * hidden, d_in)),
+                                    (f"weight_hh_l{layer}", (4 * hidden, hidden)),
+                                    (f"bias_ih_l{layer}", (4 * hidden,)),
+                                    (f"bias_hh_l{layer}", (4 * hidden,))):
+                    self.uniform(f"{key}.{name}{suffix}", shape, -bound, bound)
 
     def gru(self, key: str, inp: int, hidden: int, bidirectional: bool = False) -> None:
         bound = 1.0 / math.sqrt(hidden)
@@ -572,6 +597,80 @@ def build_nkf_aec_state_dict(cfg: NkfConfig = NkfConfig(), seed: int = 0) -> dic
     return s.sd
 
 
+# ── SDAEC, Deep-Echo and the DFSMN-AEC cascade ──────────────────────────────
+
+
+def _iccrn_ln(s: _StateDict, key: str, ch: int, f: int) -> None:
+    """An ICCRN LayerNorm: raw (1, C, F, 1) ``w`` and ``b``."""
+    s.norm(key, (1, ch, f, 1), names=("w", "b"))
+
+
+def _ch_lstm(s: _StateDict, key: str, cin: int, feat: int, out: int, bidirectional: bool,
+             layers: int = 1) -> None:
+    """CH_LSTM_F / CH_LSTM_T: an nn.LSTM as ``lstm2`` and its ``linear``."""
+    s.lstm(f"{key}.lstm2", cin, feat, layers, bidirectional)
+    s.linear(f"{key}.linear", out, (2 if bidirectional else 1) * feat)
+
+
+def _cfb(s: _StateDict, key: str, cin: int, c: int, f: int) -> None:
+    s.conv(f"{key}.conv_gate", c, cin, (1, 1))
+    s.conv(f"{key}.conv_input", c, cin, (1, 1))
+    s.conv(f"{key}.conv", c, c, (3, 1))
+    _iccrn_ln(s, f"{key}.LN0", cin, f)
+    _iccrn_ln(s, f"{key}.LN1", c, f)
+    _iccrn_ln(s, f"{key}.LN2", c, f)
+    _iccrn_ln(s, f"{key}.ceps_unit.LN", 2 * c, f // 2 + 1)
+    _ch_lstm(s, f"{key}.ceps_unit.ch_lstm_f", 2 * c, c, 2 * c, bidirectional=True)
+
+
+def _iccrn(s: _StateDict, c: int, f: int, levels: int, head: int) -> None:
+    """The ICCRN trunk shared by SDAEC (5 levels, a 2-channel head) and
+    Deep-Echo (1 level, a 2·order head)."""
+    _ch_lstm(s, "in_ch_lstm", 4, c, c, bidirectional=True)
+    s.conv("in_conv", c, 4 + c, (1, 1))
+    for i in range(1, levels + 1):
+        _cfb(s, f"cfb_e{i}", c, c, f)
+    _iccrn_ln(s, "ln", c, f)
+    _ch_lstm(s, "ch_lstm", c, 2 * c, c, bidirectional=False, layers=2)
+    _cfb(s, f"cfb_d{levels}", c, c, f)
+    for i in range(levels - 1, 0, -1):
+        _cfb(s, f"cfb_d{i}", 2 * c, c, f)
+    _ch_lstm(s, "out_ch_lstm", 2 * c, c, 2 * c, bidirectional=False)
+    s.conv("out_conv", head, 3 * c, (1, 1))
+
+
+def build_sdaec_state_dict(cfg: SdaecConfig = SdaecConfig(), seed: int = 0) -> dict:
+    """The union of the upstream ICCRN and AlphaPredictor checkpoints
+    (``_sdaec_state_dict`` of the JAX tests)."""
+    s = _StateDict(seed)
+    _iccrn(s, cfg.channels, cfg.f_bins, 5, 2)
+    s.linear("linear1", 1, 2)
+    s.linear("linear2", 1, cfg.alpha_k)
+    return s.sd
+
+
+def build_deep_echo_state_dict(cfg: DeepEchoConfig = DeepEchoConfig(), seed: int = 0) -> dict:
+    """The upstream Deep-Echo layout (the inline builder of the JAX tests'
+    ``test_import_deep_echo_structure_and_forward``)."""
+    s = _StateDict(seed)
+    _iccrn(s, cfg.channels, cfg.f_bins, 1, 2 * cfg.echo_order)
+    return s.sd
+
+
+def build_dfsmn_aec_state_dict(cfg: DfsmnAecConfig = DfsmnAecConfig(), seed: int = 0) -> dict:
+    """The union of the backend's checkpoint and the ModelScope DFSMN-AEC net
+    (the JAX tests' ``test_import_dfsmn_aec_cascade``), with the ``linear3``
+    VAD head where ``cfg.output_vad``."""
+    backend = {"sdaec": build_sdaec_state_dict, "deep_echo": build_deep_echo_state_dict,
+               "nkf": build_nkf_aec_state_dict}[cfg.backend]
+    sd = {**backend(seed=seed), **build_dfsmn_state_dict(mask_net_config(cfg), seed=seed + 1)}
+    if cfg.output_vad:
+        s = _StateDict(seed + 2)
+        s.linear("linear3.linear", 1, cfg.hidden)
+        sd.update(s.sd)
+    return sd
+
+
 BUILDERS = {
     "dfsmn": build_dfsmn_state_dict,
     "gtcrn": build_gtcrn_state_dict,
@@ -581,15 +680,34 @@ BUILDERS = {
     "mossformer2_se": build_mossformer2_se_state_dict,
     "ul_unas": build_ul_unas_state_dict,
     "nkf_aec": build_nkf_aec_state_dict,
+    "sdaec": build_sdaec_state_dict,
+    "deep_echo": build_deep_echo_state_dict,
+    "dfsmn_aec": build_dfsmn_aec_state_dict,
 }
 
 
 # ── the builders' own tests (no JAX) ─────────────────────────────────────────
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the port while a module that imports this
+    fixture runs.  The echo cancellers' forwards are Python loops of tens of
+    thousands of small ops; beside the other test workers, each worker's
+    thread pool made each op wait on the others (an SDAEC window on the CPU
+    took ~100 s instead of ~3 s under six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 INIT_NUMPY = {"gtcrn": init_gtcrn_numpy, "mossformergan_se": init_mossformergan_numpy,
               "zipenhancer": init_zipenhancer_numpy, "mossformer2_ss": init_mossformer2_ss_numpy,
               "dfsmn": init_dfsmn_numpy, "mossformer2_se": init_mossformer2_se_numpy,
-              "ul_unas": init_ul_unas_numpy, "nkf_aec": init_nkf_numpy}
+              "ul_unas": init_ul_unas_numpy, "nkf_aec": init_nkf_numpy,
+              "sdaec": init_sdaec_numpy, "deep_echo": init_deep_echo_numpy,
+              "dfsmn_aec": init_dfsmn_aec_numpy}
 # leaves an imported tree has and a random one does not: UL-UNAS's learned ERB
 # bank (random parameters take the analytic bank)
 IMPORT_ONLY = {"ul_unas": {"/erb/fc": (192, 64), "/erb/ifc": (64, 192)}}

@@ -23,7 +23,7 @@ import torch
 
 from audiojax.runtime.checkpoint import load_artifact as jload
 from audiojax.runtime.export import export_artifact as jexport
-from test_torch_ckpt_builders import BUILDERS, TINY, tiny_config
+from test_torch_ckpt_builders import BUILDERS, TINY, one_thread, tiny_config  # noqa: F401
 from test_torch_importers import JCONFIGS, assert_trees_equal
 
 from audiojax_torch.importers import import_checkpoint

@@ -1,21 +1,23 @@
 """The port's checkpoint importers against audiojax.importers.
 
 Each family's synthetic upstream-layout dict (``test_torch_ckpt_builders``)
-goes through both packages' ``import_checkpoint``.  GTCRN, UL-UNAS and NKF
-run at their defaults, the others at the tiny widths of the port's model
-tests.
+goes through both packages' ``import_checkpoint``.  GTCRN, UL-UNAS, NKF,
+SDAEC and Deep-Echo run at their defaults, the others at the tiny widths of
+the port's model tests (the DFSMN-AEC cascade: its default SDAEC backend and
+DFSMN's tiny mask net).
 
 Trees: the same key paths and shapes, float32 everywhere, and values equal
 bit for bit — both packages run the same float64 numpy recipes and cast
 once.  Forward: the port's ``Session`` on its tree (CPU) against the JAX
 ``Session`` on the JAX tree, ≥ 40 dB int16 SNR for each source, with a
 reference output of at least 100 LSB RMS so that the gate measures
-something; NKF takes a (near, far) pair.  ZipEnhancer's clip starts with
+something; the echo cancellers take a (near, far) pair.  ZipEnhancer's clip starts with
 201 silent samples: the first
 STFT frame's phase feature is otherwise the sign of rounding noise
 (``tests/test_torch_zipenhancer.py``).  Drift fails closed in both
 packages, with equal messages and equal JSON reports.
 """
+import dataclasses
 import json
 
 import numpy as np
@@ -26,19 +28,24 @@ import jax
 import jax.numpy as jnp
 
 from audiojax.importers import import_checkpoint as jimport
+from audiojax.models import deep_echo as JDE
 from audiojax.models import dfsmn as JDF
+from audiojax.models import dfsmn_aec as JDA
 from audiojax.models import gtcrn as JG
 from audiojax.models import mossformer2_se as JSE
 from audiojax.models import mossformer2_ss as JSS
 from audiojax.models import mossformergan_se as JGAN
 from audiojax.models import nkf_aec as JNKF
+from audiojax.models import sdaec as JSD
 from audiojax.models import ul_unas as JUL
 from audiojax.models import zipenhancer as JZIP
 from audiojax.runtime import registry as jregistry
 from audiojax.runtime.session import Session as JSession
 from reference_loader import snr_db
-from test_importers import _gtcrn_state_dict, _m2se_state_dict, _ul_unas_state_dict
-from test_torch_ckpt_builders import BUILDERS, TINY, flat_tree, import_kwargs, tiny_config
+from test_importers import (_gtcrn_state_dict, _m2se_state_dict, _sdaec_state_dict,
+                            _ul_unas_state_dict)
+from test_torch_ckpt_builders import (BUILDERS, TINY, flat_tree, import_kwargs,  # noqa: F401
+                                     one_thread, tiny_config)
 
 from audiojax_torch.importers import import_checkpoint as timport
 from audiojax_torch.importers.common import KeyTracker, unwrap_state_dict
@@ -52,9 +59,11 @@ FAMILIES = sorted(BUILDERS)
 JCONFIGS = {"gtcrn": JG.GtcrnConfig, "mossformergan_se": JGAN.MossFormerGanConfig,
             "zipenhancer": JZIP.ZipEnhancerConfig, "mossformer2_ss": JSS.MossFormer2SsConfig,
             "dfsmn": JDF.DfsmnConfig, "mossformer2_se": JSE.MossFormer2SeConfig,
-            "ul_unas": JUL.UlUnasConfig, "nkf_aec": JNKF.NkfConfig}
+            "ul_unas": JUL.UlUnasConfig, "nkf_aec": JNKF.NkfConfig, "sdaec": JSD.SdaecConfig,
+            "deep_echo": JDE.DeepEchoConfig, "dfsmn_aec": JDA.DfsmnAecConfig}
 SEEDS = {"gtcrn": 11, "mossformergan_se": 12, "zipenhancer": 13, "mossformer2_ss": 14,
-         "dfsmn": 15, "mossformer2_se": 16, "ul_unas": 17, "nkf_aec": 18}
+         "dfsmn": 15, "mossformer2_se": 16, "ul_unas": 17, "nkf_aec": 18, "sdaec": 19,
+         "deep_echo": 20, "dfsmn_aec": 21}
 
 
 def _configs(name):
@@ -112,20 +121,101 @@ def _nkf_key_shapes(cfg) -> dict:
     return out
 
 
-@pytest.mark.parametrize("name", ["mossformer2_se", "ul_unas", "nkf_aec"])
+def _deep_echo_key_shapes(c=20, order=10) -> dict:
+    """The key set of the JAX tests' inline Deep-Echo builder
+    (``tests/test_importers.py:423-465``), from the same torch modules."""
+    nn = torch.nn
+    out = {}
+
+    def conv2d(key, cin, cout, ksz):
+        out.update({f"{key}.{n}": tuple(v.shape) for n, v in nn.Conv2d(cin, cout, ksz)
+                    .state_dict().items()})
+
+    def iccrn_ln(key, ch, f):
+        out.update({f"{key}.w": (1, ch, f, 1), f"{key}.b": (1, ch, f, 1)})
+
+    def ch_lstm(key, cin, feat, o, bi, layers=1):
+        out.update({f"{key}.lstm2.{n}": tuple(v.shape) for n, v in
+                    nn.LSTM(cin, feat, num_layers=layers, bidirectional=bi).state_dict().items()})
+        out.update({f"{key}.linear.{n}": tuple(v.shape) for n, v in
+                    nn.Linear((2 if bi else 1) * feat, o).state_dict().items()})
+
+    def cfb(key, cin):
+        conv2d(f"{key}.conv_gate", cin, c, (1, 1))
+        conv2d(f"{key}.conv_input", cin, c, (1, 1))
+        conv2d(f"{key}.conv", c, c, (3, 1))
+        for ln, ch in (("LN0", cin), ("LN1", c), ("LN2", c)):
+            iccrn_ln(f"{key}.{ln}", ch, 160)
+        iccrn_ln(f"{key}.ceps_unit.LN", 2 * c, 81)
+        ch_lstm(f"{key}.ceps_unit.ch_lstm_f", 2 * c, c, 2 * c, bi=True)
+
+    ch_lstm("in_ch_lstm", 4, c, c, bi=True)
+    conv2d("in_conv", 4 + c, c, (1, 1))
+    cfb("cfb_e1", c)
+    iccrn_ln("ln", c, 160)
+    ch_lstm("ch_lstm", c, 2 * c, c, bi=False, layers=2)
+    cfb("cfb_d1", c)
+    ch_lstm("out_ch_lstm", 2 * c, c, 2 * c, bi=False)
+    conv2d("out_conv", 3 * c, 2 * order, (1, 1))
+    return out
+
+
+def _dfsmn_aec_key_shapes(cfg) -> dict:
+    """The JAX tests' cascade union (``tests/test_importers.py:550-578``):
+    ``_sdaec_state_dict`` plus the mask net's and the VAD head's keys."""
+    out = {k: tuple(v.shape) for k, v in _sdaec_state_dict().items()}
+    feat, h, bins = 3 * cfg.n_mels, cfg.hidden, cfg.mask_bins
+    out.update({"linear1.linear.weight": (h, feat), "linear1.linear.bias": (h,),
+                "linear2.linear.weight": (bins, h), "linear2.linear.bias": (bins,)})
+    if cfg.output_vad:
+        out.update({"linear3.linear.weight": (1, h), "linear3.linear.bias": (1,)})
+    for i in range(cfg.depth):
+        out.update({f"deepfsmn.{i}.linear.weight": (h, h), f"deepfsmn.{i}.linear.bias": (h,),
+                    f"deepfsmn.{i}.project.weight": (h, h),
+                    f"deepfsmn.{i}.conv1.weight": (h, 1, cfg.lorder, 1)})
+    return out
+
+
+@pytest.mark.parametrize("name", ["mossformer2_se", "ul_unas", "nkf_aec", "sdaec", "deep_echo",
+                                  "dfsmn_aec"])
 def test_builder_keys_are_the_jax_tests(name):
-    """The MossFormer2-SE, UL-UNAS and NKF builders' keys and shapes are those of
-    the JAX tests' ``_m2se_state_dict``, ``_ul_unas_state_dict`` and NKF replica."""
+    """The MossFormer2-SE, UL-UNAS, NKF, SDAEC, Deep-Echo and DFSMN-AEC
+    builders' keys and shapes are those of the JAX tests' ``_m2se_state_dict``,
+    ``_ul_unas_state_dict``, NKF replica, ``_sdaec_state_dict``, inline
+    Deep-Echo builder and cascade union (with the VAD head)."""
     cfg = tiny_config(name)
+    if name == "dfsmn_aec":
+        cfg = dataclasses.replace(cfg, output_vad=True)
     ours = {k: tuple(v.shape) for k, v in BUILDERS[name](cfg, seed=0).items()}
     if name == "mossformer2_se":
         theirs = {k: tuple(v.shape)
                   for k, v in _m2se_state_dict(JCONFIGS[name](**TINY[name])).items()}
     elif name == "ul_unas":
         theirs = {k: tuple(v.shape) for k, v in _ul_unas_state_dict().items()}
+    elif name == "sdaec":
+        theirs = {k: tuple(v.shape) for k, v in _sdaec_state_dict().items()}
+    elif name == "deep_echo":
+        theirs = _deep_echo_key_shapes()
+    elif name == "dfsmn_aec":
+        theirs = _dfsmn_aec_key_shapes(cfg)
     else:
         theirs = _nkf_key_shapes(cfg)
     assert ours == theirs
+
+
+def test_dfsmn_aec_cmvn_and_vad_head_equal_jax(tmp_path):
+    """The cascade's optional parts: the CMVN fold into the first affine and
+    the ``linear3`` VAD head, bit for bit against the JAX importer, every key
+    read."""
+    cfg = dataclasses.replace(tiny_config("dfsmn_aec"), output_vad=True, backend="deep_echo")
+    jcfg = JDA.DfsmnAecConfig(**dataclasses.asdict(cfg))
+    sd = BUILDERS["dfsmn_aec"](cfg, seed=5)
+    rng = np.random.default_rng(3)
+    cmvn = (rng.standard_normal(3 * cfg.n_mels).astype(np.float32),
+            (rng.random(3 * cfg.n_mels) + 0.5).astype(np.float32))
+    tt = timport("dfsmn_aec", sd, cfg=cfg, cmvn=cmvn, report_path=tmp_path / "r.json")
+    assert_trees_equal(jimport("dfsmn_aec", sd, cfg=jcfg, cmvn=cmvn), tt)
+    assert "vad_head" in tt and json.loads((tmp_path / "r.json").read_text())["unconsumed"] == []
 
 
 def _clip(name, n, seed):
@@ -208,7 +298,10 @@ REQUIRED = {"gtcrn": "dpgrnn2.inter_rnn.rnn1.weight_hh_l0",
             "mossformer2_se": "mossformer_se.mdl.intra_mdl.mossformerM.fsmn.1"
                               ".gated_fsmn.fsmn.conv1.weight",
             "ul_unas": "dpgrnn.1.inter_rnn.rnn1.weight_hh_l0",
-            "nkf_aec": "kg_net.fc_out.2.linear_imag.weight"}
+            "nkf_aec": "kg_net.fc_out.2.linear_imag.weight",
+            "sdaec": "cfb_d3.ceps_unit.ch_lstm_f.lstm2.weight_hh_l0_reverse",
+            "deep_echo": "ch_lstm.lstm2.weight_ih_l1",
+            "dfsmn_aec": "deepfsmn.1.project.weight"}
 
 
 @pytest.mark.parametrize("name", FAMILIES)
@@ -262,7 +355,8 @@ def test_unwrap_keeps_the_tracker():
     assert list(stripped) == ["a.weight"]
 
 
-@pytest.mark.parametrize("name", ["sdaec", "deep_echo", "h_gtcrn", "no_such_model"])
+@pytest.mark.parametrize("name", ["melband_roformer", "mossformer2_sr", "h_gtcrn",
+                                  "no_such_model"])
 def test_unported_family_names_roadmap(imported, name):
     with pytest.raises(KeyError, match="ROADMAP A.9") as e:
         timport(name, imported["gtcrn"][2])

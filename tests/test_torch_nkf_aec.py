@@ -33,7 +33,7 @@ from audiojax.models import nkf_aec as J
 from audiojax.nn import rnn as JR
 from audiojax.runtime import registry as jregistry
 from audiojax.runtime.session import Session as JSession
-from test_torch_ckpt_builders import flat_tree
+from test_torch_ckpt_builders import flat_tree, one_thread  # noqa: F401  (autouse)
 
 from audiojax_torch.models import nkf_aec as T
 from audiojax_torch.nn import rnn as TR

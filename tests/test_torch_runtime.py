@@ -51,7 +51,11 @@ def test_import_pulls_in_no_jax():
         "        'audiojax_torch.frontend.kaldi', 'audiojax_torch.importers.dfsmn',\n"
         "        'audiojax_torch.models.mossformer2_se', 'audiojax_torch.models.ul_unas',\n"
         "        'audiojax_torch.models.nkf_aec', 'audiojax_torch.importers.ul_unas',\n"
-        "        'audiojax_torch.importers.nkf'} <= set(mods)\n"
+        "        'audiojax_torch.importers.nkf', 'audiojax_torch.nn.cfb',\n"
+        "        'audiojax_torch.models.sdaec', 'audiojax_torch.models.deep_echo',\n"
+        "        'audiojax_torch.models.dfsmn_aec', 'audiojax_torch.importers.sdaec',\n"
+        "        'audiojax_torch.importers.deep_echo', 'audiojax_torch.importers.dfsmn_aec',\n"
+        "        'audiojax_torch.runtime.vad', 'audiojax_torch.utils.profiling'} <= set(mods)\n"
         "assert len(mods) > 15, mods\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'audiojax', 'flax', 'msgpack'))\n"
@@ -244,14 +248,15 @@ def test_cli_stream_refuses_a_model_without_streaming(tmp_path, capsys):
     _write_wav(src, np.zeros(16000, np.int16))
     assert cli.main(["--model", "zipenhancer", "--input", str(src), "--device", "cpu",
                      "--stream"]) == 2
-    assert ("streaming models: ['dfsmn', 'gtcrn', 'nkf_aec', 'ul_unas']"
-            in capsys.readouterr().err)
+    assert ("streaming models: ['deep_echo', 'dfsmn', 'dfsmn_aec', 'gtcrn', 'nkf_aec', "
+            "'sdaec', 'ul_unas']" in capsys.readouterr().err)
 
 
 def test_cli_list_and_default_device(no_cuda, tmp_path, capsys):
     assert cli.main(["--list"]) == 0
-    assert capsys.readouterr().out.split() == ["dfsmn", "gtcrn", "mossformer2_se",
-                                               "mossformer2_ss", "mossformergan_se", "nkf_aec",
+    assert capsys.readouterr().out.split() == ["deep_echo", "dfsmn", "dfsmn_aec", "gtcrn",
+                                               "mossformer2_se", "mossformer2_ss",
+                                               "mossformergan_se", "nkf_aec", "sdaec",
                                                "ul_unas", "zipenhancer"]
     src = tmp_path / "in.wav"
     _write_wav(src, np.zeros(16000, np.int16))

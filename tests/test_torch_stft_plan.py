@@ -277,6 +277,12 @@ SERVING_NEW = [(UL_UNAS, 4, 32000), (UL_UNAS, 16, 32000),
                (dataclasses.replace(UL_UNAS, center=False), 8, 1280), (NKF, 8, 32000),
                (NKF, 32, 32000), (dataclasses.replace(NKF, center=False), 16, 1792),
                (ZOO[7], 4, 96000), (ZOO[7], 16, 96000)]
+# SDAEC's and Deep-Echo's near‖far at a 6 s and a 30 s request, the
+# DFSMN-AEC cascade's SDAEC backend, their stream steps, the mask synthesis
+SERVING_NEW += [(ZOO[4], 2, 160000), (ZOO[4], 8, 160000), (ZOO[4], 8, 32000),
+                (dataclasses.replace(ZOO[4], center=False), 16, 799),
+                (dataclasses.replace(ZOO[4], center=False), 16, 1439),
+                (ZOO[8], 4, 32000), (ZOO[8], 16, 32000)]
 SERVING += SERVING_NEW
 SERVING_IDS += [f"{c.n_fft}-{c.hop}-{c.window}-{'c' if c.center else 'u'}-{b}x{n}"
                 for c, b, n in SERVING_NEW]
