@@ -11,8 +11,8 @@ key means the upstream layout drifted, and the import aborts with the
 leftover keys instead of dropping weights.  ``report_path`` writes a JSON
 audit report with the same keys as the JAX package's.
 
-The port has importers for the eleven families it serves; each other family's
-importer comes with that family's slice (ROADMAP A.9).
+The port has an importer for every family it serves, the fourteen the JAX
+package serves (Mel-Band Roformer's mono and stereo names share one).
 """
 from __future__ import annotations
 
@@ -25,9 +25,11 @@ from .common import KeyTracker, unwrap_state_dict
 from .deep_echo import import_deep_echo
 from .dfsmn import import_dfsmn
 from .dfsmn_aec import import_dfsmn_aec
-from .gtcrn import import_gtcrn
+from .gtcrn import import_gtcrn, import_h_gtcrn
+from .melband import import_melband
 from .mossformer2_se import import_mossformer2_se
 from .mossformer2_ss import import_mossformer2_ss
+from .mossformer_sr import import_mossformer_sr
 from .mossformergan_se import import_mossformergan_se
 from .nkf import import_nkf
 from .sdaec import import_sdaec
@@ -46,6 +48,10 @@ _IMPORTERS = {
     "sdaec": import_sdaec,
     "deep_echo": import_deep_echo,
     "dfsmn_aec": import_dfsmn_aec,
+    "melband_roformer": import_melband,
+    "melband_roformer_stereo": import_melband,
+    "mossformer2_sr": import_mossformer_sr,
+    "h_gtcrn": import_h_gtcrn,
 }
 
 # torch bookkeeping buffers that carry no weights — ignored, not drift.
@@ -57,16 +63,15 @@ _IGNORED = re.compile(r"num_batches_tracked$|^_metadata")
 def import_checkpoint(model_name: str, ckpt, *, strict: bool = True, report_path=None, **kw):
     """Upstream state dict (or a wrapper of one) → numpy parameter tree.
 
-    ``kw`` goes to the family's importer (``cfg=`` for all but GTCRN and
-    DFSMN; UL-UNAS's, NKF's, SDAEC's and Deep-Echo's take it and need none;
-    DFSMN-AEC's reads its backend from it and also takes ``cmvn=``).  With ``strict`` (the
-    default) unread checkpoint keys raise ``ValueError``; a key the recipe
-    needs and the checkpoint lacks raises ``KeyError``."""
+    ``kw`` goes to the family's importer (``cfg=`` for all but GTCRN,
+    H-GTCRN and DFSMN; Mel-Band's also takes ``stem=``; UL-UNAS's, NKF's,
+    SDAEC's and Deep-Echo's take it and need none; DFSMN-AEC's reads its
+    backend from it and also takes ``cmvn=``).  With ``strict`` (the default)
+    unread checkpoint keys raise ``ValueError``; a key the recipe needs and
+    the checkpoint lacks raises ``KeyError``."""
     if model_name not in _IMPORTERS:
         raise KeyError(
-            f"no importer registered for {model_name!r} in the port; available: "
-            f"{sorted(_IMPORTERS)}; each other family's importer comes with its "
-            "slice (ROADMAP A.9)"
+            f"no importer registered for {model_name!r}; available: {sorted(_IMPORTERS)}"
         )
     tracker = KeyTracker(unwrap_state_dict(ckpt))
     params = _IMPORTERS[model_name](tracker, **kw)
@@ -95,6 +100,7 @@ def import_checkpoint(model_name: str, ckpt, *, strict: bool = True, report_path
 
 
 __all__ = ["common", "import_checkpoint", "import_deep_echo", "import_dfsmn",
-           "import_dfsmn_aec", "import_gtcrn", "import_mossformergan_se",
-           "import_mossformer2_se", "import_mossformer2_ss", "import_nkf", "import_sdaec",
-           "import_ul_unas", "import_zipenhancer"]
+           "import_dfsmn_aec", "import_gtcrn", "import_h_gtcrn", "import_melband",
+           "import_mossformer_sr", "import_mossformergan_se", "import_mossformer2_se",
+           "import_mossformer2_ss", "import_nkf", "import_sdaec", "import_ul_unas",
+           "import_zipenhancer"]

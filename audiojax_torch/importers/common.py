@@ -32,6 +32,7 @@ __all__ = [
     "fuse_bn_deconv2d",
     "fold_ln_into_linear",
     "prelu_alpha",
+    "stereo_to_mono_linear",
 ]
 
 
@@ -203,3 +204,13 @@ def fold_ln_into_linear(sd, ln_key, lin_key):
 
 def prelu_alpha(sd, key):
     return {"alpha": to_np(sd[f"{key}.weight"]).astype(np.float32)}
+
+
+def stereo_to_mono_linear(w):
+    """Mel-Band mono folding: average the interleaved L/R input columns of a
+    band-split Linear.  w: torch-layout (out, 2·win) → (out, win); a stereo
+    band's columns run (bin, channel, re/im)."""
+    w = to_np(w)
+    out, win2 = w.shape
+    w4 = w.reshape(out, win2 // 4, 2, 2)  # (out, bins, ch, complex)
+    return w4.mean(axis=2).reshape(out, win2 // 2).astype(np.float32)

@@ -11,6 +11,12 @@ fused into their convs here, at import.  Key map (upstream names):
   dpgrnn{1,2}              GRNN pairs (rnn1, rnn2 ± _reverse), fc, ln
   decoder.de_convs.{0..4}  mirrored with ConvTranspose2d modules
   erb.{erb_fc,ierb_fc}     the frozen ERB bank, checked against the formula
+
+``import_h_gtcrn`` reads H-GTCRN's GTCRN-IVA checkpoint: the same blocks,
+with each GT block's conv/bn/act nested under ``point_conv1``,
+``depth_conv`` and ``point_conv2``, regular (not transposed) convs in the
+decoder's GT blocks, an 18-channel first encoder conv and the ERB bank at
+scale 24.7.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from .common import (
     unwrap_state_dict,
 )
 
-__all__ = ["import_gtcrn"]
+__all__ = ["import_gtcrn", "import_h_gtcrn"]
 
 
 def _conv_block(sd, key, groups=1, deconv=False, last=False):
@@ -100,11 +106,24 @@ def _consume_erb(sd, n_low: int, n_erb: int, n_fft: int = 512, scale: float = 21
             )
 
 
-def import_gtcrn(ckpt):
-    """Upstream GTCRN checkpoint (state dict or wrapped) → numpy tree."""
-    sd = unwrap_state_dict(ckpt)
-    _consume_erb(sd, 65, 64)
-    params = {
+def _gt_block_nested(sd, key):
+    """H-GTCRN GT block: conv/bn/act nested one level deeper."""
+    pc1 = fuse_bn_conv2d(sd, f"{key}.point_conv1.conv", f"{key}.point_conv1.bn")
+    pc1["alpha"] = to_np(sd[f"{key}.point_conv1.act.weight"]).astype(np.float32)
+    hidden = pc1["w"].shape[-1]
+    return {
+        "pc1": pc1,
+        "depth": fuse_bn_conv2d(sd, f"{key}.depth_conv.conv", f"{key}.depth_conv.bn",
+                                groups=hidden),
+        "depth_a": {"alpha": to_np(sd[f"{key}.depth_conv.act.weight"]).astype(np.float32)},
+        "pc2": fuse_bn_conv2d(sd, f"{key}.point_conv2.conv", f"{key}.point_conv2.bn"),
+        "tra": _tra(sd, f"{key}.tra"),
+    }
+
+
+def _outer_blocks(sd) -> dict:
+    """The ConvBlocks and dual-path blocks GTCRN and H-GTCRN share."""
+    return {
         "enc0": _conv_block(sd, "encoder.en_convs.0"),
         "enc1": _conv_block(sd, "encoder.en_convs.1", groups=2),
         "dp1": _dpgrnn(sd, "dpgrnn1"),
@@ -112,8 +131,27 @@ def import_gtcrn(ckpt):
         "dec1": _conv_block(sd, "decoder.de_convs.3", groups=2, deconv=True),
         "dec0": _conv_block(sd, "decoder.de_convs.4", deconv=True, last=True),
     }
+
+
+def import_gtcrn(ckpt):
+    """Upstream GTCRN checkpoint (state dict or wrapped) → numpy tree."""
+    sd = unwrap_state_dict(ckpt)
+    _consume_erb(sd, 65, 64)
+    params = _outer_blocks(sd)
     for i, src in enumerate((2, 3, 4)):
         params[f"enc_gt{i}"] = _gt_block(sd, f"encoder.en_convs.{src}")
     for i in range(3):
         params[f"dec_gt{i}"] = _gt_block(sd, f"decoder.de_convs.{i}", deconv=True)
+    return params
+
+
+def import_h_gtcrn(ckpt):
+    """Upstream H-GTCRN (GTCRN-IVA) checkpoint → numpy tree."""
+    sd = unwrap_state_dict(ckpt)
+    _consume_erb(sd, 65, 64, scale=24.7)
+    params = _outer_blocks(sd)
+    for i, src in enumerate((2, 3, 4)):
+        params[f"enc_gt{i}"] = _gt_block_nested(sd, f"encoder.en_convs.{src}")
+    for i in range(3):
+        params[f"dec_gt{i}"] = _gt_block_nested(sd, f"decoder.de_convs.{i}")
     return params

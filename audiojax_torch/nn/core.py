@@ -1,9 +1,9 @@
 """Core NN building blocks in PyTorch — functional, channel-last.
 
-Counterpart of ``audiojax.nn.core``, with what GTCRN, MossFormerGAN,
-ZipEnhancer and MossFormer2-SS use.  Functions take a parameter dict and tensors; feature maps
-are channel-last ``(B, T, C)`` or ``(B, T, F, C)`` at every function's
-boundary, as in the JAX package, so the tests compare like with like.
+Counterpart of ``audiojax.nn.core``, with what the served families use.
+Functions take a parameter dict and tensors; feature maps are channel-last
+``(B, T, C)`` or ``(B, T, F, C)`` at every function's boundary, as in the JAX
+package, so the tests compare like with like.
 
 Weight layouts (set once by ``audiojax_torch.params.params_from_numpy``):
   dense             w: (in, out), b: (out,)
@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from ..ops.dwconv_cuda import fast_dwconv1d, fast_dwconv1d_grouped
 
 __all__ = ["dense", "prelu", "conv1d", "conv1d_transpose", "conv2d", "conv2d_transpose",
-           "layer_norm"]
+           "layer_norm", "rms_norm"]
 
 
 def dense(p, x: torch.Tensor) -> torch.Tensor:
@@ -143,3 +143,16 @@ def layer_norm(p, x: torch.Tensor, *, ndims: int = 1, eps: float = 1e-5) -> torc
     if p is not None and "g" in p:
         g, b = p["g"], p["b"]
     return F.layer_norm(x, x.shape[x.ndim - ndims:], g, b, eps)
+
+
+def rms_norm(p, x: torch.Tensor, *, eps: float = 1e-8) -> torch.Tensor:
+    """RMS normalisation over the last axis with an optional gain ``p['g']``.
+
+    The mean square is floored at the dtype's ``tiny`` even at ``eps=0``, so
+    an all-zero row (a silent window, or the zero windows that round a
+    request up to a power of two) gives 0, not 0·inf = NaN."""
+    ms = torch.mean(x * x, dim=-1, keepdim=True)
+    y = x * torch.rsqrt(torch.clamp(ms + eps, min=torch.finfo(x.dtype).tiny))
+    if p is not None and "g" in p:
+        y = y * p["g"]
+    return y

@@ -6,9 +6,8 @@ Counterpart of ``audiojax.nn.mossformer``, with what MossFormerGAN's GAU
 ``sinusoid_positions``, ``flash_layer`` (MossFormer2-SE/SS form, the
 ConvModules add their depthwise conv to their input), ``gated_fsmn_block``
 (MossFormer2-SE), ``instance_norm_t`` and ``gated_fsmn_block_dilated``
-(MossFormer2-SS).  ``ff_convm`` (MossFormer-SR's) is not ported yet.  Tables
-are computed in numpy float64, cast to float32 and cached, as in the JAX
-package.
+(MossFormer2-SS).  Tables are computed in numpy float64, cast to float32 and
+cached, as in the JAX package.
 
 On the card the FLASH layer's group-local relu² attention runs on kernel B6
 (``ops.attention_cuda``), every depthwise conv on B4, and the dilated FSMN's

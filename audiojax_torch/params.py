@@ -14,6 +14,9 @@ keys.  Every layout change happens here, once:
   * Transposed convs (1-D and 2-D) are stored by the JAX package as their
     equivalent forward kernel, and the port runs them as forward convs on
     the stride-dilated input, so they convert the same way.
+  * a ``w`` under a top-level key in ``STACKED_DENSE`` is a stack of per-band
+    dense weights ``(bands, in, out)`` (Mel-Band Roformer's ``me_hidden``),
+    not a conv kernel, and keeps its layout.
   * every other leaf (dense ``(in, out)``, GRU ``(…, in, 3H)``, biases,
     PReLU slopes, LayerNorm gains) keeps its layout.
 
@@ -27,7 +30,10 @@ import torch
 
 from .device import resolve_device
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "STACKED_DENSE"]
+
+# top-level keys whose 3-D ``w`` leaves are stacked dense weights (bands, in, out)
+STACKED_DENSE = ("me_hidden",)
 
 
 def _leaf(path: str, key: str, a, device: torch.device) -> torch.Tensor:
@@ -37,9 +43,9 @@ def _leaf(path: str, key: str, a, device: torch.device) -> torch.Tensor:
                         "(dicts and lists of float32 arrays)")
     if key == "w" and a.ndim == 4:
         a = np.transpose(a, (3, 2, 0, 1))
-    elif key == "w" and a.ndim == 3:
+    elif key == "w" and a.ndim == 3 and path.split("/")[0] not in STACKED_DENSE:
         a = np.transpose(a, (2, 1, 0))
-    elif key == "w" and a.ndim != 2:
+    elif key == "w" and a.ndim not in (2, 3):
         raise ValueError(f"no port layout for a {a.ndim}-D weight {a.shape} at {path!r}")
     return torch.from_numpy(np.array(a, order="C")).to(device)  # a writable copy
 

@@ -461,6 +461,117 @@ def _register_dfsmn_aec():
     )
 
 
+def _melband_manifest(cfg):
+    return Manifest(
+        model_name="melband_roformer" if cfg.channels == 1 else "melband_roformer_stereo",
+        task="vocal_separation",
+        model_family="mel_band_roformer",
+        in_sample_rate=cfg.in_sample_rate,
+        out_sample_rate=cfg.out_sample_rate,
+        model_sample_rate=cfg.sample_rate,
+        input_audio_length=88200 * cfg.in_sample_rate // 44100,
+        window_type=cfg.window,
+        nfft=cfg.n_fft,
+        window_length=cfg.n_fft,
+        hop_length=cfg.hop,
+        pad_mode=cfg.pad_mode,
+        center_pad=True,
+        input_channels=cfg.channels,
+        output_channels=cfg.channels,
+        max_dynamic_audio_seconds=30,
+        extra={"num_bands": cfg.num_bands, "dim": cfg.dim, "depth": cfg.depth},
+    )
+
+
+def _register_melband():
+    from ..models.melband_roformer import MelBandConfig, MelBandRoformer, init_melband
+
+    for name, make_config in (("melband_roformer", MelBandConfig),
+                              ("melband_roformer_stereo", partial(MelBandConfig, channels=2))):
+        register(
+            ModelSpec(
+                name=name,
+                task="vocal_separation",
+                make_config=make_config,
+                init_params=init_melband,
+                make_module=MelBandRoformer,
+                make_manifest=_melband_manifest,
+            )
+        )
+
+
+def _mossformer_sr_manifest(cfg):
+    return Manifest(
+        model_name="mossformer2_sr",
+        task="super_resolution",
+        model_family="mossformer2_sr",
+        in_sample_rate=cfg.in_sample_rate,
+        out_sample_rate=cfg.out_sample_rate,
+        model_sample_rate=cfg.out_sample_rate,
+        input_audio_length=32000,
+        input_to_output_scale=float(cfg.upsample_ratio),
+        window_type="hann",
+        nfft=cfg.n_fft,
+        window_length=cfg.n_fft,
+        hop_length=cfg.hop,
+        center_pad=False,
+        max_dynamic_audio_seconds=30,
+        overlap_length=12000,  # Session's Hann-taper OLA overlap (input samples)
+        extra={"n_mels": cfg.n_mels, "crossover_hz": cfg.crossover_hz},
+    )
+
+
+def _register_mossformer_sr():
+    from ..models.mossformer_sr import MossFormer2SR, MossFormerSrConfig, init_mossformer_sr
+
+    register(
+        ModelSpec(
+            name="mossformer2_sr",
+            task="super_resolution",
+            make_config=MossFormerSrConfig,
+            init_params=init_mossformer_sr,
+            make_module=MossFormer2SR,
+            make_manifest=_mossformer_sr_manifest,
+        )
+    )
+
+
+def _h_gtcrn_manifest(cfg):
+    return Manifest(
+        model_name="h_gtcrn",
+        task="denoise",
+        model_family="h-gtcrn",
+        in_sample_rate=cfg.in_sample_rate,
+        out_sample_rate=cfg.out_sample_rate,
+        model_sample_rate=cfg.sample_rate,
+        input_audio_length=32000 * cfg.in_sample_rate // 16000,
+        window_type=cfg.window,
+        nfft=cfg.n_fft,
+        window_length=cfg.n_fft,
+        hop_length=cfg.hop,
+        pad_mode=cfg.pad_mode,
+        center_pad=True,
+        input_channels=2,
+        max_dynamic_audio_seconds=30,
+        extra={"rt60": cfg.rt60, "wpe_taps": cfg.wpe_taps, "iva_iter": cfg.iva_iter},
+    )
+
+
+def _register_h_gtcrn():
+    from ..models.h_gtcrn import HGTCRN, HGtcrnConfig, init_h_gtcrn
+
+    register(
+        ModelSpec(
+            name="h_gtcrn",
+            task="denoise",
+            make_config=HGtcrnConfig,
+            init_params=init_h_gtcrn,
+            make_module=HGTCRN,
+            make_manifest=_h_gtcrn_manifest,
+        )
+    )
+
+
 _register_gtcrn()
 _register_mossformergan()
 _register_zipenhancer()
@@ -472,3 +583,6 @@ _register_nkf()
 _register_sdaec()
 _register_deep_echo()
 _register_dfsmn_aec()
+_register_melband()
+_register_mossformer_sr()
+_register_h_gtcrn()

@@ -66,8 +66,9 @@ def export_artifact(model_name: str, ckpt, out_dir, *, cfg=None, smoke: bool = T
         served, manifest = load_artifact(out_dir, dev)
         rng = np.random.default_rng(0)
         length = min(manifest.input_audio_length, manifest.in_sample_rate)
-        audios = [(rng.standard_normal(length) * 6000).astype(np.int16)[None]
-                  for _ in range(manifest.num_audio_inputs)]
+        # (channels, n): a two-channel model (stereo Mel-Band, H-GTCRN) takes two
+        audios = [(rng.standard_normal((manifest.input_channels, length)) * 6000)
+                  .astype(np.int16) for _ in range(manifest.num_audio_inputs)]
         result = Session(spec.make_module(served, cfg), manifest, device=dev).process(*audios)
         if not all(np.isfinite(o.astype(np.float64)).all() for o in result.outputs):
             raise RuntimeError("export smoke test produced non-finite output")

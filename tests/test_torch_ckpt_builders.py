@@ -1,20 +1,23 @@
-"""Synthetic upstream-layout checkpoints for the eleven families the port serves.
+"""Synthetic upstream-layout checkpoints for the fourteen families the port serves.
 
 ``build_<family>_state_dict(cfg, seed)`` returns a dict of CPU float32
 tensors under the upstream module names, at any config (the defaults are
 full width and depth).  The key sets are those of the JAX package's own
 importer tests (``tests/test_importers.py``: ``_gtcrn_state_dict``,
 ``_ul_unas_state_dict``, ``_m2se_state_dict``, ``_sdaec_state_dict``, the NKF
-KGNet replica and the inline MossFormer2-SS, MossFormerGAN-SE, ZipEnhancer,
-DFSMN, Deep-Echo and DFSMN-AEC cascade builders), plus
-GTCRN's frozen ERB bank (``erb.erb_fc`` / ``erb.ierb_fc``, set to the
-analytic bank the model bakes in; UL-UNAS's learned bank is set to it too).
+KGNet replica, ``_h_gtcrn_state_dict``, the inline MossFormer2-SS,
+MossFormerGAN-SE, ZipEnhancer, DFSMN, Deep-Echo, DFSMN-AEC cascade and
+MossFormer2-SR builders, and ``tests/test_melband.py:_upstream_sd``), plus
+GTCRN's and H-GTCRN's frozen ERB bank (``erb.erb_fc`` / ``erb.ierb_fc``, set
+to the analytic bank the model bakes in; UL-UNAS's learned bank is set to it
+too).
 Values come from numpy's generator at ``seed``: weights uniform in
 ±1/sqrt(fan_in) (torch's default init), norm gains in [0.5, 1.5], small
 shifts (the ICCRN LayerNorms' (1, C, F, 1) ``w`` and ``b`` too), BatchNorm
 statistics as those tests draw them, LSTM weights uniform in ±1/sqrt(hidden)
 (torch's), PReLU slopes 0.25
-(NKF's 0.2 and 0.1, as its replica's), AffinePReLU gains N(1, 0.1).  NKF's
+(NKF's 0.2 and 0.1, as its replica's), AffinePReLU gains N(1, 0.1), Snake
+and RMSNorm gains in [0.5, 1.5].  NKF's
 last KGNet layer (weight and bias) is drawn at ``RANDOM_GAIN_SCALE`` times
 that bound, as the port's random init draws it: a Kalman gain of torch's
 default scale makes the filter's recurrence overflow float32 at speech
@@ -27,6 +30,7 @@ gives the tree the port's model takes, at the tiny configs below.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -38,8 +42,12 @@ from audiojax_torch.models.deep_echo import DeepEchoConfig, init_deep_echo_numpy
 from audiojax_torch.models.dfsmn import DfsmnConfig, init_dfsmn_numpy
 from audiojax_torch.models.dfsmn_aec import DfsmnAecConfig, init_dfsmn_aec_numpy, mask_net_config
 from audiojax_torch.models.gtcrn import GtcrnConfig, init_gtcrn_numpy
+from audiojax_torch.models.h_gtcrn import HGtcrnConfig, init_h_gtcrn_numpy
+from audiojax_torch.models.melband_roformer import (MelBandConfig, band_layout,
+                                                    init_melband_numpy)
 from audiojax_torch.models.mossformer2_ss import MossFormer2SsConfig, init_mossformer2_ss_numpy
 from audiojax_torch.models.mossformer2_se import MossFormer2SeConfig, init_mossformer2_se_numpy
+from audiojax_torch.models.mossformer_sr import MossFormerSrConfig, init_mossformer_sr_numpy
 from audiojax_torch.models.mossformergan_se import MossFormerGanConfig, init_mossformergan_numpy
 from audiojax_torch.models.nkf_aec import RANDOM_GAIN_SCALE, NkfConfig, init_nkf_numpy
 from audiojax_torch.models.sdaec import SdaecConfig, init_sdaec_numpy
@@ -71,12 +79,22 @@ TINY = {
     "sdaec": {},
     "deep_echo": {},
     "dfsmn_aec": dict(depth=2, hidden=32, lorder=6),
+    "melband_roformer": dict(n_fft=256, hop=64, num_bands=8, dim=32, depth=1, heads=2,
+                             dim_head=16, mlp_expansion=2, mask_depth=1),
+    "melband_roformer_stereo": dict(n_fft=256, hop=64, num_bands=8, dim=32, depth=1, heads=2,
+                                    dim_head=16, mlp_expansion=2, mask_depth=1, channels=2),
+    "mossformer2_sr": dict(dim=64, depth=1, group_size=16, qk_dim=32, vu_dim=96,
+                           fsmn_inner=32, dw_kernel=5, rot_dim=8, lorder=5, gen_channels=32,
+                           gen_res_kernels=(3,), gen_res_dilations=(1, 3)),
+    "h_gtcrn": {},
 }
 CONFIGS = {"gtcrn": GtcrnConfig, "mossformergan_se": MossFormerGanConfig,
            "zipenhancer": ZipEnhancerConfig, "mossformer2_ss": MossFormer2SsConfig,
            "dfsmn": DfsmnConfig, "mossformer2_se": MossFormer2SeConfig,
            "ul_unas": UlUnasConfig, "nkf_aec": NkfConfig, "sdaec": SdaecConfig,
-           "deep_echo": DeepEchoConfig, "dfsmn_aec": DfsmnAecConfig}
+           "deep_echo": DeepEchoConfig, "dfsmn_aec": DfsmnAecConfig,
+           "melband_roformer": MelBandConfig, "melband_roformer_stereo": MelBandConfig,
+           "mossformer2_sr": MossFormerSrConfig, "h_gtcrn": HGtcrnConfig}
 
 
 def tiny_config(name: str):
@@ -84,8 +102,8 @@ def tiny_config(name: str):
 
 
 def import_kwargs(name: str, cfg) -> dict:
-    """GTCRN's and DFSMN's importers take no config; the others take ``cfg=``."""
-    return {} if name in ("gtcrn", "dfsmn") else {"cfg": cfg}
+    """GTCRN's, H-GTCRN's and DFSMN's importers take no config; the others take ``cfg=``."""
+    return {} if name in ("gtcrn", "h_gtcrn", "dfsmn") else {"cfg": cfg}
 
 
 class _StateDict:
@@ -445,13 +463,13 @@ def build_dfsmn_state_dict(cfg: DfsmnConfig = DfsmnConfig(), seed: int = 0) -> d
 # ── MossFormer2-SE ───────────────────────────────────────────────────────────
 
 
-def build_mossformer2_se_state_dict(cfg: MossFormer2SeConfig = MossFormer2SeConfig(),
-                                    seed: int = 0) -> dict:
-    """ClearVoice MossFormer2-SE-48K layout (``_m2se_state_dict`` of the JAX tests)."""
-    s = _StateDict(seed)
-    P = "mossformer_se"
+def _mossformer_mask_net(s: _StateDict, P: str, cfg, feat: int, out: int, spk_rows: int) -> None:
+    """The ClearVoice MossFormer2 single-speaker mask net under ``P``:
+    ``feat`` input features, ``out`` decoder rows, ``spk_rows`` rows of
+    ``conv1d_out`` (MossFormer2-SE's ``_m2se_state_dict`` and the JAX
+    tests' inline MossFormer2-SR builder)."""
     mm = f"{P}.mdl.intra_mdl.mossformerM"
-    d, qk, vu, inner, feat = cfg.dim, cfg.qk_dim, cfg.vu_dim, cfg.fsmn_inner, 3 * cfg.n_mels
+    d, qk, vu, inner = cfg.dim, cfg.qk_dim, cfg.vu_dim, cfg.fsmn_inner
 
     def ffconvm(key, o, i, scale_norm=True):
         if scale_norm:
@@ -486,10 +504,17 @@ def build_mossformer2_se_state_dict(cfg: MossFormer2SeConfig = MossFormer2SeConf
     s.norm(f"{P}.mdl.intra_mdl.norm", (d,))
     s.norm(f"{P}.mdl.intra_norm", (d,))
     s.prelu(f"{P}.prelu")
-    s.weight(f"{P}.conv1d_out", (2 * d, d, 1), d, 2 * d)
+    s.weight(f"{P}.conv1d_out", (spk_rows, d, 1), d, spk_rows)
     s.linear(f"{P}.output.0", d, d, k1=True)
     s.linear(f"{P}.output_gate.0", d, d, k1=True)
-    s.linear(f"{P}.conv1_decoder", cfg.stft_bins, d, bias=False, k1=True)
+    s.linear(f"{P}.conv1_decoder", out, d, bias=False, k1=True)
+
+
+def build_mossformer2_se_state_dict(cfg: MossFormer2SeConfig = MossFormer2SeConfig(),
+                                    seed: int = 0) -> dict:
+    """ClearVoice MossFormer2-SE-48K layout (``_m2se_state_dict`` of the JAX tests)."""
+    s = _StateDict(seed)
+    _mossformer_mask_net(s, "mossformer_se", cfg, 3 * cfg.n_mels, cfg.stft_bins, 2 * cfg.dim)
     return s.sd
 
 
@@ -671,6 +696,122 @@ def build_dfsmn_aec_state_dict(cfg: DfsmnAecConfig = DfsmnAecConfig(), seed: int
     return sd
 
 
+# ── Mel-Band Roformer ────────────────────────────────────────────────────────
+
+
+def build_melband_roformer_state_dict(cfg: MelBandConfig = MelBandConfig(), seed: int = 0,
+                                      checkpoint_channels: int | None = None) -> dict:
+    """Upstream lucidrains layout (``_upstream_sd`` of the JAX tests, the mask
+    MLP at ``cfg.mask_depth`` hidden layers), its band widths those of
+    ``checkpoint_channels`` (default: the config's): a stereo checkpoint for a
+    mono config is the one the importer folds."""
+    s = _StateDict(seed)
+    ch = cfg.channels if checkpoint_channels is None else checkpoint_channels
+    _, widths, _ = band_layout(dataclasses.replace(cfg, channels=ch))
+    d, inner, hd = cfg.dim, cfg.mlp_expansion * cfg.dim, cfg.heads * cfg.dim_head
+    for b, w in enumerate(widths):
+        s.uniform(f"band_split.to_features.{b}.0.gamma", (w,), 0.5, 1.5)
+        s.linear(f"band_split.to_features.{b}.1", d, w)
+        for j in range(cfg.mask_depth):
+            s.linear(f"mask_estimators.0.to_freqs.{b}.0.{2 * j}", inner, d if j == 0 else inner)
+        s.linear(f"mask_estimators.0.to_freqs.{b}.0.{2 * cfg.mask_depth}", 2 * w, inner)
+    for i in range(cfg.depth):
+        for j in (0, 1):
+            base = f"layers.{i}.{j}"
+            s.uniform(f"{base}.layers.0.0.norm.gamma", (d,), 0.5, 1.5)
+            s.linear(f"{base}.layers.0.0.to_qkv", 3 * hd, d, bias=False)
+            s.linear(f"{base}.layers.0.0.to_gates", cfg.heads, d)
+            s.linear(f"{base}.layers.0.0.to_out.0", d, hd, bias=False)
+            s.uniform(f"{base}.layers.0.1.net.0.gamma", (d,), 0.5, 1.5)
+            s.linear(f"{base}.layers.0.1.net.1", inner, d)
+            s.linear(f"{base}.layers.0.1.net.4", d, inner)
+            s.uniform(f"{base}.norm.gamma", (d,), 0.5, 1.5)
+    return s.sd
+
+
+# ── MossFormer2-SR ───────────────────────────────────────────────────────────
+
+
+def build_mossformer2_sr_state_dict(cfg: MossFormerSrConfig = MossFormerSrConfig(),
+                                    seed: int = 0) -> dict:
+    """The mask net and HiFi-GAN generator (the JAX tests' inline MossFormer2-SR
+    builder): the upsamplers in weight-norm form, Snake alphas in [0.5, 1.5]."""
+    s = _StateDict(seed)
+    _mossformer_mask_net(s, "mask_net", cfg, cfg.n_mels, cfg.n_mels, cfg.dim)
+    ch = cfg.gen_channels
+    s.conv("generator.conv_pre", ch, cfg.n_mels, (7,))
+    for i, k in enumerate(cfg.gen_up_kernels):
+        s.uniform(f"generator.snakes.{i}.alpha", (ch,), 0.5, 1.5)
+        bound = 1.0 / math.sqrt(ch // 2 * k)
+        s.uniform(f"generator.ups.{i}.weight_v", (ch, ch // 2, k), -bound, bound)
+        s.uniform(f"generator.ups.{i}.weight_g", (ch, 1, 1), 0.5, 1.5)
+        s.uniform(f"generator.ups.{i}.bias", (ch // 2,), -bound, bound)
+        ch //= 2
+        for j, rk in enumerate(cfg.gen_res_kernels):
+            base = f"generator.resblocks.{i * len(cfg.gen_res_kernels) + j}"
+            for jj in range(len(cfg.gen_res_dilations)):
+                s.uniform(f"{base}.convs1_activates.{jj}.alpha", (ch,), 0.5, 1.5)
+                s.conv(f"{base}.convs1.{jj}", ch, ch, (rk,))
+                s.uniform(f"{base}.convs2_activates.{jj}.alpha", (ch,), 0.5, 1.5)
+                s.conv(f"{base}.convs2.{jj}", ch, ch, (rk,))
+    s.uniform("generator.snake_post.alpha", (ch,), 0.5, 1.5)
+    s.conv("generator.conv_post", 1, ch, (7,))
+    return s.sd
+
+
+# ── H-GTCRN ──────────────────────────────────────────────────────────────────
+
+
+def build_h_gtcrn_state_dict(cfg: HGtcrnConfig = HGtcrnConfig(), seed: int = 0) -> dict:
+    """Upstream GTCRN-IVA layout (``_h_gtcrn_state_dict`` of the JAX tests):
+    each GT block's conv/bn/act nested under its ConvBlock, regular convs in
+    the decoder's GT blocks, an 18-channel first conv; plus the frozen ERB
+    bank at scale 24.7."""
+    s = _StateDict(seed)
+    g = cfg.gtcrn_cfg
+    c, half = g.channels, g.channels // 2
+
+    def conv_block(key, cin, cout, k, groups=1, deconv=False, last=False):
+        if deconv:
+            s.deconv(f"{key}.conv", cin, cout, k, groups)
+        else:
+            s.conv(f"{key}.conv", cout, cin, k, groups)
+        s.bn(f"{key}.bn", cout)
+        if not last:
+            s.prelu(f"{key}.act")
+
+    def nested_gt(key):
+        conv_block(f"{key}.point_conv1", 3 * half, c, (1, 1))
+        conv_block(f"{key}.depth_conv", c, c, (3, 3), groups=c)
+        conv_block(f"{key}.point_conv2", c, half, (1, 1), last=True)
+        s.gru(f"{key}.tra.att_gru", half, c)
+        s.linear(f"{key}.tra.att_fc", half, c)
+
+    def dpgrnn(key):
+        for sub in ("rnn1", "rnn2"):
+            s.gru(f"{key}.intra_rnn.{sub}", half, c // 4, bidirectional=True)
+            s.gru(f"{key}.inter_rnn.{sub}", half, half)
+        for fc in ("intra_fc", "inter_fc"):
+            s.linear(f"{key}.{fc}", c, c)
+        for ln in ("intra_ln", "inter_ln"):
+            s.norm(f"{key}.{ln}", (g.width, c))
+
+    bank = erb_filters(g.n_low, g.n_erb, g.n_fft, scale=g.erb_scale)
+    s.put("erb.erb_fc.weight", bank)
+    s.put("erb.ierb_fc.weight", bank.T)
+    conv_block("encoder.en_convs.0", 18, c, (1, 5))
+    conv_block("encoder.en_convs.1", c, c, (1, 5), groups=2)
+    for i in (2, 3, 4):
+        nested_gt(f"encoder.en_convs.{i}")
+    dpgrnn("dpgrnn1")
+    dpgrnn("dpgrnn2")
+    for i in (0, 1, 2):
+        nested_gt(f"decoder.de_convs.{i}")
+    conv_block("decoder.de_convs.3", c, c, (1, 5), groups=2, deconv=True)
+    conv_block("decoder.de_convs.4", c, 2, (1, 5), deconv=True, last=True)
+    return s.sd
+
+
 BUILDERS = {
     "dfsmn": build_dfsmn_state_dict,
     "gtcrn": build_gtcrn_state_dict,
@@ -683,6 +824,10 @@ BUILDERS = {
     "sdaec": build_sdaec_state_dict,
     "deep_echo": build_deep_echo_state_dict,
     "dfsmn_aec": build_dfsmn_aec_state_dict,
+    "melband_roformer": build_melband_roformer_state_dict,
+    "melband_roformer_stereo": build_melband_roformer_state_dict,
+    "mossformer2_sr": build_mossformer2_sr_state_dict,
+    "h_gtcrn": build_h_gtcrn_state_dict,
 }
 
 
@@ -707,7 +852,9 @@ INIT_NUMPY = {"gtcrn": init_gtcrn_numpy, "mossformergan_se": init_mossformergan_
               "dfsmn": init_dfsmn_numpy, "mossformer2_se": init_mossformer2_se_numpy,
               "ul_unas": init_ul_unas_numpy, "nkf_aec": init_nkf_numpy,
               "sdaec": init_sdaec_numpy, "deep_echo": init_deep_echo_numpy,
-              "dfsmn_aec": init_dfsmn_aec_numpy}
+              "dfsmn_aec": init_dfsmn_aec_numpy, "melband_roformer": init_melband_numpy,
+              "melband_roformer_stereo": init_melband_numpy,
+              "mossformer2_sr": init_mossformer_sr_numpy, "h_gtcrn": init_h_gtcrn_numpy}
 # leaves an imported tree has and a random one does not: UL-UNAS's learned ERB
 # bank (random parameters take the analytic bank)
 IMPORT_ONLY = {"ul_unas": {"/erb/fc": (192, 64), "/erb/ifc": (64, 192)}}

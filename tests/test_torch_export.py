@@ -84,7 +84,8 @@ def test_export_smoke_on_cpu(name, tmp_path):
     smoke = report["smoke"]
     manifest = registry.get(name).make_manifest(tiny_config(name))
     assert smoke["device"] == "cpu" and smoke["outputs"] == manifest.output_sources
-    assert smoke["out_samples"] == min(manifest.input_audio_length, manifest.in_sample_rate)
+    assert smoke["out_samples"] == int(min(manifest.input_audio_length, manifest.in_sample_rate)
+                                       * manifest.input_to_output_scale)
     assert np.isfinite(smoke["rtf"]) and smoke["rtf"] > 0
 
 
@@ -166,6 +167,32 @@ def test_cli_rebuilds_the_exported_config(tmp_path, capsys):
                      "--output", str(dst), "--device", "cpu"]) == 0
     params, _ = load_artifact(art, device="cpu")
     np.testing.assert_array_equal(_read_wav(dst), _served("zipenhancer", params, cfg, audio)[0])
+
+
+@pytest.mark.parametrize("name,channels,rate", [("h_gtcrn", 2, 16000),
+                                                ("melband_roformer_stereo", 2, 44100),
+                                                ("mossformer2_sr", 1, 16000)])
+def test_cli_serves_the_new_families_artifacts(name, channels, rate, tmp_path):
+    """A two-microphone H-GTCRN wav in, mono out; stereo Mel-Band in and out;
+    SR at 16 kHz in and 48 kHz out: the CLI's wav equals the library's answer."""
+    cfg, _, art, _ = _export_port(name, tmp_path, smoke=False)
+    audio = np.stack([_noisy(6000, 13 + c) for c in range(channels)])
+    src, dst = tmp_path / "in.wav", tmp_path / "out.wav"
+    with wave.open(str(src), "wb") as w:
+        w.setnchannels(channels)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(audio.T.astype("<i2").tobytes())
+    assert cli.main(["--model", name, "--artifact", str(art), "--input", str(src),
+                     "--output", str(dst), "--device", "cpu"]) == 0
+    params, manifest = load_artifact(art, device="cpu")
+    want = _served(name, params, cfg, audio if channels > 1 else audio[0])[0]
+    with wave.open(str(dst), "rb") as w:
+        assert (w.getnchannels(), w.getframerate()) == (manifest.output_channels,
+                                                        manifest.out_sample_rate)
+        got = np.frombuffer(w.readframes(w.getnframes()), dtype="<i2")
+    got = got.reshape(-1, manifest.output_channels).T
+    np.testing.assert_array_equal(got[0] if manifest.output_channels == 1 else got, want)
 
 
 def test_cli_refuses_mismatched_or_bf16_artifacts(tmp_path, capsys):

@@ -1,0 +1,219 @@
+"""MossFormer2-SR in the port against audiojax.models.mossformer_sr, on the CPU.
+
+The model runs at the tiny widths of ``tests/test_mossformer_sr.py:56``
+(mask net dim 64, one layer; generator 32 channels, one residual kernel of
+two dilations) on the port's numpy draw, given to both packages; the same
+seeded numpy inputs go through both.  The JAX side runs its jnp paths on
+the CPU; the port takes its kernels' plain versions.
+
+Gates: the FIRs, the upsampler, Snake and the mask net within 1e-5 ×
+max|ref|.  The HiFi-GAN generator on random weights is chaotic in float32:
+the two packages part by 1.2e-3 × max|ref|, each as far from the port run
+in float64 (8.4e-4 JAX, 8.9e-4 the port), so it is held against float64 (the
+port's error at most twice JAX's) and against JAX at 5e-3.  The int16
+forward and ``Session`` hold the port's 40 dB SNR gate (measured 81.5 dB,
+at most 40 LSB apart on a 20,777 LSB RMS output), not 1 LSB.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from audiojax.dsp import fir as JFIR
+from audiojax.models import mossformer_sr as J
+from audiojax.runtime import registry as jregistry
+from audiojax.runtime.session import Session as JSession
+from reference_loader import snr_db
+from test_torch_ckpt_builders import TINY, one_thread  # noqa: F401
+
+from audiojax_torch.dsp import fir as TFIR
+from audiojax_torch.models import mossformer_sr as T
+from audiojax_torch.nn import core as tcore
+from audiojax_torch.nn import mossformer as TM
+from audiojax_torch.params import params_from_numpy
+from audiojax_torch.runtime import registry as tregistry
+from audiojax_torch.runtime.session import Session as TSession
+
+TOL = 1e-5
+GEN_TOL = 5e-3  # × max|ref|, the generator against JAX (measured 1.24e-3)
+MIN_SNR_DB = 40.0
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    """(JAX config, port config, JAX params, the port's CPU tensors)."""
+    kw = TINY["mossformer2_sr"]
+    jcfg, tcfg = J.MossFormerSrConfig(**kw), T.MossFormerSrConfig(**kw)
+    pn = T.init_mossformer_sr_numpy(0, tcfg)
+    return jcfg, tcfg, jax.tree.map(jnp.asarray, pn), params_from_numpy(pn, device="cpu")
+
+
+def _rel(out, ref) -> float:
+    out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
+    assert out.shape == ref.shape
+    return float(np.abs(out - ref).max() / np.abs(ref).max())
+
+
+def _speech16k(n: int, seed: int) -> np.ndarray:
+    """A gliding harmonic voice under a syllable envelope plus noise, band-
+    limited to 8 kHz (16 kHz int16)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 16000
+    f0 = 140.0 + 30.0 * np.sin(2 * np.pi * 0.5 * t)
+    voiced = sum(np.sin(k * 2 * np.pi * np.cumsum(f0) / 16000) / k for k in range(1, 11))
+    x = 0.3 * voiced * (0.5 + 0.5 * np.sin(2 * np.pi * 3 * t)) ** 2 + 0.03 * rng.standard_normal(n)
+    return np.clip(np.round(x * 32767), -32768, 32767).astype(np.int16)
+
+
+def _keys_shapes(tree):
+    return sorted((jax.tree_util.keystr(p), tuple(np.shape(v)))
+                  for p, v in jax.tree_util.tree_flatten_with_path(tree)[0])
+
+
+def test_config_and_init_keys_and_shapes(tiny):
+    """Keys and shapes at the tiny config and at the default structure (24
+    layers, upsampling 8·8·2·2, three residual kernels of three dilations)
+    with narrow widths: the default tree holds ~100M parameters."""
+    _, tcfg, pj, _ = tiny
+    assert (dataclasses.asdict(T.MossFormerSrConfig())
+            == dataclasses.asdict(J.MossFormerSrConfig()))
+    assert _keys_shapes(T.init_mossformer_sr_numpy(0, tcfg)) == _keys_shapes(pj)
+    narrow = dict(dim=32, vu_dim=32, qk_dim=16, fsmn_inner=16, gen_channels=16)
+    full = jax.eval_shape(lambda k: J.init_mossformer_sr(k, J.MossFormerSrConfig(**narrow)),
+                          jax.random.PRNGKey(0))
+    assert _keys_shapes(T.init_mossformer_sr_numpy(0, T.MossFormerSrConfig(**narrow))) == \
+        _keys_shapes(full)
+    with pytest.raises(ValueError, match="A.10"):
+        T.MossFormerSrConfig(compute_dtype="bfloat16")
+
+
+@pytest.mark.parametrize("taps,left,out_len", [(193, 96, None), (511, 0, 1500), (7, 3, 2100)])
+def test_fir_gemm_matches_jax(taps, left, out_len):
+    """``y[n] = Σ_t x[n + t − left] · taps[t]``: the sinc upsampler's and the
+    crossover's geometries, and an output longer than the input."""
+    rng = np.random.default_rng(taps)
+    x = rng.standard_normal((2, 3, 2000)).astype(np.float32)
+    h = rng.standard_normal(taps).astype(np.float32)
+    ref = JFIR.fir_gemm(jnp.asarray(x), h, left=left, out_len=out_len)
+    got = TFIR.fir_gemm(torch.from_numpy(x), h, left=left, out_len=out_len)
+    assert _rel(got, ref) <= TOL
+
+
+def test_upsample_zero_stuff_and_sinc_match_jax(tiny):
+    jcfg, tcfg, _, _ = tiny
+    x = np.random.default_rng(3).standard_normal((2, 37)).astype(np.float32)
+    np.testing.assert_array_equal(TFIR.upsample_zero_stuff(torch.from_numpy(x), 3).numpy(),
+                                  np.asarray(JFIR.upsample_zero_stuff(jnp.asarray(x), 3)))
+    audio = np.stack([_speech16k(3000, 1), _speech16k(3000, 2)])
+    ref = J.upsample_sinc(jnp.asarray(audio), jcfg)
+    got = T.upsample_sinc(torch.from_numpy(audio), tcfg)
+    assert tuple(got.shape) == (2, 9000) and _rel(got, ref) <= TOL
+
+
+def test_snake_matches_jax():
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 19, 8)).astype(np.float32) * 3
+    a = (rng.random(8) + 0.5).astype(np.float32)
+    ref = J.snake({"alpha": jnp.asarray(a)}, jnp.asarray(x))  # channel-last
+    got = T.snake({"alpha": torch.from_numpy(a)}, torch.from_numpy(x).transpose(1, 2))
+    assert _rel(got.transpose(1, 2), ref) <= TOL
+
+
+@pytest.mark.parametrize("stride,k", [(8, 16), (2, 4)])
+def test_transposed_conv_route_matches_zero_stuffing(stride, k):
+    """The generator's ``F.conv_transpose1d`` on the stored forward kernel
+    computes what ``core.conv1d_transpose`` (the stride-dilated input through
+    a forward conv, the JAX package's form) computes."""
+    rng = np.random.default_rng(stride)
+    x = rng.standard_normal((2, 25, 16)).astype(np.float32)
+    p = {"w": torch.from_numpy(rng.standard_normal((8, 16, k)).astype(np.float32) / 8),
+         "b": torch.from_numpy(rng.standard_normal(8).astype(np.float32))}
+    ref = tcore.conv1d_transpose(p, torch.from_numpy(x), stride=stride, padding=(k - stride) // 2)
+    got = T._conv_transpose(p, torch.from_numpy(x).transpose(1, 2), stride=stride,
+                            padding=(k - stride) // 2).transpose(1, 2)
+    assert tuple(got.shape) == (2, 25 * stride, 8) and _rel(got, ref) <= TOL
+
+
+def test_hifigan_generator_against_jax_and_float64(tiny):
+    jcfg, tcfg, pj, pt = tiny
+    mel = np.random.default_rng(5).standard_normal((2, 16, jcfg.n_mels)).astype(np.float32)
+    ref = jax.jit(lambda p, m: J.hifigan_generator(p, m, jcfg))(pj["gen"], jnp.asarray(mel))
+    got = T.hifigan_generator(pt["gen"], torch.from_numpy(mel), tcfg)
+    g64 = T.hifigan_generator(jax.tree.map(lambda v: v.double(), pt["gen"]),
+                              torch.from_numpy(mel).double(), tcfg)
+    assert tuple(got.shape) == (2, 16 * 256)
+    assert _rel(got, g64) <= 2.0 * _rel(ref, g64)
+    assert _rel(got, ref) <= GEN_TOL
+
+
+def test_masknet_matches_jax(tiny):
+    jcfg, tcfg, pj, pt = tiny
+    mel = np.random.default_rng(6).standard_normal((2, 40, jcfg.n_mels)).astype(np.float32)
+    ref = jax.jit(lambda p, m: J.sr_masknet(p, m, jcfg))(pj, jnp.asarray(mel))
+    assert _rel(T.sr_masknet(pt, torch.from_numpy(mel), tcfg), ref) <= TOL
+
+
+@pytest.mark.parametrize("length", [4096, 4000])
+def test_forward_matches_jax(tiny, length):
+    """0.25 s, and a length whose generator output falls short of 3L and is
+    reflect-extended: int16 3L, ≥ 40 dB against JAX."""
+    jcfg, tcfg, pj, pt = tiny
+    audio = np.stack([_speech16k(length, 7), _speech16k(length, 8)])
+    ref = np.asarray(jax.jit(lambda p, a: J.mossformer_sr_forward(p, a, jcfg))(
+        pj, jnp.asarray(audio)))
+    got = T.mossformer_sr_forward(pt, torch.from_numpy(audio), tcfg)
+    assert got.dtype == torch.int16 and tuple(got.shape) == (2, 3 * length)
+    np.testing.assert_array_equal(T.MossFormer2SR(pt, tcfg)(torch.from_numpy(audio)).numpy(),
+                                  got.numpy())
+    for r, o in zip(ref, got.numpy()):
+        assert snr_db(r, o) >= MIN_SNR_DB
+
+
+def test_session_matches_jax(tiny):
+    """4 s at 16 kHz at the manifest's geometry: 2 s windows every 1.25 s
+    (12,000 samples overlap), 3 windows bucketed to 4, Hann-taper OLA at 3×
+    the rate; ≥ 40 dB against the JAX Session."""
+    jcfg, tcfg, pj, pt = tiny
+    jspec, tspec = jregistry.get("mossformer2_sr"), tregistry.get("mossformer2_sr")
+    manifest = tspec.make_manifest(tcfg)
+    assert manifest.runtime_config() == jspec.make_manifest(jcfg).runtime_config()
+    clip = _speech16k(64000, 9)
+    seen = []
+    model = tspec.make_module(pt, tcfg)
+    model.register_forward_hook(lambda m, a, o: seen.append(tuple(a[0].shape)))
+    ref = JSession(jspec.make_forward(jcfg), pj, jspec.make_manifest(jcfg)).process(clip)
+    out = TSession(model, manifest, device="cpu").process(clip)
+    assert seen == [(4, 32000)]
+    assert out.audio.dtype == np.int16 and out.audio.shape == ref.audio.shape == (192000,)
+    assert snr_db(ref.audio, out.audio) >= MIN_SNR_DB
+    assert out.audio_duration_s == ref.audio_duration_s == 4.0
+
+
+def test_kernel_routes_per_forward(tiny, monkeypatch):
+    """Each layer sends four depthwise convs to B4's route and the FLASH group
+    attention to B6's; nothing goes to B1, B2, B3 or B5 (``chip_smoke.py``'s
+    96 B4 and 24 B6 a forward at depth 24)."""
+    from audiojax_torch.ops import stft_cuda
+
+    calls = {"b1": 0, "b2": 0, "b4": 0, "b5": 0, "b6": 0}
+
+    def counting(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(stft_cuda, "plain_stft_packed", counting("b1", stft_cuda.plain_stft_packed))
+    monkeypatch.setattr(stft_cuda, "plain_istft_packed",
+                        counting("b2", stft_cuda.plain_istft_packed))
+    monkeypatch.setattr(tcore, "fast_dwconv1d", counting("b4", tcore.fast_dwconv1d))
+    monkeypatch.setattr(tcore, "fast_dwconv1d_grouped",
+                        counting("b5", tcore.fast_dwconv1d_grouped))
+    monkeypatch.setattr(TM, "fast_quad_attention", counting("b6", TM.fast_quad_attention))
+    _, tcfg, _, pt = tiny
+    T.mossformer_sr_forward(pt, torch.from_numpy(_speech16k(2048, 10)[None]), tcfg)
+    assert calls == {"b1": 0, "b2": 0, "b4": 4 * tcfg.depth, "b5": 0, "b6": tcfg.depth}

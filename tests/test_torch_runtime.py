@@ -255,7 +255,9 @@ def test_cli_stream_refuses_a_model_without_streaming(tmp_path, capsys):
 def test_cli_list_and_default_device(no_cuda, tmp_path, capsys):
     assert cli.main(["--list"]) == 0
     assert capsys.readouterr().out.split() == ["deep_echo", "dfsmn", "dfsmn_aec", "gtcrn",
-                                               "mossformer2_se", "mossformer2_ss",
+                                               "h_gtcrn", "melband_roformer",
+                                               "melband_roformer_stereo", "mossformer2_se",
+                                               "mossformer2_sr", "mossformer2_ss",
                                                "mossformergan_se", "nkf_aec", "sdaec",
                                                "ul_unas", "zipenhancer"]
     src = tmp_path / "in.wav"
