@@ -1,5 +1,5 @@
 // Depthwise and grouped 2-in/1-out 1-D convolution for Hopper (sm_90a),
-// float32 FMA (B4 and B5).
+// float32 FMA (B4 and B5), on float32 or bfloat16 tensors.
 //
 // One output channel per group, M input lanes per group (M = 1 or 2):
 //
@@ -95,6 +95,19 @@
 // output adds its taps in order i = 0 .. k-1 (B5: lane 0 then lane 1 of each
 // tap) with fmaf, from zero.
 //
+// bfloat16 (the bf16 serving plan; the only dtype dwconv1d_pallas_tiled ever
+// sees, audiojax/nn/core.py:219-252): x, w and y are bf16 and everything
+// else is as above.  Strip rows stay bf16 in the ring, 8 elements a 16-byte
+// cp.async (the vector path needs C % 8 and x 16-byte aligned; cp.async has
+// no 2-byte copy, so the scalar path's copies are ordinary loads and shared
+// stores), and a thread widens its VC elements to f32 in registers as it
+// reads them (one 8-byte read for VC = 4).  The taps are widened once, as the
+// block stages them (ordinary loads: w is read through its strides, 2 bytes
+// an element), and stay f32 in shared memory.  The sums are the f32 FMA
+// chain above; each output is rounded once to bf16, to nearest even, as
+// astype does.  A bf16 ring row is 64 bytes, so a ring holds twice the rows
+// in the same bytes; the rest of the design is unchanged.
+//
 // The geometry (copy width, VC, R, time threads, items, ring depth, grid,
 // shared memory) comes from dwconv_launch in ops/dwconv_cuda.py, whose picks
 // come from dwconv_geometry_sweep.py; the launcher only checks it and
@@ -105,6 +118,10 @@
 
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "bf16.cuh"
 
 namespace {
 
@@ -131,9 +148,36 @@ template <class T>
 __device__ __forceinline__ T vld(const float* p) {
   return *reinterpret_cast<const T*>(p);
 }
-template <class T>
-__device__ __forceinline__ void vst(float* p, T v) {
-  *reinterpret_cast<T*>(p) = v;
+
+// A vector T (float, float2, float4) of consecutive elements of E, widened
+// to f32: one load of 4, 8 or 16 bytes (bf16: 2, 4 or 8).
+template <class T, class E>
+__device__ __forceinline__ T ldw(const E* p) {
+  if constexpr (std::is_same_v<E, float>) {
+    return *reinterpret_cast<const T*>(p);
+  } else if constexpr (std::is_same_v<T, float4>) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    return make_float4(lo_bf16(u.x), hi_bf16(u.x), lo_bf16(u.y), hi_bf16(u.y));
+  } else if constexpr (std::is_same_v<T, float2>) {
+    const unsigned u = *reinterpret_cast<const unsigned*>(p);
+    return make_float2(lo_bf16(u), hi_bf16(u));
+  } else {
+    return widen(*p);
+  }
+}
+
+// Store an f32 vector T as consecutive elements of E (bf16: rounded).
+template <class E, class T>
+__device__ __forceinline__ void stw(E* p, T v) {
+  if constexpr (std::is_same_v<E, float>) {
+    *reinterpret_cast<T*>(p) = v;
+  } else if constexpr (std::is_same_v<T, float4>) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+  } else if constexpr (std::is_same_v<T, float2>) {
+    *reinterpret_cast<unsigned*>(p) = pack_bf16(v.x, v.y);
+  } else {
+    p->u = (unsigned short)bf16_bits(v);
+  }
 }
 
 // acc += x * w for one tap: M = 1 lane by lane; M = 2 a group's lane 0, then
@@ -153,17 +197,25 @@ __device__ __forceinline__ void tap_fma(float2& acc, float4 x, float4 w) {
   acc.y = fmaf(x.w, w.w, fmaf(x.z, w.z, acc.y));
 }
 
-// One copy of N floats from global to shared memory, asynchronously; zeros
-// where !valid (src-size 0, src then only a valid address).
-template <int N>
-__device__ __forceinline__ void cp_async(float* dst, const float* src, bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if constexpr (N == 4) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-                 "r"(valid ? 16 : 0));
+// One copy of N elements from global to shared memory, asynchronously;
+// zeros where !valid (src-size 0, src then only a valid address).  16 or 4
+// bytes; a single bf16 (2 bytes, which cp.async cannot copy) is an ordinary
+// load and shared store, which the barrier after the ring's wait publishes.
+template <int N, class E>
+__device__ __forceinline__ void cp_async(E* dst, const E* src, bool valid) {
+  constexpr int kBytes = N * (int)sizeof(E);
+  static_assert(kBytes == 16 || kBytes == 4 || kBytes == 2, "a 16-, 4- or 2-byte copy");
+  if constexpr (kBytes == 2) {
+    *dst = valid ? *src : E{};
   } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-                 "r"(valid ? 4 : 0));
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    if constexpr (kBytes == 16) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                   "r"(valid ? 16 : 0));
+    } else {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                   "r"(valid ? 4 : 0));
+    }
   }
 }
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -176,10 +228,11 @@ __device__ __forceinline__ void cp_wait(int depth) {
   }
 }
 
+template <class E>
 struct Args {
-  const float* x;
-  const float* w;
-  float* y;
+  const E* x;
+  const E* w;
+  E* y;
   long long si, sm, sg;  // w's strides, in elements
   int batch, T, cin, cout, k, lo, t_out, dil;
   int ntt;      // time threads: blockDim.x = 32 / VC * ntt
@@ -200,7 +253,8 @@ struct Item {
   int b, t0, sb, first;
 };
 
-__device__ __forceinline__ Item item_of(const Args& a, int grp, int n) {
+template <class E>
+__device__ __forceinline__ Item item_of(const Args<E>& a, int grp, int n) {
   const int span = a.tile + a.dil * (a.k - 1);
   Item it;
   if (a.carry) {
@@ -217,21 +271,22 @@ __device__ __forceinline__ Item item_of(const Args& a, int grp, int n) {
   return it;
 }
 
-constexpr int kCT = 32;  // input floats of a strip row: the channel tile
+constexpr int kCT = 32;  // input elements of a strip row: the channel tile
 
-// The block's work.  GRAN floats a copy (4: 16-byte cp.async, 1: 4-byte), VC
-// input floats a thread in the FMA loop (32 / VC threads across the channel
-// tile), R outputs a thread; CARRY: items are time tiles (a.carry), whose
-// rows wrap around the ring.
-template <int M, int GRAN, int VC, int R, bool CARRY>
-__device__ __forceinline__ void dwconv_block(const Args& a) {
+// The block's work.  E the element type (float or bf16), GRAN elements a
+// copy (16 bytes: 4 floats or 8 bf16; or 1), VC input elements a thread in
+// the FMA loop (32 / VC threads across the channel tile), R outputs a
+// thread; CARRY: items are time tiles (a.carry), whose rows wrap around the
+// ring.
+template <class E, int M, int GRAN, int VC, int R, bool CARRY>
+__device__ __forceinline__ void dwconv_block(const Args<E>& a) {
   using VI = typename VecT<VC>::T;
   using VO = typename VecT<VC / M>::T;
   constexpr int kLanes = kCT / VC;
   constexpr int kCopies = kCT / GRAN;  // copies a row
   extern __shared__ __align__(16) float smem[];
-  float* ring = smem;                          // [nb][kCT]
-  float* taps = smem + (size_t)a.nb * kCT;     // [k][kCT]
+  E* ring = reinterpret_cast<E*>(smem);                           // [nb][kCT] of E
+  float* taps = reinterpret_cast<float*>(ring + (size_t)a.nb * kCT);  // [k][kCT], f32
 
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int lane = tid % kLanes, tt = tid / kLanes;
@@ -248,7 +303,7 @@ __device__ __forceinline__ void dwconv_block(const Args& a) {
   // t0 + q - lo, zero outside [0, T) and past the input's lanes.
   auto stage = [&](int n) {
     const Item it = item_of(a, grp, n);
-    const float* xb = a.x + (size_t)it.b * a.T * a.cin;
+    const E* xb = a.x + (size_t)it.b * a.T * a.cin;
     const int count = (span - it.first) * kCopies;
     for (int e = tid; e < count; e += nthreads) {
       const int q = it.first + e / kCopies, l = e % kCopies;
@@ -262,8 +317,8 @@ __device__ __forceinline__ void dwconv_block(const Args& a) {
   };
 
   // Group 0: item 0's strip, first so that it is in flight while the taps'
-  // indices are worked out, then the block's taps, once, by 4-byte cp.async:
-  // taps[i][M*gl + m] = w[i, m, g0 + gl].  Where i is w's unit stride (the
+  // indices are worked out, then the block's taps, once, by 4-byte cp.async
+  // (bf16: ordinary loads, widened): taps[i][M*gl + m] = w[i, m, g0 + gl].  Where i is w's unit stride (the
   // model's (G, M, k) weight seen as (k, M, G)) neighbouring threads take
   // neighbouring taps, a lane's k taps then the next lane's, each thread
   // stepping its (lane, tap) by nthreads with a carry, not a division by k;
@@ -272,7 +327,12 @@ __device__ __forceinline__ void dwconv_block(const Args& a) {
   auto tap_copy = [&](int i, int cl) {
     const int g = g0 + cl / M, m = cl % M;
     const bool ok = g < a.cout;
-    cp_async<1>(taps + i * kCT + cl, ok ? a.w + i * a.si + m * a.sm + g * a.sg : a.w, ok);
+    const E* src = ok ? a.w + i * a.si + m * a.sm + g * a.sg : a.w;
+    if constexpr (std::is_same_v<E, float>) {
+      cp_async<1>(taps + i * kCT + cl, src, ok);
+    } else {
+      taps[i * kCT + cl] = ok ? widen(*src) : 0.f;
+    }
   };
   if (a.si == 1) {
     const int dl = nthreads / a.k, di = nthreads % a.k;
@@ -296,7 +356,7 @@ __device__ __forceinline__ void dwconv_block(const Args& a) {
 
   const int gl = lane * (VC / M);  // this thread's first output channel in the tile
   const bool g_ok = g0 + gl < a.cout;
-  const float* rp = ring + lane * VC;
+  const E* rp = ring + lane * VC;
   const float* tp = taps + lane * VC;
   const int dil = a.dil, nb = a.nb;
 
@@ -308,7 +368,7 @@ __device__ __forceinline__ void dwconv_block(const Args& a) {
     __syncthreads();
 
     const Item it = item_of(a, grp, n);
-    float* yb = a.y + (size_t)it.b * a.t_out * a.cout + g0 + gl;
+    E* yb = a.y + (size_t)it.b * a.t_out * a.cout + g0 + gl;
     // outputs q + j*os of the item, j < R: at stride os = dil, or
     // consecutive (os = 1) where the dilation is too large for threads at
     // stride dil
@@ -326,14 +386,14 @@ __device__ __forceinline__ void dwconv_block(const Args& a) {
 #pragma unroll
         for (int j = 0; j < R; ++j) {
           const int sj = CARRY && s + j >= nb ? s + j - nb : s + j;
-          tap_fma(acc[j], vld<VI>(rp + sj * kCT), wv);
+          tap_fma(acc[j], ldw<VI>(rp + sj * kCT), wv);
         }
       }
       if (g_ok) {
 #pragma unroll
         for (int j = 0; j < R; ++j) {
           const int t = it.t0 + q + j;
-          if (t < a.t_out) vst<VO>(yb + (size_t)t * a.cout, acc[j]);
+          if (t < a.t_out) stw(yb + (size_t)t * a.cout, acc[j]);
         }
       }
     } else if (it.t0 + q < a.t_out) {
@@ -344,7 +404,7 @@ __device__ __forceinline__ void dwconv_block(const Args& a) {
 #pragma unroll
       for (int j = 0; j < R; ++j) vzero(acc[j]);
       auto row = [&]() {
-        const VI x = vld<VI>(rp + s * kCT);
+        const VI x = ldw<VI>(rp + s * kCT);
         s += dil;
         if (CARRY && s >= nb) s -= nb;
         return x;
@@ -424,7 +484,7 @@ __device__ __forceinline__ void dwconv_block(const Args& a) {
 #pragma unroll
         for (int j = 0; j < R; ++j) {
           const int t = it.t0 + q + j * os;
-          if (t < a.t_out) vst<VO>(yb + (size_t)t * a.cout, acc[j]);
+          if (t < a.t_out) stw(yb + (size_t)t * a.cout, acc[j]);
         }
       }
     }
@@ -436,37 +496,43 @@ __device__ __forceinline__ void dwconv_block(const Args& a) {
 // the registers of a thread within what a full block leaves it.
 constexpr int max_threads(int R) { return R == 8 ? 512 : 256; }
 
-template <int GRAN, int VC, int R, bool CARRY>
-__global__ void __launch_bounds__(max_threads(R)) dwconv_kernel(const Args a) {
-  dwconv_block<1, GRAN, VC, R, CARRY>(a);
+template <class E, int GRAN, int VC, int R, bool CARRY>
+__global__ void __launch_bounds__(max_threads(R)) dwconv_kernel(const Args<E> a) {
+  dwconv_block<E, 1, GRAN, VC, R, CARRY>(a);
 }
 
-template <int GRAN, int VC, int R, bool CARRY>
-__global__ void __launch_bounds__(max_threads(R)) dwconv_grouped_kernel(const Args a) {
-  dwconv_block<2, GRAN, VC, R, CARRY>(a);
+template <class E, int GRAN, int VC, int R, bool CARRY>
+__global__ void __launch_bounds__(max_threads(R)) dwconv_grouped_kernel(const Args<E> a) {
+  dwconv_block<E, 2, GRAN, VC, R, CARRY>(a);
 }
 
 constexpr int kSmemMax = 232448;  // dynamic shared memory a block can have on sm_90
 
 // Only `if constexpr` keeps the other kernel from being instantiated (a B4
 // kernel with two lanes a thread does not exist).
-template <int M, int GRAN, int VC, int R, bool CARRY>
+template <class E, int M, int GRAN, int VC, int R, bool CARRY>
 constexpr auto kernel_of() {
   if constexpr (M == 1) {
-    return dwconv_kernel<GRAN, VC, R, CARRY>;
+    return dwconv_kernel<E, GRAN, VC, R, CARRY>;
   } else {
-    return dwconv_grouped_kernel<GRAN, VC, R, CARRY>;
+    return dwconv_grouped_kernel<E, GRAN, VC, R, CARRY>;
   }
 }
 
-template <int M, int GRAN, int VC, int R, bool CARRY>
-int launch(const Args& a, int grid_x, int grid_y, int smem, cudaStream_t stream) {
-  auto kernel = kernel_of<M, GRAN, VC, R, CARRY>();
+// Shared-memory bytes of a plan: the ring of E, then the f32 taps.
+template <class E>
+long long smem_bytes(int nb, int k) {
+  return (long long)nb * kCT * (long long)sizeof(E) + (long long)k * kCT * 4;
+}
+
+template <class E, int M, int GRAN, int VC, int R, bool CARRY>
+int launch(const Args<E>& a, int grid_x, int grid_y, int smem, cudaStream_t stream) {
+  auto kernel = kernel_of<E, M, GRAN, VC, R, CARRY>();
   constexpr int kThreadsRow = kCT / VC;  // threads across the channel tile
   if (a.ntt < 1 || kThreadsRow * a.ntt > max_threads(R) || (!a.direct && a.ntt % a.dil != 0) ||
       a.direct < 0 || a.direct > 1 || a.tile != a.ntt * R ||
       a.depth < 2 || a.depth > 3 || a.ipb < 1 || grid_y != (a.cin + kCT - 1) / kCT ||
-      (long long)smem != ((long long)a.nb + a.k) * kCT * 4 || smem > kSmemMax)
+      (long long)smem != smem_bytes<E>(a.nb, a.k) || smem > kSmemMax)
     return (int)cudaErrorInvalidValue;
   const int halo = a.dil * (a.k - 1);
   if (a.carry) {  // depth tiles and one halo in the ring; every tile owned by one block
@@ -485,54 +551,57 @@ int launch(const Args& a, int grid_x, int grid_y, int smem, cudaStream_t stream)
     if (err != cudaSuccess) return (int)err;
   }
   if ((long long)grid_x * grid_y > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  Args b = a;
+  Args<E> b = a;
   b.n_ct = grid_y;
   kernel<<<grid_x * grid_y, kThreadsRow * a.ntt, smem, stream>>>(b);
   return (int)cudaGetLastError();
 }
 
-template <int M, int GRAN, int VC>
-int launch_r(const Args& a, int r, int grid_x, int grid_y, int smem, cudaStream_t s) {
-  if (r == 8 && a.carry) return launch<M, GRAN, VC, 8, true>(a, grid_x, grid_y, smem, s);
-  if (r == 8) return launch<M, GRAN, VC, 8, false>(a, grid_x, grid_y, smem, s);
-  if (r == 16 && a.carry) return launch<M, GRAN, VC, 16, true>(a, grid_x, grid_y, smem, s);
-  if (r == 16) return launch<M, GRAN, VC, 16, false>(a, grid_x, grid_y, smem, s);
+template <class E, int M, int GRAN, int VC>
+int launch_r(const Args<E>& a, int r, int grid_x, int grid_y, int smem, cudaStream_t s) {
+  if (r == 8 && a.carry) return launch<E, M, GRAN, VC, 8, true>(a, grid_x, grid_y, smem, s);
+  if (r == 8) return launch<E, M, GRAN, VC, 8, false>(a, grid_x, grid_y, smem, s);
+  if (r == 16 && a.carry) return launch<E, M, GRAN, VC, 16, true>(a, grid_x, grid_y, smem, s);
+  if (r == 16) return launch<E, M, GRAN, VC, 16, false>(a, grid_x, grid_y, smem, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The plan's (gran, vc, r) among the built ones: 16-byte copies (gran 4, vc
-// 4, or 1 for M = 1) need C % 4 == 0 and x 16-byte aligned, and y aligned to
-// the output vector of vc; 4-byte copies (gran 1, vc = M) take any C and
-// any float alignment.
-template <int M>
-int dwconv1d(Args a, int hi, int gran, int vc, int r, int grid_x, int grid_y, int smem,
+// The plan's (gran, vc, r) among the built ones: 16-byte copies (gran 4
+// floats or 8 bf16, vc 4, or 1 for M = 1) need C % gran == 0 and x 16-byte
+// aligned, and y aligned to the output vector of vc; single-element copies
+// (gran 1, vc = M) take any C and any element alignment.
+template <class E, int M>
+int dwconv1d(Args<E> a, int hi, int gran, int vc, int r, int grid_x, int grid_y, int smem,
              void* stream) {
   const long long t_out = (long long)a.T + a.lo + hi - (long long)a.dil * (a.k - 1);
   if (a.batch <= 0 || a.T <= 0 || a.cout <= 0 || a.k <= 0 || a.lo < 0 || hi < 0 ||
       a.dil <= 0 || t_out <= 0 || t_out != a.t_out || a.cin != M * a.cout)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (gran == 4) {
-    if (a.cin % 4 != 0 || (uintptr_t)a.x % 16 != 0 || (uintptr_t)a.y % (4 * vc / M) != 0)
+  constexpr int kVec = 16 / (int)sizeof(E);  // elements a 16-byte copy
+  if (gran == kVec) {
+    if (a.cin % kVec != 0 || (uintptr_t)a.x % 16 != 0 ||
+        (uintptr_t)a.y % (sizeof(E) * vc / M) != 0)
       return (int)cudaErrorInvalidValue;
-    if (vc == 4) return launch_r<M, 4, 4>(a, r, grid_x, grid_y, smem, s);
+    if (vc == 4) return launch_r<E, M, kVec, 4>(a, r, grid_x, grid_y, smem, s);
     if constexpr (M == 1) {
-      if (vc == 1) return launch_r<M, 4, 1>(a, r, grid_x, grid_y, smem, s);
+      if (vc == 1) return launch_r<E, M, kVec, 1>(a, r, grid_x, grid_y, smem, s);
     }
     return (int)cudaErrorInvalidValue;
   }
-  if (gran == 1 && vc == M) return launch_r<M, 1, M>(a, r, grid_x, grid_y, smem, s);
+  if (gran == 1 && vc == M) return launch_r<E, M, 1, M>(a, r, grid_x, grid_y, smem, s);
   return (int)cudaErrorInvalidValue;
 }
 
-Args make_args(const float* x, const float* w, float* y, long long si, long long sm,
-               long long sg, int batch, int T, int cin, int cout, int k, int lo, int hi, int dil,
-               int ntt, int tile, int carry, int ipb, int depth, int direct, int chunks,
-               int n_tiles, int nb) {
-  Args a;
-  a.x = x;
-  a.w = w;
-  a.y = y;
+template <class E>
+Args<E> make_args(const void* x, const void* w, void* y, long long si, long long sm,
+                  long long sg, int batch, int T, int cin, int cout, int k, int lo, int hi,
+                  int dil, int ntt, int tile, int carry, int ipb, int depth, int direct,
+                  int chunks, int n_tiles, int nb) {
+  Args<E> a;
+  a.x = static_cast<const E*>(x);
+  a.w = static_cast<const E*>(w);
+  a.y = static_cast<E*>(y);
   a.si = si;
   a.sm = sm;
   a.sg = sg;
@@ -562,29 +631,42 @@ extern "C" {
 
 const char* ajt_dwconv_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
+#define AJT_DWCONV_PLAN                                                                    \
+  int gran, int vc, int r, int ntt, int tile, int carry, int ipb, int depth, int direct,  \
+      int chunks, int n_tiles, int nb, int grid_x, int grid_y, int smem, void *stream
+
 // B4: x (batch, T, C), w (k, C) with strides (si, sc), y (batch, T + lo + hi -
-// dil*(k-1), C); all float32.  The rest is dwconv_launch's plan.
-int ajt_dwconv1d_f32(const float* x, const float* w, float* y, int batch, int T, int C, int k,
-                     int lo, int hi, int dil, long long si, long long sc, int gran, int vc,
-                     int r, int ntt, int tile, int carry, int ipb, int depth, int direct,
-                     int chunks, int n_tiles, int nb, int grid_x, int grid_y, int smem,
-                     void* stream) {
-  const Args a = make_args(x, w, y, si, 0, sc, batch, T, C, C, k, lo, hi, dil, ntt, tile,
-                           carry, ipb, depth, direct, chunks, n_tiles, nb);
-  return dwconv1d<1>(a, hi, gran, vc, r, grid_x, grid_y, smem, stream);
+// dil*(k-1), C); all float32 (_f32) or all bfloat16 (_bf16).  The rest is
+// dwconv_launch's plan.
+int ajt_dwconv1d_f32(const void* x, const void* w, void* y, int batch, int T, int C, int k,
+                     int lo, int hi, int dil, long long si, long long sc, AJT_DWCONV_PLAN) {
+  const auto a = make_args<float>(x, w, y, si, 0, sc, batch, T, C, C, k, lo, hi, dil, ntt,
+                                  tile, carry, ipb, depth, direct, chunks, n_tiles, nb);
+  return dwconv1d<float, 1>(a, hi, gran, vc, r, grid_x, grid_y, smem, stream);
+}
+int ajt_dwconv1d_bf16(const void* x, const void* w, void* y, int batch, int T, int C, int k,
+                      int lo, int hi, int dil, long long si, long long sc, AJT_DWCONV_PLAN) {
+  const auto a = make_args<bf16>(x, w, y, si, 0, sc, batch, T, C, C, k, lo, hi, dil, ntt,
+                                 tile, carry, ipb, depth, direct, chunks, n_tiles, nb);
+  return dwconv1d<bf16, 1>(a, hi, gran, vc, r, grid_x, grid_y, smem, stream);
 }
 
 // B5: x (batch, T, 2*G), w (k, 2, G) with strides (si, sm, sg), y (batch, T +
-// lo + hi - dil*(k-1), G); all float32.  The rest is dwconv_launch's plan.
-int ajt_dwconv1d_grouped2_f32(const float* x, const float* w, float* y, int batch, int T, int G,
+// lo + hi - dil*(k-1), G); all float32 (_f32) or all bfloat16 (_bf16).  The
+// rest is dwconv_launch's plan.
+int ajt_dwconv1d_grouped2_f32(const void* x, const void* w, void* y, int batch, int T, int G,
                               int k, int lo, int hi, int dil, long long si, long long sm,
-                              long long sg, int gran, int vc, int r, int ntt, int tile,
-                              int carry, int ipb, int depth, int direct, int chunks,
-                              int n_tiles, int nb, int grid_x, int grid_y, int smem,
-                              void* stream) {
-  const Args a = make_args(x, w, y, si, sm, sg, batch, T, 2 * G, G, k, lo, hi, dil, ntt,
-                           tile, carry, ipb, depth, direct, chunks, n_tiles, nb);
-  return dwconv1d<2>(a, hi, gran, vc, r, grid_x, grid_y, smem, stream);
+                              long long sg, AJT_DWCONV_PLAN) {
+  const auto a = make_args<float>(x, w, y, si, sm, sg, batch, T, 2 * G, G, k, lo, hi, dil,
+                                  ntt, tile, carry, ipb, depth, direct, chunks, n_tiles, nb);
+  return dwconv1d<float, 2>(a, hi, gran, vc, r, grid_x, grid_y, smem, stream);
+}
+int ajt_dwconv1d_grouped2_bf16(const void* x, const void* w, void* y, int batch, int T, int G,
+                               int k, int lo, int hi, int dil, long long si, long long sm,
+                               long long sg, AJT_DWCONV_PLAN) {
+  const auto a = make_args<bf16>(x, w, y, si, sm, sg, batch, T, 2 * G, G, k, lo, hi, dil,
+                                 ntt, tile, carry, ipb, depth, direct, chunks, n_tiles, nb);
+  return dwconv1d<bf16, 2>(a, hi, gran, vc, r, grid_x, grid_y, smem, stream);
 }
 
 }  // extern "C"

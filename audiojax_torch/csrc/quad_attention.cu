@@ -1,4 +1,5 @@
-// Fused relu^2 quadratic attention for Hopper (sm_90a), float32 FMA (B6).
+// Fused relu^2 quadratic attention for Hopper (sm_90a), float32 FMA (B6), on
+// float32 or bfloat16 tensors.
 //
 // Replaces quad_attention_pallas (audiojax/ops/attention_pallas.py:61, its
 // kernel _kernel :44):
@@ -64,6 +65,20 @@
 // per (block, value tile): at SS 4 row tiles read each v row 4 times, 0.54
 // GB, against 18.25 GFLOP.
 //
+// bfloat16 (the bf16 serving plan): q, k and v are bf16, with the
+// contract of quad_attention_pallas's kernel (attention_pallas.py:44-58):
+// the bf16 products of the scores are exact in f32 and summed in f32, scale
+// and relu^2 are f32, the score tile stays f32 for the PV product with v
+// widened to f32 (a bf16 product there would round attn to bf16, another
+// function), and each output is rounded once to bf16, to nearest even, or
+// written in f32 (out float32: the served layers add the linear attention to
+// it in f32 and round once, as the JAX models' einsums do).  The
+// staged q/k chunks and v pieces are bf16 in shared memory, 4 elements an
+// 8-byte cp.async in the same thread layout, and are widened to f32 as they
+// are read (one 8-byte shared read for 4 elements); the float32 buffers'
+// bytes are kept, so the plan is the same.  The sums are the same f32 chains
+// in the same order, so only the final rounding separates the two dtypes.
+//
 // The launcher takes the geometry from the host (WM, WN, row tiles, value
 // splits, key segment, shared-memory bytes), checks it, and returns
 // cudaGetLastError() (or the error of the shared-memory opt-in).
@@ -72,6 +87,10 @@
 
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "bf16.cuh"
 
 namespace {
 
@@ -90,17 +109,28 @@ __host__ __device__ constexpr size_t smem_floats(int wm, int wn, int seg) {
                                                                 : 2 * 32 * 64 * wn);
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// 4 f32 values stored as 4 consecutive elements (bf16: rounded).
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void st4(bf16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
 }
 
-// 16 bytes from global to shared memory (shared-window address dst),
-// asynchronously; zeros where !valid.
-__device__ __forceinline__ void cp_async16(unsigned dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
+// 4 elements (16 bytes of float, 8 of bf16) from global to shared memory
+// (shared-window address dst), asynchronously; zeros where !valid.
+template <class E>
+__device__ __forceinline__ void cp_async4e(unsigned dst, const E* src, bool valid) {
+  if constexpr (sizeof(E) == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(valid ? 16 : 0));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(valid ? 8 : 0));
+  }
 }
-__device__ __forceinline__ unsigned smem_addr(const float* p) {
+template <class E>
+__device__ __forceinline__ unsigned smem_addr(const E* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -124,54 +154,55 @@ struct Tile {
 
 // Features [d0, d0 + 16) of query rows [m0, m0 + BM) and keys [j0, j0 + KB)
 // into buf (rows: BM query rows, then KB keys), zero past S and past K.  A
-// thread copies one float4 column of every kRows-th row, walking its source
-// and destination by constant strides (no index arithmetic a copy).
-template <class T>
-__device__ __forceinline__ void stage_qk(const float* qn, const float* kn, int S, int K, int m0,
-                                         int j0, int d0, float* buf) {
+// thread copies 4 elements of every kRows-th row, walking its source and
+// destination by constant strides (no index arithmetic a copy).
+template <class T, class E>
+__device__ __forceinline__ void stage_qk(const E* qn, const E* kn, int S, int K, int m0, int j0,
+                                         int d0, E* buf) {
   constexpr int kC4 = kDC / 4, kRows = T::kThreads / kC4;
+  constexpr unsigned kStep = kRows * kDS * sizeof(E);
   static_assert(T::kBM % kRows == 0 && T::kKB % kRows == 0, "passes split q from k");
   const int r0 = threadIdx.x / kC4, c = threadIdx.x % kC4 * 4;
   const bool col_ok = d0 + c < K;
   unsigned dst = smem_addr(buf + r0 * kDS + c);
-  const float* src = qn + (size_t)(m0 + r0) * K + d0 + c;
+  const E* src = qn + (size_t)(m0 + r0) * K + d0 + c;
 #pragma unroll
-  for (int r = r0; r < T::kBM; r += kRows, src += (size_t)kRows * K, dst += kRows * kDS * 4) {
+  for (int r = r0; r < T::kBM; r += kRows, src += (size_t)kRows * K, dst += kStep) {
     const bool ok = col_ok && m0 + r < S;
-    cp_async16(dst, ok ? src : qn, ok);
+    cp_async4e(dst, ok ? src : qn, ok);
   }
   src = kn + (size_t)(j0 + r0) * K + d0 + c;
 #pragma unroll
-  for (int r = r0; r < T::kKB; r += kRows, src += (size_t)kRows * K, dst += kRows * kDS * 4) {
+  for (int r = r0; r < T::kKB; r += kRows, src += (size_t)kRows * K, dst += kStep) {
     const bool ok = col_ok && j0 + r < S;
-    cp_async16(dst, ok ? src : kn, ok);
+    cp_async4e(dst, ok ? src : kn, ok);
   }
 }
 
 // Keys [j0, j0 + kJC) x columns [c0, c0 + VT) of v into buf, zero past S and
 // V, by constant strides as in stage_qk.
-template <class T>
-__device__ __forceinline__ void stage_v(const float* vn, int S, int V, int j0, int c0,
-                                        float* buf) {
+template <class T, class E>
+__device__ __forceinline__ void stage_v(const E* vn, int S, int V, int j0, int c0, E* buf) {
   constexpr int kC4 = T::kVT / 4, kRows = T::kThreads / kC4;
+  constexpr unsigned kStep = kRows * T::kVT * sizeof(E);
   static_assert(T::kJC % kRows == 0, "whole passes");
   const int r0 = threadIdx.x / kC4, c = threadIdx.x % kC4 * 4;
   const bool col_ok = c0 + c < V;
   unsigned dst = smem_addr(buf + r0 * T::kVT + c);
-  const float* src = vn + (size_t)(j0 + r0) * V + c0 + c;
+  const E* src = vn + (size_t)(j0 + r0) * V + c0 + c;
 #pragma unroll
-  for (int r = r0; r < T::kJC; r += kRows, src += (size_t)kRows * V, dst += kRows * T::kVT * 4) {
+  for (int r = r0; r < T::kJC; r += kRows, src += (size_t)kRows * V, dst += kStep) {
     const bool ok = col_ok && j0 + r < S;
-    cp_async16(dst, ok ? src : vn, ok);
+    cp_async4e(dst, ok ? src : vn, ok);
   }
 }
 
 // Phase 1: relu^2 scores of the block's rows against keys [k_lo, k_lo + k_n)
 // into pt[key - k_lo][row].
-template <class T, int WN>
-__device__ __forceinline__ void score_tile(const float* qn, const float* kn, int S, int K,
-                                           int m0, int k_lo, int k_n, float scale, int mask_diag,
-                                           float* pt, float* work) {
+template <class T, int WN, class E>
+__device__ __forceinline__ void score_tile(const E* qn, const E* kn, int S, int K, int m0,
+                                           int k_lo, int k_n, float scale, int mask_diag,
+                                           float* pt, E* work) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wr = warp / WN, wc = warp % WN, ty = lane >> 3, tx = lane & 7;
   const int nd = (K + kDC - 1) / kDC;
@@ -197,8 +228,8 @@ __device__ __forceinline__ void score_tile(const float* qn, const float* kn, int
         stage_qk<T>(qn, kn, S, K, m0, k_lo + kb0, (dc + kSB - 1) * kDC,
                     work + (dc + kSB - 1) % kSB * kBuf);
       cp_commit();
-      const float* qs = work + dc % kSB * kBuf + (wr * 32 + ty) * kDS;
-      const float* ks = work + dc % kSB * kBuf + (T::kBM + wc * 64 + tx) * kDS;
+      const E* qs = work + dc % kSB * kBuf + (wr * 32 + ty) * kDS;
+      const E* ks = work + dc % kSB * kBuf + (T::kBM + wc * 64 + tx) * kDS;
 #pragma unroll
       for (int d = 0; d < kDC; d += 4) {
         float4 a[8];
@@ -232,16 +263,17 @@ __device__ __forceinline__ void score_tile(const float* qn, const float* kn, int
   }
 }
 
-template <int WM, int WN, bool kMulti>
+template <class E, class O, int WM, int WN, bool kMulti>
 __global__ void __launch_bounds__(32 * WM * WN, 1)
-quad_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ out, int S, int K, int V,
-                      float scale, int mask_diag, int row_tiles, int vsplit, int seg) {
+quad_attention_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+                      O* __restrict__ out, int S, int K, int V, float scale, int mask_diag,
+                      int row_tiles, int vsplit, int seg) {
   using T = Tile<WM, WN>;
   constexpr int kJC = T::kJC, kVP = T::kVP;
   extern __shared__ __align__(16) float smem[];
-  float* pt = smem;                            // [seg][kPTS] relu^2 scores, key-major
-  float* work = smem + (size_t)seg * T::kPTS;  // staging: q/k chunks, then v pieces
+  float* pt = smem;  // [seg][kPTS] relu^2 scores, key-major, f32
+  // staging: q/k chunks, then v pieces, of E (the float32 buffers' bytes)
+  E* work = reinterpret_cast<E*>(smem + (size_t)seg * T::kPTS);
 
   int b = blockIdx.x;
   const int vs = b % vsplit;
@@ -254,10 +286,10 @@ quad_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wr = warp / WN, wc = warp % WN, ty = lane >> 3, tx = lane & 7;
-  const float* qn = q + n * S * K;
-  const float* kn = k + n * S * K;
-  const float* vn = v + n * S * V;
-  float* on = out + n * S * V;
+  const E* qn = q + n * S * K;
+  const E* kn = k + n * S * K;
+  const E* vn = v + n * S * V;
+  O* on = out + n * S * V;
   const int s_pad = round_up(S, 8);
   const int nseg = kMulti ? (s_pad + seg - 1) / seg : 1;
 
@@ -288,7 +320,7 @@ quad_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
           cp_commit();
         }
         const float* ps = pt + (size_t)c * kJC * T::kPTS + wr * 32 + ty * 8;
-        const float* vb = work + (st & 1) * kVP + wc * 64 + tx * 4;
+        const E* vb = work + (st & 1) * kVP + wc * 64 + tx * 4;
         const int j_hi = min(kJC, k_n - c * kJC);  // a multiple of 8
 #pragma unroll
         for (int j0 = 0; j0 < kJC; j0 += 8) {  // unrolled whole: loads run ahead of the FMAs
@@ -316,8 +348,8 @@ quad_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
           for (int h = 0; h < 2; ++h) {
             const int col = t * T::kVT + wc * 64 + h * 32 + tx * 4;
             if (col < V)
-              *reinterpret_cast<float4*>(on + (size_t)m * V + col) =
-                  make_float4(o[i][4 * h], o[i][4 * h + 1], o[i][4 * h + 2], o[i][4 * h + 3]);
+              st4(on + (size_t)m * V + col,
+                  make_float4(o[i][4 * h], o[i][4 * h + 1], o[i][4 * h + 2], o[i][4 * h + 3]));
           }
         }
       }
@@ -326,11 +358,11 @@ quad_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int WM, int WN, bool kMulti>
-cudaError_t launch(const float* q, const float* k, const float* v, float* out, int n, int s,
-                   int dk, int dv, float scale, int mask_diag, int row_tiles, int vsplit, int seg,
-                   size_t smem, cudaStream_t stream) {
-  auto kernel = quad_attention_kernel<WM, WN, kMulti>;
+template <class E, class O, int WM, int WN, bool kMulti>
+cudaError_t launch(const E* q, const E* k, const E* v, O* out, int n, int s, int dk, int dv,
+                   float scale, int mask_diag, int row_tiles, int vsplit, int seg, size_t smem,
+                   cudaStream_t stream) {
+  auto kernel = quad_attention_kernel<E, O, WM, WN, kMulti>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -343,33 +375,27 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out, i
 }
 
 // The warp layouts the kernel is built for: (WM, WN) = (2, 2), (4, 2).
-template <bool kMulti>
-cudaError_t dispatch(int wm, int wn, const float* q, const float* k, const float* v, float* out,
-                     int n, int s, int dk, int dv, float scale, int mask_diag, int row_tiles,
-                     int vsplit, int seg, size_t smem, cudaStream_t st) {
+template <class E, class O, bool kMulti>
+cudaError_t dispatch(int wm, int wn, const E* q, const E* k, const E* v, O* out, int n, int s,
+                     int dk, int dv, float scale, int mask_diag, int row_tiles, int vsplit,
+                     int seg, size_t smem, cudaStream_t st) {
   if (wm == 2 && wn == 2)
-    return launch<2, 2, kMulti>(q, k, v, out, n, s, dk, dv, scale, mask_diag, row_tiles, vsplit,
-                                seg, smem, st);
+    return launch<E, O, 2, 2, kMulti>(q, k, v, out, n, s, dk, dv, scale, mask_diag, row_tiles,
+                                   vsplit, seg, smem, st);
   if (wm == 4 && wn == 2)
-    return launch<4, 2, kMulti>(q, k, v, out, n, s, dk, dv, scale, mask_diag, row_tiles, vsplit,
-                                seg, smem, st);
+    return launch<E, O, 4, 2, kMulti>(q, k, v, out, n, s, dk, dv, scale, mask_diag, row_tiles,
+                                   vsplit, seg, smem, st);
   return cudaErrorInvalidConfiguration;
 }
 
-}  // namespace
-
-extern "C" {
-
-const char* ajt_quad_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
-
-// q, k (n, s, dk), v and out (n, s, dv); dk and dv multiples of 4, every
-// pointer 16-byte aligned.  Geometry from the host: wm x wn warps (a layout
-// of dispatch), row_tiles = ceil(s / (32 wm)), vsplit value-tile ranges a
-// row tile, seg keys of score tile held (a multiple of 8; below round_up(s,
-// 8) only with one value tile a block), smem bytes (at least smem_floats).
-int ajt_quad_attention_f32(const float* q, const float* k, const float* v, float* out, int n,
-                           int s, int dk, int dv, float scale, int mask_diag, int wm, int wn,
-                           int row_tiles, int vsplit, int seg, long long smem, void* stream) {
+template <class E, class O>
+int quad_attention(const void* qv, const void* kv, const void* vv, void* outv, int n, int s,
+                   int dk, int dv, float scale, int mask_diag, int wm, int wn, int row_tiles,
+                   int vsplit, int seg, long long smem, void* stream) {
+  const E* q = static_cast<const E*>(qv);
+  const E* k = static_cast<const E*>(kv);
+  const E* v = static_cast<const E*>(vv);
+  O* out = static_cast<O*>(outv);
   if (n <= 0 || s <= 0 || dk <= 0 || dv <= 0 || dk % 4 || dv % 4 || wm <= 0 || wn <= 0)
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
@@ -382,10 +408,35 @@ int ajt_quad_attention_f32(const float* q, const float* k, const float* v, float
       (long long)n * row_tiles * vsplit > 0x7fffffffLL)
     return (int)cudaErrorInvalidConfiguration;
   const cudaStream_t st = (cudaStream_t)stream;
-  return multi ? (int)dispatch<true>(wm, wn, q, k, v, out, n, s, dk, dv, scale, mask_diag,
-                                     row_tiles, vsplit, seg, (size_t)smem, st)
-               : (int)dispatch<false>(wm, wn, q, k, v, out, n, s, dk, dv, scale, mask_diag,
-                                      row_tiles, vsplit, seg, (size_t)smem, st);
+  return multi ? (int)dispatch<E, O, true>(wm, wn, q, k, v, out, n, s, dk, dv, scale, mask_diag,
+                                        row_tiles, vsplit, seg, (size_t)smem, st)
+               : (int)dispatch<E, O, false>(wm, wn, q, k, v, out, n, s, dk, dv, scale, mask_diag,
+                                         row_tiles, vsplit, seg, (size_t)smem, st);
 }
+
+}  // namespace
+
+extern "C" {
+
+const char* ajt_quad_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+// q, k (n, s, dk), v and out (n, s, dv), all float32 (_f32), all bfloat16
+// (_bf16), or q, k, v bfloat16 and out float32 (_bf16_f32); dk and dv
+// multiples of 4, every pointer 16-byte aligned.  Geometry from the host:
+// wm x wn warps (a layout of dispatch), row_tiles = ceil(s / (32 wm)),
+// vsplit value-tile ranges a row tile, seg keys of score tile held (a
+// multiple of 8; below round_up(s, 8) only with one value tile a block),
+// smem bytes (at least smem_floats).
+#define AJT_QUAD_ENTRY(NAME, E, O)                                                            \
+  int NAME(const void* q, const void* k, const void* v, void* out, int n, int s, int dk, int dv, \
+           float scale, int mask_diag, int wm, int wn, int row_tiles, int vsplit, int seg,      \
+           long long smem, void* stream) {                                                      \
+    return quad_attention<E, O>(q, k, v, out, n, s, dk, dv, scale, mask_diag, wm, wn,           \
+                                row_tiles, vsplit, seg, smem, stream);                          \
+  }
+AJT_QUAD_ENTRY(ajt_quad_attention_f32, float, float)
+AJT_QUAD_ENTRY(ajt_quad_attention_bf16, bf16, bf16)
+AJT_QUAD_ENTRY(ajt_quad_attention_bf16_f32, bf16, float)
+#undef AJT_QUAD_ENTRY
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-// Zipformer2 rel-pos attention scores for Hopper (sm_90a), float32 (B3).
+// Zipformer2 rel-pos attention scores for Hopper (sm_90a), float32 (B3), on
+// float32 or bfloat16 tensors.
 //
 // Replaces relpos_scores_pallas (audiojax/ops/attention_pallas.py:195, its
 // kernel _relpos_kernel :161) with the contract of relpos_scores_jnp (:142),
@@ -56,6 +57,21 @@
 // 256-key tiles, then the write, with the scores recomputed in the same order
 // and pe read from L2.
 //
+// bfloat16 (the bf16 serving plan, the Pallas kernel's own dtypes: its pe is
+// bf16, attention_pallas.py:208, and its probabilities are written in q's
+// dtype by default, :205): q, k, pp, pe and out are bf16.  Everything between
+// is the float32 arithmetic above (the bf16 products exact in f32, the
+// softmax with its row maximum in f32), and each probability is rounded once
+// to bf16, to nearest even.  Keys and query rows stay bf16 in the staging
+// buffers, 4 elements an 8-byte cp.async (the vector route: D, the row
+// strides and the pointers multiples of 4 elements), and are widened as they
+// are read; the positional terms go in pairs by 4-byte cp.async where P, the
+// slot stride and pp's row stride are even, else by ordinary loads; pe's
+// rows are widened into the f32 table as the block stages them (ordinary
+// loads, eight in flight a thread: a row of S = 101 bf16 starts 2-byte
+// aligned).  A bf16 buffer takes half the bytes, which the host's plan counts
+// (relpos_smem in ops/attention_cuda.py).
+//
 // The launchers take the geometry from the host, check it, and return
 // cudaGetLastError() (or the error of the shared-memory opt-in).
 
@@ -65,7 +81,25 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "bf16.cuh"
+
 namespace {
+
+// A read-only load through the texture path, widened to f32.
+__device__ __forceinline__ float ldg_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f(const bf16* p) {
+  return __uint_as_float((unsigned)__ldg(&p->u) << 16);
+}
+
+// An output store (bf16: rounded); _cs: evict-first, for the output stream.
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(bf16* p, float v) { p->u = (unsigned short)bf16_bits(v); }
+__device__ __forceinline__ void store_cs(float* p, float v) { __stcs(p, v); }
+__device__ __forceinline__ void store_cs(bf16* p, float v) {
+  asm volatile("st.global.cs.b16 [%0], %1;\n" ::"l"(p), "h"((unsigned short)bf16_bits(v)));
+}
 
 // ── the two-pass route (the first design), for rows of more than 256 keys ──
 
@@ -75,13 +109,14 @@ constexpr int kRows = 4;                   // query rows per warp
 constexpr int kGroup = kWarps * kRows;     // query rows per block step
 constexpr int kMaxNJ = 8;                  // keys per lane in one pass: S <= 256
 
+template <class E>
 struct Args {
-  const float* q;
-  const float* k;
-  const float* pp;
-  const float* pe;
-  float* out;
-  long long ldq, ldk, ldpp;  // row strides, in floats
+  const E* q;
+  const E* k;
+  const E* pp;
+  const E* pe;
+  E* out;
+  long long ldq, ldk, ldpp;  // row strides, in elements
   int S, H, D, P, pstride;
   int chunks;                // row ranges per (n, h)
   int groups_per_chunk;      // 32-row groups per row range
@@ -105,37 +140,38 @@ __host__ __device__ constexpr int keys_floats(int nj, int d) {
 }
 
 // Keys [j0, j0 + 32*NJ) of this head into kt[d * (32*NJ + 1) + j], zero past S.
-template <int NJ>
-__device__ __forceinline__ void load_keys(const float* __restrict__ kn, long long ldk, int S,
-                                          int D, int j0, float* kt) {
+template <int NJ, class E>
+__device__ __forceinline__ void load_keys(const E* __restrict__ kn, long long ldk, int S, int D,
+                                          int j0, float* kt) {
   constexpr int kTile = 32 * NJ, kKS = kTile + 1;
   for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
     const int j = e / D, d = e - j * D;
-    kt[d * kKS + j] = (j0 + j < S) ? kn[(size_t)(j0 + j) * ldk + d] : 0.f;
+    kt[d * kKS + j] = (j0 + j < S) ? widen(kn[(size_t)(j0 + j) * ldk + d]) : 0.f;
   }
 }
 
 // This warp's query rows i0 .. i0+3 into qw[d*4 + r] and their positional
 // terms into pw[p*4 + r], zero past S.
-__device__ __forceinline__ void load_rows(const Args& a, const float* __restrict__ qn,
-                                          const float* __restrict__ pn, int i0, int lane,
-                                          float* qw, float* pw) {
+template <class E>
+__device__ __forceinline__ void load_rows(const Args<E>& a, const E* __restrict__ qn,
+                                          const E* __restrict__ pn, int i0, int lane, float* qw,
+                                          float* pw) {
   __syncwarp();  // the previous rows are no longer read
   for (int e = lane; e < kRows * a.D; e += 32) {
     const int r = e / a.D, d = e - r * a.D;
-    qw[d * kRows + r] = (i0 + r < a.S) ? qn[(size_t)(i0 + r) * a.ldq + d] : 0.f;
+    qw[d * kRows + r] = (i0 + r < a.S) ? widen(qn[(size_t)(i0 + r) * a.ldq + d]) : 0.f;
   }
   for (int e = lane; e < kRows * a.P; e += 32) {
     const int r = e / a.P, p = e - r * a.P;
-    pw[p * kRows + r] = (i0 + r < a.S) ? pn[(size_t)(i0 + r) * a.ldpp + p] : 0.f;
+    pw[p * kRows + r] = (i0 + r < a.S) ? widen(pn[(size_t)(i0 + r) * a.ldpp + p]) : 0.f;
   }
   __syncwarp();
 }
 
 // Scores of rows i0 + r against keys j0 + 32 t + lane; -inf past S.
-template <int NJ>
-__device__ __forceinline__ void scores(const Args& a, const float* kt, const float* qw,
-                                       const float* pw, const float* __restrict__ peh, int i0,
+template <int NJ, class E>
+__device__ __forceinline__ void scores(const Args<E>& a, const float* kt, const float* qw,
+                                       const float* pw, const E* __restrict__ peh, int i0,
                                        int j0, int lane, float (&acc)[kRows][NJ]) {
   constexpr int kKS = 32 * NJ + 1;
 #pragma unroll
@@ -160,7 +196,7 @@ __device__ __forceinline__ void scores(const Args& a, const float* kt, const flo
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int i = min(i0 + r, a.S - 1);  // rows past S are computed, never written
-    const float* pei = peh + (size_t)i * a.S + j0 + lane;
+    const E* pei = peh + (size_t)i * a.S + j0 + lane;
     const int valid = a.S - j0 - lane;  // t * 32 < valid: key j0 + t*32 + lane exists
     float b[NJ];
 #pragma unroll
@@ -170,7 +206,7 @@ __device__ __forceinline__ void scores(const Args& a, const float* kt, const flo
       const float w = pw[p * kRows + r];
       float v[NJ];
 #pragma unroll
-      for (int t = 0; t < NJ; ++t) v[t] = t * 32 < valid ? __ldg(pei + p * plane + t * 32) : 0.f;
+      for (int t = 0; t < NJ; ++t) v[t] = t * 32 < valid ? ldg_f(pei + p * plane + t * 32) : 0.f;
 #pragma unroll
       for (int t = 0; t < NJ; ++t) b[t] = fmaf(w, v[t], b[t]);
     }
@@ -179,20 +215,22 @@ __device__ __forceinline__ void scores(const Args& a, const float* kt, const flo
   }
 }
 
+template <class E>
 struct Head {
-  const float* kn;
-  const float* qn;
-  const float* pn;
-  const float* peh;
-  float* on;
+  const E* kn;
+  const E* qn;
+  const E* pn;
+  const E* peh;
+  E* on;
   int row0, row_end;  // this block's query rows
 };
 
-__device__ __forceinline__ Head locate(const Args& a) {
+template <class E>
+__device__ __forceinline__ Head<E> locate(const Args<E>& a) {
   const int chunk = blockIdx.x % a.chunks;
   const int nh = blockIdx.x / a.chunks;
   const int h = nh % a.H, n = nh / a.H;
-  Head hd;
+  Head<E> hd;
   hd.kn = a.k + (size_t)n * a.S * a.ldk + (size_t)h * a.D;
   hd.qn = a.q + (size_t)n * a.S * a.ldq + (size_t)h * a.D;
   hd.pn = a.pp + (size_t)n * a.S * a.ldpp + (size_t)h * a.pstride;
@@ -204,14 +242,15 @@ __device__ __forceinline__ Head locate(const Args& a) {
 }
 
 // Two passes over 256-key tiles, for rows longer than 256 keys.
-__global__ void __launch_bounds__(kThreads, 2) relpos_tiled_kernel(const Args a) {
+template <class E>
+__global__ void __launch_bounds__(kThreads, 2) relpos_tiled_kernel(const Args<E> a) {
   constexpr int NJ = kMaxNJ, kTile = 32 * NJ;
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* kt = smem;
   float* qw = smem + keys_floats(NJ, a.D) + warp * kRows * (a.D + a.P);
   float* pw = qw + kRows * a.D;
-  const Head hd = locate(a);
+  const Head<E> hd = locate(a);
 
   for (int g = hd.row0; g < hd.row_end; g += kGroup) {
     const int i0 = g + warp * kRows;
@@ -266,11 +305,11 @@ __global__ void __launch_bounds__(kThreads, 2) relpos_tiled_kernel(const Args a)
       for (int r = 0; r < kRows; ++r) {
         const int i = i0 + r;
         if (i >= hd.row_end) break;
-        float* orow = hd.on + (size_t)i * a.S;
+        E* orow = hd.on + (size_t)i * a.S;
 #pragma unroll
         for (int t = 0; t < NJ; ++t) {
           const int j = j0 + t * 32 + lane;
-          if (j < a.S) orow[j] = expf(acc[r][t] - m[r]) / s[r];
+          if (j < a.S) store(orow + j, expf(acc[r][t] - m[r]) / s[r]);
         }
       }
     }
@@ -279,43 +318,59 @@ __global__ void __launch_bounds__(kThreads, 2) relpos_tiled_kernel(const Args a)
 
 // ── the batched one-pass route (S <= 256) ──────────────────────────────────
 
+template <class E>
 struct Batched {
-  const float* q;
-  const float* k;
-  const float* pp;
-  const float* pe;
-  float* out;
-  long long ldq, ldk, ldpp;  // row strides, in floats
+  const E* q;
+  const E* k;
+  const E* pp;
+  const E* pe;
+  E* out;
+  long long ldq, ldk, ldpp;  // row strides, in elements
   int N, S, H, D, P, pstride;
   int R;          // query rows per block, a multiple of 4 (R / 4 warps)
   int row_tiles;  // ceil(S / R)
   int nb;         // batch rows per block
   int chunks;     // ceil(N / nb)
   int ds;         // row stride of staged q and k rows: round_up(D, 8) + 4
-  int vec;        // q and k copied 16 bytes at a time (D % 4 == 0, aligned rows)
+  int vec;        // q and k copied 4 elements at a time (D % 4 == 0, aligned rows)
+  int vec_pp;     // bf16: pp copied in pairs (P, pstride, ldpp even, 4-byte aligned)
 };
 
 __host__ __device__ constexpr int round_up(int a, int b) { return (a + b - 1) / b * b; }
 
-// Floats of one staging buffer: keys (32 NJ rows), R query rows, R x P terms.
-__host__ __device__ constexpr size_t batched_buffer_floats(int nj, int r, int d, int p) {
-  return (size_t)(32 * nj + r) * (round_up(d, 8) + 4) + (size_t)r * p;
+// Bytes of one staging buffer of E: keys (32 NJ rows), R query rows (row
+// stride round_up(D, 8) + 4 elements), R x P terms; a multiple of 16.
+__host__ __device__ constexpr size_t batched_buffer_bytes(int nj, int r, int d, int p,
+                                                          int esize) {
+  return ((size_t)((32 * nj + r) * (round_up(d, 8) + 4) + r * p) * esize + 15) / 16 * 16;
 }
 
-// Shared-memory floats: pe[h, :, rows, :] (row stride 32 NJ), two buffers.
-__host__ __device__ constexpr size_t batched_floats(int nj, int r, int d, int p) {
-  return (size_t)p * r * 32 * nj + 2 * batched_buffer_floats(nj, r, d, p);
+// Shared-memory bytes: pe[h, :, rows, :] in f32 (row stride 32 NJ), two buffers.
+__host__ __device__ constexpr size_t batched_bytes(int nj, int r, int d, int p, int esize) {
+  return (size_t)p * r * 32 * nj * 4 + 2 * batched_buffer_bytes(nj, r, d, p, esize);
 }
 
 // 4 or 16 bytes from global to shared memory, asynchronously.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
 }
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+}
+// 4 consecutive elements (16 bytes of float, 8 of bf16), asynchronously.
+__device__ __forceinline__ void cp_async_4e(float* dst, const float* src) { cp_async16(dst, src); }
+__device__ __forceinline__ void cp_async_4e(bf16* dst, const bf16* src) { cp_async8(dst, src); }
+// One element: a 4-byte cp.async, or for bf16 an ordinary load and shared
+// store (cp.async has no 2-byte copy), which the loop's barrier publishes.
+__device__ __forceinline__ void copy1(float* dst, const float* src) { cp_async4(dst, src); }
+__device__ __forceinline__ void copy1(bf16* dst, const bf16* src) { *dst = *src; }
+
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_wait() {
@@ -340,45 +395,82 @@ __device__ __forceinline__ void grid_for(int rows, int cols, F&& f) {
 }
 
 // Batch row n's keys, the block's query rows and their positional terms into
-// buf (keys [32 NJ][ds], then q [R][ds], then pp [R][P]); rows past S are not
-// copied (the zeros written at the start stay).
-template <int NJ>
-__device__ __forceinline__ void stage_batch_row(const Batched& a, int n, int h, int row0,
-                                                float* buf) {
-  float* ks = buf;
-  float* qs = ks + 32 * NJ * a.ds;
-  float* ps = qs + a.R * a.ds;
-  const float* kn = a.k + (size_t)n * a.S * a.ldk + (size_t)h * a.D;
-  const float* qn = a.q + ((size_t)n * a.S + row0) * a.ldq + (size_t)h * a.D;
-  const float* pn = a.pp + ((size_t)n * a.S + row0) * a.ldpp + (size_t)h * a.pstride;
+// buf (keys [32 NJ][ds], then q [R][ds], then pp [R][P], all of E); rows past
+// S are not copied (the zeros written at the start stay).
+template <int NJ, class E>
+__device__ __forceinline__ void stage_batch_row(const Batched<E>& a, int n, int h, int row0,
+                                                E* buf) {
+  E* ks = buf;
+  E* qs = ks + 32 * NJ * a.ds;
+  E* ps = qs + a.R * a.ds;
+  const E* kn = a.k + (size_t)n * a.S * a.ldk + (size_t)h * a.D;
+  const E* qn = a.q + ((size_t)n * a.S + row0) * a.ldq + (size_t)h * a.D;
+  const E* pn = a.pp + ((size_t)n * a.S + row0) * a.ldpp + (size_t)h * a.pstride;
   const int rows = min(a.R, a.S - row0);
   if (a.vec) {
     grid_for(a.S, a.D / 4, [&](int r, int c) {
-      cp_async16(ks + r * a.ds + 4 * c, kn + r * a.ldk + 4 * c);
+      cp_async_4e(ks + r * a.ds + 4 * c, kn + r * a.ldk + 4 * c);
     });
     grid_for(rows, a.D / 4, [&](int r, int c) {
-      cp_async16(qs + r * a.ds + 4 * c, qn + r * a.ldq + 4 * c);
+      cp_async_4e(qs + r * a.ds + 4 * c, qn + r * a.ldq + 4 * c);
     });
   } else {
-    grid_for(a.S, a.D, [&](int r, int c) {
-      cp_async4(ks + r * a.ds + c, kn + r * a.ldk + c);
-    });
-    grid_for(rows, a.D, [&](int r, int c) {
-      cp_async4(qs + r * a.ds + c, qn + r * a.ldq + c);
-    });
+    grid_for(a.S, a.D, [&](int r, int c) { copy1(ks + r * a.ds + c, kn + r * a.ldk + c); });
+    grid_for(rows, a.D, [&](int r, int c) { copy1(qs + r * a.ds + c, qn + r * a.ldq + c); });
   }
-  grid_for(rows, a.P, [&](int r, int c) {
-    cp_async4(ps + r * a.P + c, pn + r * a.ldpp + c);
-  });
+  if (std::is_same_v<E, bf16> && a.vec_pp) {
+    grid_for(rows, a.P / 2, [&](int r, int c) {
+      cp_async4(ps + r * a.P + 2 * c, pn + r * a.ldpp + 2 * c);
+    });
+  } else {
+    grid_for(rows, a.P, [&](int r, int c) { copy1(ps + r * a.P + c, pn + r * a.ldpp + c); });
+  }
 }
 
-template <int NJ>
-__global__ void __launch_bounds__(256, 1) relpos_batched_kernel(const Batched a) {
+// pe[h, :, rows, :] into the f32 table pes[P][R][kSP]: by 4-byte cp.async in
+// f32; in bf16 by ordinary loads, eight in flight a thread, then widened.
+template <int NJ, class E>
+__device__ __forceinline__ void stage_pe(const Batched<E>& a, const E* peh, int nrows,
+                                         float* pes) {
+  constexpr int kSP = 32 * NJ;
+  if constexpr (std::is_same_v<E, float>) {
+    grid_for(a.P * nrows, a.S, [&](int pr, int j) {
+      const int p = pr / nrows, r = pr - p * nrows;
+      cp_async4(pes + ((size_t)p * a.R + r) * kSP + j, peh + ((size_t)p * a.S + r) * a.S + j);
+    });
+  } else {
+    constexpr int kU = 8;
+    const int total = a.P * nrows * a.S, step = blockDim.x;
+    for (int e0 = threadIdx.x; e0 < total; e0 += kU * step) {
+      float v[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int e = e0 + u * step;
+        if (e < total) {
+          const int pr = e / a.S, j = e - pr * a.S, p = pr / nrows, r = pr - p * nrows;
+          v[u] = ldg_f(peh + ((size_t)p * a.S + r) * a.S + j);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int e = e0 + u * step;
+        if (e < total) {
+          const int pr = e / a.S, j = e - pr * a.S, p = pr / nrows, r = pr - p * nrows;
+          pes[((size_t)p * a.R + r) * kSP + j] = v[u];
+        }
+      }
+    }
+  }
+}
+
+template <int NJ, class E>
+__global__ void __launch_bounds__(256, 1) relpos_batched_kernel(const Batched<E> a) {
   constexpr int kSP = 32 * NJ;  // row stride of the staged pe rows; keys a buffer
   extern __shared__ __align__(16) float smem[];
-  const size_t buf_floats = batched_buffer_floats(NJ, a.R, a.D, a.P);
-  float* pes = smem;  // [P][R][kSP]
-  float* bufs = smem + (size_t)a.P * a.R * kSP;
+  const size_t buf_elems =
+      batched_buffer_bytes(NJ, a.R, a.D, a.P, (int)sizeof(E)) / sizeof(E);
+  float* pes = smem;  // [P][R][kSP], f32
+  E* bufs = reinterpret_cast<E*>(smem + (size_t)a.P * a.R * kSP);
 
   int b = blockIdx.x;
   const int chunk = b % a.chunks;
@@ -390,14 +482,10 @@ __global__ void __launch_bounds__(256, 1) relpos_batched_kernel(const Batched a)
 
   // zeros where no copy lands (keys past S, feature pads, rows past S), then
   // this head's pe rows (once) and the first batch row
-  const size_t total = (size_t)a.P * a.R * kSP + 2 * buf_floats;
+  const size_t total = batched_bytes(NJ, a.R, a.D, a.P, (int)sizeof(E)) / 4;
   for (size_t e = threadIdx.x; e < total; e += blockDim.x) smem[e] = 0.f;
   __syncthreads();
-  const float* peh = a.pe + ((size_t)h * a.P * a.S + row0) * a.S;
-  grid_for(a.P * (row_end - row0), a.S, [&](int pr, int j) {
-    const int p = pr / (row_end - row0), r = pr - p * (row_end - row0);
-    cp_async4(pes + ((size_t)p * a.R + r) * kSP + j, peh + ((size_t)p * a.S + r) * a.S + j);
-  });
+  stage_pe<NJ>(a, a.pe + ((size_t)h * a.P * a.S + row0) * a.S, row_end - row0, pes);
   stage_batch_row<NJ>(a, n_lo, h, row0, bufs);
   cp_commit();
 
@@ -407,7 +495,7 @@ __global__ void __launch_bounds__(256, 1) relpos_batched_kernel(const Batched a)
   for (int n = n_lo; n < n_hi; ++n) {
     const int cur = (n - n_lo) & 1;
     if (n + 1 < n_hi) {
-      stage_batch_row<NJ>(a, n + 1, h, row0, bufs + (cur ^ 1) * buf_floats);
+      stage_batch_row<NJ>(a, n + 1, h, row0, bufs + (cur ^ 1) * buf_elems);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -415,9 +503,9 @@ __global__ void __launch_bounds__(256, 1) relpos_batched_kernel(const Batched a)
     }
     __syncthreads();
     if (i0 < row_end) {  // warp-uniform
-      const float* ks = bufs + cur * buf_floats;
-      const float* qs = ks + kSP * a.ds;
-      const float* ps = qs + a.R * a.ds;
+      const E* ks = bufs + cur * buf_elems;
+      const E* qs = ks + kSP * a.ds;
+      const E* ps = qs + a.R * a.ds;
       float acc[4][NJ];
 #pragma unroll
       for (int r = 0; r < 4; ++r)
@@ -427,11 +515,10 @@ __global__ void __launch_bounds__(256, 1) relpos_batched_kernel(const Batched a)
       for (int d = 0; d < d4; d += 4) {
         float4 qv[4];
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          qv[r] = *reinterpret_cast<const float4*>(qs + (r0 + r) * a.ds + d);
+        for (int r = 0; r < 4; ++r) qv[r] = ld4(qs + (r0 + r) * a.ds + d);
 #pragma unroll
         for (int t = 0; t < NJ; ++t) {
-          const float4 kv = *reinterpret_cast<const float4*>(ks + (t * 32 + lane) * a.ds + d);
+          const float4 kv = ld4(ks + (t * 32 + lane) * a.ds + d);
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
             acc[r][t] = fmaf(qv[r].x, kv.x, acc[r][t]);
@@ -453,7 +540,7 @@ __global__ void __launch_bounds__(256, 1) relpos_batched_kernel(const Batched a)
       for (int p = 0; p < a.P; ++p) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          const float w = ps[(r0 + r) * a.P + p];
+          const float w = widen(ps[(r0 + r) * a.P + p]);
           const float* pe_r = pes + ((size_t)p * a.R + r0 + r) * kSP + lane;
 #pragma unroll
           for (int t = 0; t < NJ; ++t) bias[r][t] = fmaf(w, pe_r[t * 32], bias[r][t]);
@@ -491,10 +578,10 @@ __global__ void __launch_bounds__(256, 1) relpos_batched_kernel(const Batched a)
         const int i = i0 + r;
         if (i >= row_end) break;
         const float inv = 1.f / sum[r];
-        float* orow = a.out + (((size_t)n * a.H + h) * a.S + i) * a.S;
+        E* orow = a.out + (((size_t)n * a.H + h) * a.S + i) * a.S;
 #pragma unroll
         for (int t = 0; t < NJ; ++t)
-          if (t * 32 + lane < a.S) __stcs(orow + t * 32 + lane, acc[r][t] * inv);
+          if (t * 32 + lane < a.S) store_cs(orow + t * 32 + lane, acc[r][t] * inv);
       }
     }
     __syncthreads();  // the next copy overwrites this buffer
@@ -525,51 +612,92 @@ extern "C" {
 
 const char* ajt_relpos_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// q, k (n, s, h*d) with row strides ldq, ldk; pp (n, s, h*pstride) with row
-// stride ldpp, p <= pstride terms a head; pe (h, p, s, s) and out
-// (n, h, s, s) contiguous; all float32.  Rows of s <= 32 nj <= 256 keys;
-// rows query rows a block (a multiple of 4, at most 32; rows / 4 warps), nb
-// batch rows a block, smem bytes at least batched_floats(nj, rows, d, p) * 4.
-int ajt_relpos_batched_f32(const float* q, const float* k, const float* pp, const float* pe,
-                           float* out, int n, int s, int h, int d, int p, int pstride,
-                           long long ldq, long long ldk, long long ldpp, int nj, int rows, int nb,
-                           long long smem, void* stream) {
+}  // extern "C"
+
+namespace {
+
+template <class E>
+int relpos_batched(const void* q, const void* k, const void* pp, const void* pe, void* out,
+                   int n, int s, int h, int d, int p, int pstride, long long ldq, long long ldk,
+                   long long ldpp, int nj, int rows, int nb, long long smem, void* stream) {
   if (bad_common(n, s, h, d, p, pstride, ldq, ldk, ldpp)) return (int)cudaErrorInvalidValue;
   if ((nj != 1 && nj != 2 && nj != 4 && nj != 8) || 32 * nj < s || rows < 4 || rows > 32 ||
-      rows % 4 || nb < 1 || smem < (long long)(batched_floats(nj, rows, d, p) * sizeof(float)))
+      rows % 4 || nb < 1 || smem < (long long)batched_bytes(nj, rows, d, p, (int)sizeof(E)))
     return (int)cudaErrorInvalidConfiguration;
-  Batched a{q, k, pp, pe, out, ldq, ldk, ldpp, n, s, h, d, p, pstride, rows,
-            (s + rows - 1) / rows, nb, (n + nb - 1) / nb, round_up(d, 8) + 4, 0};
-  a.vec = d % 4 == 0 && ldq % 4 == 0 && ldk % 4 == 0 && ((uintptr_t)q | (uintptr_t)k) % 16 == 0;
+  Batched<E> a{static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(pp),
+               static_cast<const E*>(pe), static_cast<E*>(out), ldq, ldk, ldpp, n, s, h, d, p,
+               pstride, rows, (s + rows - 1) / rows, nb, (n + nb - 1) / nb,
+               round_up(d, 8) + 4, 0, 0};
+  a.vec = d % 4 == 0 && ldq % 4 == 0 && ldk % 4 == 0 &&
+          ((uintptr_t)q | (uintptr_t)k) % (4 * sizeof(E)) == 0;
+  a.vec_pp = p % 2 == 0 && pstride % 2 == 0 && ldpp % 2 == 0 && (uintptr_t)pp % 4 == 0;
   const long long blocks = (long long)h * a.row_tiles * a.chunks;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const cudaStream_t st = (cudaStream_t)stream;
   const int threads = 8 * rows;
   switch (nj) {
-    case 1: return (int)launch(relpos_batched_kernel<1>, a, blocks, threads, (size_t)smem, st);
-    case 2: return (int)launch(relpos_batched_kernel<2>, a, blocks, threads, (size_t)smem, st);
-    case 4: return (int)launch(relpos_batched_kernel<4>, a, blocks, threads, (size_t)smem, st);
-    default: return (int)launch(relpos_batched_kernel<8>, a, blocks, threads, (size_t)smem, st);
+    case 1: return (int)launch(relpos_batched_kernel<1, E>, a, blocks, threads, (size_t)smem, st);
+    case 2: return (int)launch(relpos_batched_kernel<2, E>, a, blocks, threads, (size_t)smem, st);
+    case 4: return (int)launch(relpos_batched_kernel<4, E>, a, blocks, threads, (size_t)smem, st);
+    default:
+      return (int)launch(relpos_batched_kernel<8, E>, a, blocks, threads, (size_t)smem, st);
   }
 }
 
-// The two-pass route, for any s: groups_per_chunk 32-row groups a block,
-// smem bytes at least (keys_floats(8, d) + 32 (d + p)) * 4.
-int ajt_relpos_two_pass_f32(const float* q, const float* k, const float* pp, const float* pe,
-                            float* out, int n, int s, int h, int d, int p, int pstride,
-                            long long ldq, long long ldk, long long ldpp, int groups_per_chunk,
-                            long long smem, void* stream) {
+template <class E>
+int relpos_two_pass(const void* q, const void* k, const void* pp, const void* pe, void* out,
+                    int n, int s, int h, int d, int p, int pstride, long long ldq, long long ldk,
+                    long long ldpp, int groups_per_chunk, long long smem, void* stream) {
   if (bad_common(n, s, h, d, p, pstride, ldq, ldk, ldpp)) return (int)cudaErrorInvalidValue;
   const size_t need = ((size_t)keys_floats(kMaxNJ, d) + (size_t)kWarps * kRows * (d + p)) *
                       sizeof(float);
   if (groups_per_chunk < 1 || smem < (long long)need) return (int)cudaErrorInvalidConfiguration;
-  Args a{q, k, pp, pe, out, ldq, ldk, ldpp, s, h, d, p, pstride, 1, groups_per_chunk};
+  Args<E> a{static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(pp),
+            static_cast<const E*>(pe), static_cast<E*>(out), ldq, ldk, ldpp, s, h, d, p,
+            pstride, 1, groups_per_chunk};
   const int groups = (s + kGroup - 1) / kGroup;
   a.chunks = (groups + groups_per_chunk - 1) / groups_per_chunk;
   const long long blocks = (long long)n * h * a.chunks;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  return (int)launch(relpos_tiled_kernel, a, blocks, kThreads, (size_t)smem,
+  return (int)launch(relpos_tiled_kernel<E>, a, blocks, kThreads, (size_t)smem,
                      (cudaStream_t)stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// q, k (n, s, h*d) with row strides ldq, ldk; pp (n, s, h*pstride) with row
+// stride ldpp, p <= pstride terms a head; pe (h, p, s, s) and out
+// (n, h, s, s) contiguous; all float32 (_f32) or all bfloat16 (_bf16).  Rows
+// of s <= 32 nj <= 256 keys; rows query rows a block (a multiple of 4, at
+// most 32; rows / 4 warps), nb batch rows a block, smem bytes at least
+// batched_bytes(nj, rows, d, p, element size).
+#define AJT_RELPOS_ARGS                                                                   \
+  const void *q, const void *k, const void *pp, const void *pe, void *out, int n, int s, \
+      int h, int d, int p, int pstride, long long ldq, long long ldk, long long ldpp
+int ajt_relpos_batched_f32(AJT_RELPOS_ARGS, int nj, int rows, int nb, long long smem,
+                           void* stream) {
+  return relpos_batched<float>(q, k, pp, pe, out, n, s, h, d, p, pstride, ldq, ldk, ldpp, nj,
+                               rows, nb, smem, stream);
+}
+int ajt_relpos_batched_bf16(AJT_RELPOS_ARGS, int nj, int rows, int nb, long long smem,
+                            void* stream) {
+  return relpos_batched<bf16>(q, k, pp, pe, out, n, s, h, d, p, pstride, ldq, ldk, ldpp, nj,
+                              rows, nb, smem, stream);
+}
+
+// The two-pass route, for any s: groups_per_chunk 32-row groups a block,
+// smem bytes at least (keys_floats(8, d) + 32 (d + p)) * 4.
+int ajt_relpos_two_pass_f32(AJT_RELPOS_ARGS, int groups_per_chunk, long long smem,
+                            void* stream) {
+  return relpos_two_pass<float>(q, k, pp, pe, out, n, s, h, d, p, pstride, ldq, ldk, ldpp,
+                                groups_per_chunk, smem, stream);
+}
+int ajt_relpos_two_pass_bf16(AJT_RELPOS_ARGS, int groups_per_chunk, long long smem,
+                             void* stream) {
+  return relpos_two_pass<bf16>(q, k, pp, pe, out, n, s, h, d, p, pstride, ldq, ldk, ldpp,
+                               groups_per_chunk, smem, stream);
 }
 
 }  // extern "C"

@@ -9,6 +9,9 @@ On the card the float32 plans run in true float32.  Matrix products already
 do by default, but cuDNN convolutions default to TF32, which keeps about
 three decimal digits; the JAX package runs its DFTs at
 ``Precision.HIGHEST``, and the int16 output contract needs full float32.
+The bf16 plans' matrix products sum in float32: by default cuBLAS may reduce
+a bf16 GEMM in bf16 (``allow_bf16_reduced_precision_reduction``), where the
+JAX contract accumulates in float32.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ def resolve_device(device=None) -> torch.device:
                 "CUDA is not available; pass device=\"cpu\" to run the port on the CPU")
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use \"cuda\" or \"cpu\"")
     return dev

@@ -6,6 +6,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..runtime.registry import prepare_compute_params
+
 __all__ = ["ParamModule", "glorot_np", "dense_np", "conv_np"]
 
 
@@ -14,15 +16,18 @@ class ParamModule(nn.Module):
 
     ``params`` is the nested view that the functional API takes, rebuilt from
     the tree's own shape (which nodes are dicts and which lists), as recorded
-    when the module was made; the buffers move with ``.to(device)``.  A
-    subclass defines ``forward``."""
+    when the module was made; the buffers move with ``.to(device)``.  Where
+    ``cfg`` has a ``compute_dtype`` other than float32 (the bf16 plan), the
+    tree's float32 leaves are cast to it here, once
+    (``runtime.registry.prepare_compute_params``).  A subclass defines
+    ``forward``."""
 
     _SEP = "__"
 
     def __init__(self, params: dict, cfg):
         super().__init__()
         self.cfg = cfg
-        self._skeleton = self._register(params, ())
+        self._skeleton = self._register(prepare_compute_params(params, cfg), ())
 
     def _register(self, node, path: tuple):
         """Hold ``node``'s leaves as buffers; return ``node`` with each leaf

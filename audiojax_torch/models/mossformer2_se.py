@@ -70,8 +70,9 @@ class MossFormer2SeConfig:
 
     def __post_init__(self):
         if self.compute_dtype != "float32":
-            raise ValueError(f"compute_dtype {self.compute_dtype!r}: the port has only the "
-                             "float32 plan so far (the bf16 plan waits for ROADMAP A.10)")
+            raise ValueError(f"compute_dtype {self.compute_dtype!r}: this family's bf16 plan "
+                             "is not ported yet (ROADMAP A.10; zipenhancer, mossformergan_se "
+                             "and mossformer2_ss serve it)")
 
     @property
     def frame_cfg(self) -> StftConfig:

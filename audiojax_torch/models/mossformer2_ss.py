@@ -12,8 +12,14 @@ On the card each layer launches B4 four times (FLASH ``in_conv`` and
 ``out_conv``, the FSMN's ``uv_conv`` and the first memory level), B5 once
 (the second memory level, a grouped 2-in/1-out dilated conv) and B6 once (the
 FLASH group-local relu² attention).  The encoder and the decoder stay on
-``F.conv1d``, plain products, as the JAX package leaves them to lax.  Only
-the float32 plan is ported.
+``F.conv1d``, plain products, as the JAX package leaves them to lax.
+
+``compute_dtype="bfloat16"`` is the JAX package's bf16 serving plan: the
+parameter tree's float32 leaves are cast once, and the network runs in bf16
+from the normalised audio to the decoder (B4, B5 and B6 in their bf16
+instances; the FLASH layers' linear attention in f32, as
+``preferred_element_type`` asks); the RMS normalisation, the decoder's
+output onwards and the int16 output stay float32.
 """
 from __future__ import annotations
 
@@ -62,12 +68,12 @@ class MossFormer2SsConfig:
     sample_rate: int = 16000
     in_sample_rate: int = 16000
     out_sample_rate: int = 16000
+    # the MossFormer stack's dtype: "float32" or "bfloat16"; the RMS
+    # normalisation and the decoder's output stay float32
     compute_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.compute_dtype != "float32":
-            raise ValueError(f"compute_dtype {self.compute_dtype!r}: the port has only the "
-                             "float32 plan so far (the bf16 plan waits for ROADMAP A.10)")
+        core.compute_dtype(self.compute_dtype)  # raises on any other name
 
 
 def group_norm_all(p, x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -96,13 +102,17 @@ def norm_audio(x: torch.Tensor, norm_factor: float, eps: float = 1e-6):
 
 
 def mossformer2_ss_net(p, audio_normed: torch.Tensor, cfg: MossFormer2SsConfig) -> torch.Tensor:
-    """normalised audio (B, L) → separated waves (B, spks, L_out)."""
+    """normalised audio (B, L) → separated waves (B, spks, L_out), float32; in
+    between in ``cfg.compute_dtype``."""
+    dtype = core.compute_dtype(cfg.compute_dtype)
+    core.expect_cast(p["encoder"]["w"], dtype)
+    audio_normed = audio_normed.to(dtype)
     b = audio_normed.shape[0]
     x_enc = torch.relu(core.conv1d(p["encoder"], audio_normed[..., None], stride=cfg.enc_stride))
     n = x_enc.shape[1]  # (B, n, dim)
 
     h = core.dense(p["front"], group_norm_all(p["front_norm"], x_enc))
-    h = h + sinusoid_positions(n, cfg.dim, h.device)[None] * p["pos_scale"]
+    h = h + sinusoid_positions(n, cfg.dim, h.device).to(h.dtype)[None] * p["pos_scale"]
     mdl_input = h
     for i in range(cfg.depth):
         h = flash_layer(p[f"flash{i}"], h, group_size=cfg.group_size, qk_dim=cfg.qk_dim,
@@ -120,7 +130,7 @@ def mossformer2_ss_net(p, audio_normed: torch.Tensor, cfg: MossFormer2SsConfig) 
     sep = x_enc[:, :, None, :] * m
     sep = sep.movedim(2, 1).reshape(b * cfg.num_spks, n, cfg.dim)
     wav = core.conv1d_transpose(p["decoder"], sep, stride=cfg.enc_stride)  # (B·spks, L', 1)
-    return wav[..., 0].reshape(b, cfg.num_spks, -1)
+    return wav[..., 0].reshape(b, cfg.num_spks, -1).float()
 
 
 def mossformer2_ss_forward(params, audio: torch.Tensor,

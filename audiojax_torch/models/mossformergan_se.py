@@ -13,7 +13,19 @@ and the per-window RMS norm and denorm.
 Layout is channel-last ``(B, T, F, C)``; GAU sequences are ``(N, S, C)``.
 On the card every depthwise conv1d runs on kernel B4 (``ops.dwconv_cuda``,
 through ``nn.core.conv1d``) and both relu² attentions of the GAU run on
-kernel B6 (``ops.attention_cuda``).  Only the float32 plan is ported.
+kernel B6 (``ops.attention_cuda``).
+
+``compute_dtype="bfloat16"`` is the JAX package's bf16 serving plan: the
+parameter tree's float32 leaves are cast once and the network runs in bf16
+from the compressed spectra to the mask and complex heads (B4 and B6 in
+their bf16 instances; the GAU's linear and cross attention sums and the
+triple attention's products in f32, as ``preferred_element_type`` asks);
+the STFT, the compression, the decompression island (``final`` onwards),
+the ISTFT and the int16 output stay float32.  The JAX package sends the
+``dw_route="banded"`` FSMN memories to an XLA banded GEMM under bf16; the
+port keeps its depthwise conv1d ones on B4 (the same function up to the
+order of the f32 sums) and its (1, k) conv2d ones on cuDNN, as in its
+float32 plan.
 """
 from __future__ import annotations
 
@@ -76,12 +88,10 @@ class MossFormerGanConfig:
     in_sample_rate: int = 16000
     out_sample_rate: int = 16000
     fold_window: int = 24000
-    compute_dtype: str = "float32"
+    compute_dtype: str = "float32"  # "float32" or "bfloat16" (f32 DSP islands)
 
     def __post_init__(self):
-        if self.compute_dtype != "float32":
-            raise ValueError(f"compute_dtype {self.compute_dtype!r}: the port has only the "
-                             "float32 plan so far (the bf16 plan waits for ROADMAP A.10)")
+        core.compute_dtype(self.compute_dtype)  # raises on any other name
 
     @property
     def stft(self) -> StftConfig:
@@ -135,7 +145,7 @@ def mossformer_gau(p, x: torch.Tensor, cfg: MossFormerGanConfig, b: int) -> torc
 
     # OffsetScale + RoPE, the rotate-half as a product with a signed pair-swap
     # matrix, the four diag(γᵢ)·swap products fused into one (qk → 4·qk)
-    cos_f, sin_f, swap = rope_mm_tables(q_len, cfg.mf_rot, cfg.mf_qk, x.device)
+    cos_f, sin_f, swap = rope_mm_tables(q_len, cfg.mf_rot, cfg.mf_qk, x.device, x.dtype)
     d_qk = cfg.mf_qk
     gamma_swap = torch.cat([p["gamma"][i][:, None] * swap for i in range(4)], dim=1)
     beta_swap = p["beta"] @ swap  # (4, qk)
@@ -148,10 +158,12 @@ def mossformer_gau(p, x: torch.Tensor, cfg: MossFormerGanConfig, b: int) -> torc
     quad_q, lin_q, quad_k, lin_k = projs
 
     # local relu² attention (B6) plus the global linear attention
-    # ((lin_q lin_kᵀ)/Q) hidden
-    att_hidden = fast_quad_attention(quad_q, quad_k, hidden, scale=1.0 / q_len)
-    att_hidden = att_hidden + torch.matmul(
-        torch.matmul(lin_q, lin_k.transpose(1, 2)) / q_len, hidden)
+    # ((lin_q lin_kᵀ)/Q) hidden and the cross attention below, all in f32;
+    # their sum returns to the compute dtype once
+    att_hidden = fast_quad_attention(quad_q, quad_k, hidden, scale=1.0 / q_len,
+                                     out_dtype=torch.float32)
+    att_hidden = att_hidden + core.matmul_f32(
+        core.matmul_f32(lin_q, lin_k.transpose(1, 2)) / q_len, hidden)
 
     # cross-token attention over the fold axis, diagonal masked (B6): the
     # (b, BT, Q, ·) layout permuted to contiguous (b·Q, BT, ·) and back
@@ -159,8 +171,9 @@ def mossformer_gau(p, x: torch.Tensor, cfg: MossFormerGanConfig, b: int) -> torc
         return t.reshape(b, bt, q_len, -1).transpose(1, 2).reshape(b * q_len, bt, -1).contiguous()
 
     cross = fast_quad_attention(across(quad_q), across(quad_k), across(hidden), scale=1.0 / bt,
-                                mask_diag=True)
+                                mask_diag=True, out_dtype=torch.float32)
     att_hidden = att_hidden + cross.reshape(b, q_len, bt, -1).transpose(1, 2).reshape(n, q_len, -1)
+    att_hidden = att_hidden.to(hidden.dtype)
 
     att_v, att_u = att_hidden[..., : cfg.mf_vdim], att_hidden[..., cfg.mf_vdim :]
     v, u = hidden[..., : cfg.mf_vdim], hidden[..., cfg.mf_vdim :]
@@ -222,8 +235,8 @@ def triple_attention(p, x: torch.Tensor, cfg: MossFormerGanConfig) -> torch.Tens
     q = qk[:, 0].reshape(b, h, t, qc * f)
     k = qk[:, 1].reshape(b, h, t, qc * f)
     v = vv.reshape(b, h, t, vc * f)
-    attn = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), dim=-1)
-    y = torch.matmul(attn, v).reshape(b, h, t, vc, f)
+    attn = torch.softmax(core.matmul_f32(q, k.transpose(-1, -2)), dim=-1).to(x.dtype)
+    y = core.matmul_f32(attn, v).to(x.dtype).reshape(b, h, t, vc, f)
     y = y.permute(0, 2, 4, 1, 3).reshape(b, t, f, h * vc)  # h-major channels
     y = core.prelu(p["proj_act"], core.conv2d(p["proj"], y))
     # LayerNormalization4DCF: stats over (F, C) per (b, t)
@@ -261,7 +274,11 @@ def _decoder(p, x: torch.Tensor, cfg: MossFormerGanConfig) -> torch.Tensor:
 
 def mossformergan_net(p, mag_c: torch.Tensor, spec_c: torch.Tensor,
                       cfg: MossFormerGanConfig) -> torch.Tensor:
-    """compressed mag (B,T,F) + compressed complex (B,T,F,2) → enhanced packed (B,T,2F)."""
+    """compressed mag (B,T,F) + compressed complex (B,T,F,2) → enhanced packed
+    (B,T,2F), float32; in between in ``cfg.compute_dtype``."""
+    dtype = core.compute_dtype(cfg.compute_dtype)
+    core.expect_cast(p["enc_conv1"]["w"], dtype)
+    mag_c, spec_c = mag_c.to(dtype), spec_c.to(dtype)
     x = torch.cat([mag_c[..., None], spec_c], dim=-1)  # (B,T,F,3)
     x = core.conv2d(p["enc_conv1"], x)
     x = core.prelu(p["enc_act1"], instance_norm_tf(p["enc_norm1"], x))
@@ -287,7 +304,7 @@ def mossformergan_net(p, mag_c: torch.Tensor, spec_c: torch.Tensor,
     cx = core.prelu(p["cplx_act"], instance_norm_tf(p["cplx_norm"], cx))
     cplx = core.conv2d(p["cplx_final"], cx)  # (B, T, 201, 2)
 
-    final = mask[..., None] * spec_c + cplx
+    final = (mask[..., None] * spec_c + cplx).float()  # the f32 decompress island
     power = torch.sum(final * final, dim=-1)
     # decompress: |final|^(1/c) unit-phase ≡ final · |final|²^((1/c − 1)/2)
     factor = torch.pow(torch.clamp(power, min=1e-12), (1.0 / cfg.compress - 1.0) * 0.5)

@@ -12,8 +12,14 @@ phase dense decoders with sub-pixel frequency upsampling → magnitude^(1/0.3)
 Layout: features channel-last ``(B, T, F, C)``; Zipformer sequences
 batch-major ``(N, S, C)`` with N = B×T (frequency path) or B×F (time path).
 On the card each layer's score stage runs on kernel B3 and its two conv
-modules' depthwise convs on kernel B4 (``nn.zipformer``).  Only the float32
-plan is ported.
+modules' depthwise convs on kernel B4 (``nn.zipformer``).
+
+``compute_dtype="bfloat16"`` is the JAX package's bf16 serving plan: the
+parameter tree's float32 leaves are cast once, the network from the stacked
+[mag, phase] features to the mask and phase heads runs in bf16 (B3 and B4 in
+their bf16 instances), and ``mag_mask`` and ``phase_ri`` return to float32:
+the STFT, the feature path, the decompression, the ISTFT and the int16
+output stay float32 islands.
 """
 from __future__ import annotations
 
@@ -73,12 +79,11 @@ class ZipEnhancerConfig:
     in_sample_rate: int = 16000
     out_sample_rate: int = 16000
     fold_window: int = 24000  # 1.5 s fold windows
+    # the Zipformer stack's dtype: "float32" or "bfloat16" (f32 DSP islands)
     compute_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.compute_dtype != "float32":
-            raise ValueError(f"compute_dtype {self.compute_dtype!r}: the port has only the "
-                             "float32 plan so far (the bf16 plan waits for ROADMAP A.10)")
+        core.compute_dtype(self.compute_dtype)  # raises on any other name
 
     @property
     def stft(self) -> StftConfig:
@@ -184,15 +189,19 @@ def decoder_pair(p, x: torch.Tensor, cfg: ZipEnhancerConfig):
 
 
 def zipenhancer_net(params, mag: torch.Tensor, pha: torch.Tensor, cfg: ZipEnhancerConfig):
-    """Compressed magnitude and phase (B, T, F) → (mag_mask, phase_ri) per frame."""
-    x = dense_encoder(params["encoder"], torch.stack([mag, pha], dim=-1), cfg)
+    """Compressed magnitude and phase (B, T, F) → (mag_mask, phase_ri) per
+    frame, float32; in between in ``cfg.compute_dtype``."""
+    dtype = core.compute_dtype(cfg.compute_dtype)
+    core.expect_cast(params["encoder"]["conv1"]["w"], dtype)
+    x = dense_encoder(params["encoder"], torch.stack([mag, pha], dim=-1).to(dtype), cfg)
     for i, (t_ds, f_ds) in enumerate(cfg.encoder_downsample):
         enc = params[f"ts{i}"]
         if t_ds == 1 and f_ds == 1:
             x = dualpath_encoder(enc, x, cfg)
         else:
             x = downsampled_encoder(enc, x, cfg, t_ds, f_ds)
-    return decoder_pair(params["decoder"], x, cfg)
+    mag_mask, phase_ri = decoder_pair(params["decoder"], x, cfg)
+    return mag_mask.float(), phase_ri.float()
 
 
 def zipenhancer_forward(params, audio: torch.Tensor,

@@ -23,6 +23,15 @@ the grouped kernel B5; every other conv runs on ``F.conv1d`` / ``F.conv2d``.
 A conv of one group is not grouped, as in the JAX package's routing: SDAEC's
 (10, 2, 1) alignment conv, two input channels and one output, runs on
 ``F.conv1d``.
+
+The bf16 compute plan follows the JAX package's dtype rules: the parameter
+tree's float32 leaves are cast once (``cast_f32_tree``; never
+``module.to(bfloat16)``, which would also cast the f32 islands' tables), an
+op on two bf16 operands gives bf16, and a bf16 operand meeting a float32 one
+is widened (``dense`` of a float32 input by a bf16 weight is float32, as
+``jnp.matmul`` promotes).  Where the JAX package asks for a float32 result of
+bf16 operands (``preferred_element_type=jnp.float32``), the port widens them,
+which is exact, and multiplies in true float32 (``matmul_f32``).
 """
 from __future__ import annotations
 
@@ -31,13 +40,57 @@ import torch.nn.functional as F
 
 from ..ops.dwconv_cuda import fast_dwconv1d, fast_dwconv1d_grouped
 
-__all__ = ["dense", "prelu", "conv1d", "conv1d_transpose", "conv2d", "conv2d_transpose",
-           "layer_norm", "rms_norm"]
+__all__ = ["COMPUTE_DTYPES", "compute_dtype", "cast_f32_tree", "expect_cast", "matmul_f32",
+           "dense", "prelu", "conv1d", "conv1d_transpose", "conv2d", "conv2d_transpose", "layer_norm", "rms_norm"]
+
+# the activation compute dtypes of the port's plans, by the configs' names
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's ``compute_dtype``, or raise."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {name!r}: the port's plans are {sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
+
+
+def cast_f32_tree(tree, dtype: torch.dtype):
+    """Counterpart of ``audiojax.nn.core.cast_f32_tree``: every float32 leaf
+    of a parameter tree (dicts and lists of tensors) cast to ``dtype``, other
+    leaves passed through; the tree itself for float32.  Idempotent."""
+    if dtype == torch.float32:
+        return tree
+    if isinstance(tree, dict):
+        return {k: cast_f32_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [cast_f32_tree(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.dtype == torch.float32 else tree
+
+
+def expect_cast(leaf: torch.Tensor, dtype: torch.dtype) -> None:
+    """Raise unless a network's parameter ``leaf`` (a float32 one in the
+    float32 plan) has been cast to the plan's ``dtype``: a bf16 plan takes
+    its tree cast once, where its module is built, and no forward casts it."""
+    if leaf.dtype != dtype:
+        raise TypeError(f"a {dtype} plan takes its parameters cast to {dtype} "
+                        f"(runtime.registry.prepare_compute_params), got {leaf.dtype}")
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as a float32 result: ``jnp.matmul(..., preferred_element_type=
+    jnp.float32)``.  bf16 operands are widened (exact) and multiplied in true
+    float32; float32 operands are multiplied as they are."""
+    return torch.matmul(a.float(), b.float())
 
 
 def dense(p, x: torch.Tensor) -> torch.Tensor:
-    """x: (..., in) @ w (in, out) + b."""
-    y = torch.matmul(x, p["w"])
+    """x: (..., in) @ w (in, out) + b, in the promoted dtype of x and w (a
+    bf16 weight on a float32 input gives float32, as in the JAX package)."""
+    w = p["w"]
+    if w.dtype != x.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    y = torch.matmul(x, w)
     if "b" in p:
         y = y + p["b"]
     return y

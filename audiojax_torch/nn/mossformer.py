@@ -12,7 +12,11 @@ cached, as in the JAX package.
 On the card the FLASH layer's group-local relu² attention runs on kernel B6
 (``ops.attention_cuda``), every depthwise conv on B4, and the dilated FSMN's
 grouped 2-in/1-out memory conv on B5 (``ops.dwconv_cuda``, through
-``nn.core.conv1d``).  Channel-last ``(B, T, C)``.
+``nn.core.conv1d``).  Channel-last ``(B, T, C)``.  In the bf16 plan the
+blocks run in bf16 on their bf16 instances, the rotary tables are cast to
+the activations' dtype as in the JAX package, and the FLASH layer's linear
+attention and its sum with B6's output are f32 (``preferred_element_type``),
+rounded once to bf16.
 """
 from __future__ import annotations
 
@@ -52,15 +56,18 @@ def _rope_mm_tables_np(length: int, rot_dim: int, dim: int):
 
 
 @lru_cache(maxsize=None)
-def rope_mm_tables(length: int, rot_dim: int, dim: int, device: torch.device):
-    """RoPE-as-matmul tables ``(cos_full, sin_full, swap)`` on ``device``, with
+def rope_mm_tables(length: int, rot_dim: int, dim: int, device: torch.device,
+                   dtype: torch.dtype = torch.float32):
+    """RoPE-as-matmul tables ``(cos_full, sin_full, swap)`` on ``device`` in
+    ``dtype`` (the JAX package casts them to the activations'), with
 
         rotary(x) == x·cos_full + (x @ swap)·sin_full
 
     for x (..., length, dim): interleaved-pair rotation of the first
     ``rot_dim`` channels.  Each swap row has one ±1 entry, so the product is
     exact."""
-    return tuple(torch.from_numpy(a).to(device) for a in _rope_mm_tables_np(length, rot_dim, dim))
+    return tuple(torch.from_numpy(a).to(device, dtype)
+                 for a in _rope_mm_tables_np(length, rot_dim, dim))
 
 
 def scale_norm(p, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
@@ -121,7 +128,7 @@ def flash_layer(p, x: torch.Tensor, *, group_size: int, qk_dim: int, rot_dim: in
     # OffsetScale + RoPE in the JAX package's form: one shared qk @ swap
     # product (exact: one ±1 per swap column) serves all four heads,
     #   rope(qk·γᵢ + βᵢ) = qk·(γᵢ·cos) + (qk@swap)·(P(γᵢ)·sin) + (βᵢ·cos + (βᵢ@swap)·sin)
-    cos_f, sin_f, swap = rope_mm_tables(t, rot_dim, qk_dim, x.device)
+    cos_f, sin_f, swap = rope_mm_tables(t, rot_dim, qk_dim, x.device, x.dtype)
     gamma_p = p["os_gamma"][:, _pair_swap_index(qk_dim, rot_dim, x.device)]
     beta_swap = p["os_beta"] @ swap
     qk_swap = qk @ swap
@@ -142,11 +149,13 @@ def flash_layer(p, x: torch.Tensor, *, group_size: int, qk_dim: int, rot_dim: in
     )
     vug = proj[..., :vu2]
 
-    # group-local relu² attention (B6) plus the global linear attention
+    # group-local relu² attention (B6) plus the global linear attention, both
+    # in f32; their sum returns to the compute dtype once
     quad_out = fast_quad_attention(grouped(quad_q), grouped(quad_k), grouped(vug),
-                                   scale=1.0 / group_size)
-    lin_kv = torch.matmul(lin_k.transpose(1, 2), vug) / t  # (B, qk, vu2)
-    att = quad_out.reshape(b, g * group_size, vu2)[:, :t] + torch.matmul(lin_q, lin_kv)
+                                   scale=1.0 / group_size, out_dtype=torch.float32)
+    lin_kv = core.matmul_f32(lin_k.transpose(1, 2), vug) / t  # (B, qk, vu2), f32
+    att = quad_out.reshape(b, g * group_size, vu2)[:, :t] + core.matmul_f32(lin_q, lin_kv)
+    att = att.to(x.dtype)
     att_v, att_u = att[..., :vu], att[..., vu:]
     out = (att_u * v) * torch.sigmoid(att_v * u)
 

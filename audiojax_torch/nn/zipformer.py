@@ -11,6 +11,14 @@ Layout: (N, S, C) batch-major sequences (N = folded batch × cross axis).  On
 the card the score stage softmax(q kᵀ + Σ_p pp·pe) runs on kernel B3
 (``ops.attention_cuda.fast_relpos_scores``), once per layer, and the conv
 module's depthwise conv on kernel B4 (through ``nn.core.conv1d``).
+
+In the bf16 plan the layer runs in bf16 with the JAX package's f32 islands:
+the positional projection of the float32 table is float32 (``dense``
+promotes), the score stage's products and softmax are f32 inside B3, which
+takes the gathered table rounded to bf16 (as ``relpos_scores_pallas`` rounds
+it; the jnp route keeps it float32) and writes bf16 probabilities, and the
+two attention mixes multiply in f32 (``preferred_element_type``) and round
+once to bf16.
 """
 from __future__ import annotations
 
@@ -112,7 +120,7 @@ def attention_weights(p, x: torch.Tensor, pos: torch.Tensor, *, num_heads: int,
     pe = pe.reshape(-1, num_heads, pos_head_dim)
     # the relative table gathered into (S, S, H, P) before the contraction,
     # then (H, P, S, S) for the kernel
-    pe_mat = pe[_rel_index(s, x.device)].permute(2, 3, 0, 1).contiguous()
+    pe_mat = pe[_rel_index(s, x.device)].permute(2, 3, 0, 1).to(q.dtype).contiguous()
     return fast_relpos_scores(q, k, pp, pe_mat, num_heads=num_heads)
 
 
@@ -120,8 +128,8 @@ def self_attention(p, x: torch.Tensor, attn: torch.Tensor, *, num_heads: int) ->
     """Apply shared attention weights to a value projection."""
     n, s, _ = x.shape
     v = core.dense(p["in_proj"], x).reshape(n, s, num_heads, -1)
-    y = torch.einsum("nhij,njhv->nihv", attn, v).reshape(n, s, -1)
-    return core.dense(p["out_proj"], y)
+    y = torch.einsum("nhij,njhv->nihv", attn.float(), v.float()).reshape(n, s, -1)
+    return core.dense(p["out_proj"], y.to(x.dtype))
 
 
 def nonlin_attention(p, x: torch.Tensor, attn0: torch.Tensor) -> torch.Tensor:
@@ -129,7 +137,7 @@ def nonlin_attention(p, x: torch.Tensor, attn0: torch.Tensor) -> torch.Tensor:
     h = core.dense(p["in_proj"], x)
     hidden = h.shape[-1] // 3
     s, mid, y = h[..., :hidden], h[..., hidden : 2 * hidden], h[..., 2 * hidden :]
-    mid = torch.matmul(attn0, torch.tanh(s) * mid)
+    mid = core.matmul_f32(attn0, torch.tanh(s) * mid).to(x.dtype)
     return core.dense(p["out_proj"], mid * y)
 
 

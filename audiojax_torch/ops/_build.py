@@ -18,10 +18,14 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "load", "load_source"]
+import torch
+
+__all__ = ["BUILD_DIR", "DTYPES", "count", "load", "load_source"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+# the kernels' element types: a tensor dtype → the suffix of its C entry points
+DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -76,3 +80,9 @@ def load_source(name: str, text: str) -> ctypes.CDLL:
         finally:
             src.unlink(missing_ok=True)
     return ctypes.CDLL(str(so))
+
+
+def count(launches: dict, name: str, dtype: torch.dtype) -> None:
+    """One launch of ``name``'s kernel on ``dtype`` inputs into ``launches``:
+    a bf16 instance counts under ``<name>_bf16``."""
+    launches[name if dtype == torch.float32 else f"{name}_bf16"] += 1

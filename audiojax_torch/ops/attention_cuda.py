@@ -35,10 +35,11 @@ Contract (``relpos_scores_jnp``'s, the function ZipEnhancer runs):
     q, k (N, S, H·D), pp (N, S, H·pos_stride(P)), pe (H, P, S, S), float32
     probs (N, H, S, S) = softmax_j(q kᵀ + Σ_p pp·pe) per head, in float32
 
-It is not the Pallas kernel's contract in two respects: that kernel rounds
-``pe`` to bf16 and can write bf16 probabilities; here ``pe`` stays float32,
-the probabilities are float32 and the softmax subtracts its row maximum in
-float32.  q, k and pp may be lane slices of one projection (any row stride,
+In the float32 plan it is not the Pallas kernel's contract in two respects:
+that kernel rounds ``pe`` to bf16 and can write bf16 probabilities; here
+``pe`` stays float32, the probabilities are float32 and the softmax
+subtracts its row maximum in float32.  The bf16 plan takes the Pallas
+kernel's bf16 ``pe`` and bf16 probabilities (below).  q, k and pp may be lane slices of one projection (any row stride,
 unit lane stride): the kernel reads them in place, with no copy.
 
 What bounds it: bytes, mostly the (N, H, S, S) output: 0.081 ms at
@@ -51,6 +52,16 @@ D/R (at (404, 241): R 32, nb 101, 215 KB of shared memory, 1.04 floats
 against ~4.3).  The softmax takes one reciprocal a row.  Rows over 256 keys
 keep the first design's two-pass kernel.  The notes at the top of the
 sources give the counts of every chosen point.
+
+Both kernels also take bfloat16 tensors (the bf16 serving plan), with the
+Pallas kernels' own bf16 contracts: B6's scores and PV product stay f32 (v
+widened, attn never rounded) and the output is rounded once to bf16, or
+kept in f32 with ``out_dtype=torch.float32``, as the bf16 layers that add
+a linear attention to it take it (the JAX models' f32 einsums); B3
+takes a bf16 ``pe`` (the Pallas kernel rounds its table to bf16) and writes
+bf16 probabilities (the Pallas kernel's default ``out_dtype``, q's dtype),
+the softmax in f32.  Each dtype has its own launch counter (``quad_attention_bf16``,
+``relpos_scores_bf16``); a call's tensors all have one dtype.
 
 ``fast_quad_attention`` and ``fast_relpos_scores`` take the plain versions
 (``quad_attention_plain``, ``relpos_scores_plain``) only for a tensor on the
@@ -77,7 +88,8 @@ __all__ = ["launches", "reset_launches", "QuadLaunch", "quad_launch", "launch_qu
 # the wrapper counts the launch it records, once; a replay launches the
 # recorded kernels without the wrapper, so a graphed path's launches are
 # (launches counted during its capture) × (replays).
-launches = {"quad_attention": 0, "relpos_scores": 0}
+launches = {"quad_attention": 0, "relpos_scores": 0, "quad_attention_bf16": 0,
+            "relpos_scores_bf16": 0}
 
 
 SMEM_MAX = 232448  # dynamic shared memory a block can have on sm_90
@@ -158,22 +170,28 @@ def quad_launch(n: int, s: int, dk: int, dv: int, *, warps: tuple[int, int] = (2
 def _lib() -> ctypes.CDLL:
     lib = _build.load("quad_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ajt_quad_attention_f32.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i, i, i, i,
-                                           i, i, ctypes.c_longlong, p]
-    lib.ajt_quad_attention_f32.restype = i
+    for dt in (*_build.DTYPES.values(), "bf16_f32"):
+        fn = getattr(lib, f"ajt_quad_attention_{dt}")
+        fn.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i, i, i, i, i, i,
+                       ctypes.c_longlong, p]
+        fn.restype = i
     lib.ajt_quad_error_string.argtypes = [i]
     lib.ajt_quad_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def quad_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
-                         mask_diag: bool = False) -> torch.Tensor:
-    """Mirror of ``quad_attention_jnp``: relu(q kᵀ·scale)² v."""
-    attn = torch.square(torch.relu(torch.matmul(q, k.transpose(1, 2)) * scale))
+                         mask_diag: bool = False,
+                         out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Mirror of ``quad_attention_jnp``: relu(q kᵀ·scale)² v, the scores and
+    the PV product in f32 (bf16 operands widened, which is exact), the result
+    in ``out_dtype`` (default v's dtype; float32 keeps the f32 sums, as the
+    JAX models' ``preferred_element_type=float32`` einsums do)."""
+    attn = torch.square(torch.relu(torch.matmul(q.float(), k.float().transpose(1, 2)) * scale))
     if mask_diag:
         s = q.shape[1]
         attn = attn.masked_fill(torch.eye(s, dtype=torch.bool, device=q.device), 0.0)
-    return torch.matmul(attn, v)
+    return torch.matmul(attn, v.float()).to(out_dtype or v.dtype)
 
 
 def launch_quad_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
@@ -184,23 +202,27 @@ def launch_quad_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out
     n, s, dk = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.ajt_quad_attention_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                        n, s, dk, v.shape[-1], float(scale), int(mask_diag),
-                                        plan.wm, plan.wn, plan.row_tiles, plan.vsplit, plan.seg,
-                                        plan.smem, stream)
+        dt = _build.DTYPES[q.dtype] + ("_f32" if out.dtype != q.dtype else "")
+        fn = getattr(lib, f"ajt_quad_attention_{dt}")
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n, s, dk, v.shape[-1],
+                float(scale), int(mask_diag), plan.wm, plan.wn, plan.row_tiles, plan.vsplit,
+                plan.seg, plan.smem, stream)
     if rc != 0:
         raise RuntimeError(f"quad_attention launch failed: "
                            f"{lib.ajt_quad_error_string(rc).decode()} ({rc})")
 
 
 def quad_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
-                        mask_diag: bool = False) -> torch.Tensor:
-    """relu² attention on the card; contract of :func:`quad_attention_plain`."""
+                        mask_diag: bool = False,
+                        out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """relu² attention on the card; contract of :func:`quad_attention_plain`,
+    q, k and v all float32 or all bfloat16, the output in their dtype or
+    (bfloat16 inputs) float32."""
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype not in _build.DTYPES or t.dtype != q.dtype:
+            raise TypeError(f"{name} must be float32 or bfloat16, as q is, got {t.dtype}")
         if t.ndim != 3:
             raise ValueError(f"{name} must have rank 3, got shape {tuple(t.shape)}")
         if not t.is_contiguous():
@@ -211,19 +233,24 @@ def quad_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, sc
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} do not fit")
     if dk % 4 or dv % 4:
         raise ValueError(f"the kernel takes K and V that are multiples of 4, got {dk}, {dv}")
+    out_dtype = out_dtype or q.dtype
+    if out_dtype not in (q.dtype, torch.float32):
+        raise TypeError(f"out_dtype must be {q.dtype} or float32, got {out_dtype}")
     plan = quad_launch(n, s, dk, dv)  # raises before any launch
-    out = torch.empty((n, s, dv), dtype=torch.float32, device=q.device)
+    out = torch.empty((n, s, dv), dtype=out_dtype, device=q.device)
     launch_quad_attention(q, k, v, out, scale, mask_diag, plan)
-    launches["quad_attention"] += 1
+    _build.count(launches, "quad_attention", q.dtype)
     return out
 
 
 def fast_quad_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
-                        mask_diag: bool = False) -> torch.Tensor:
+                        mask_diag: bool = False,
+                        out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """relu² attention: the plain version for a CPU tensor, the kernel for a CUDA one."""
     if q.device.type == "cpu":
-        return quad_attention_plain(q, k, v, scale=scale, mask_diag=mask_diag)
-    return quad_attention_cuda(q, k, v, scale=scale, mask_diag=mask_diag)
+        return quad_attention_plain(q, k, v, scale=scale, mask_diag=mask_diag,
+                                    out_dtype=out_dtype)
+    return quad_attention_cuda(q, k, v, scale=scale, mask_diag=mask_diag, out_dtype=out_dtype)
 
 
 # ── B3: rel-pos attention scores ───────────────────────────────────────────
@@ -249,13 +276,15 @@ class RelposLaunch:
     smem: int  # bytes
 
 
-def relpos_smem(nj: int, rows: int, d: int, n_pos: int) -> int:
-    """Shared-memory bytes of B3's batched route (``batched_floats`` in
-    ``csrc/relpos_scores.cu``): pe[h, :, rows, :] at row stride 32·nj, and two
-    buffers of 32·nj keys and ``rows`` query rows (row stride round_up(D, 8) +
-    4) and rows × P positional terms."""
+def relpos_smem(nj: int, rows: int, d: int, n_pos: int, esize: int = 4) -> int:
+    """Shared-memory bytes of B3's batched route (``batched_bytes`` in
+    ``csrc/relpos_scores.cu``): pe[h, :, rows, :] in f32 at row stride 32·nj,
+    and two buffers of ``esize``-byte elements (4: float32, 2: bfloat16),
+    each 32·nj keys and ``rows`` query rows (row stride round_up(D, 8) + 4)
+    and rows × P positional terms, rounded up to 16 bytes."""
     ds = _cdiv(d, 8) * 8 + 4
-    return 4 * (n_pos * rows * 32 * nj + 2 * ((32 * nj + rows) * ds + rows * n_pos))
+    buf = _cdiv(((32 * nj + rows) * ds + rows * n_pos) * esize, 16) * 16
+    return 4 * n_pos * rows * 32 * nj + 2 * buf
 
 
 def _two_pass_smem(d: int, n_pos: int) -> int:
@@ -264,8 +293,9 @@ def _two_pass_smem(d: int, n_pos: int) -> int:
 
 
 def relpos_launch(n: int, s: int, h: int, d: int, n_pos: int, *, rows: int | None = None,
-                  nb: int | None = None) -> RelposLaunch:
-    """B3's geometry for q, k (n, s, h·d) and pe (h, P, s, s).
+                  nb: int | None = None, esize: int = 4) -> RelposLaunch:
+    """B3's geometry for q, k (n, s, h·d) and pe (h, P, s, s) of
+    ``esize``-byte elements (4: float32, 2: bfloat16).
 
     Rows of at most 256 keys take the batched route: row tiles of at most 32
     rows, balanced (S = 51 → 2 tiles of 28), of 16 rows at 65–128 keys (three
@@ -280,9 +310,9 @@ def relpos_launch(n: int, s: int, h: int, d: int, n_pos: int, *, rows: int | Non
         r = rows if rows is not None else 16 if nj == 4 else _cdiv(_cdiv(s, _cdiv(s, 32)), 4) * 4
         if r % 4 or not 4 <= r <= 32:
             raise ValueError(f"rows {r}: a multiple of 4 from 4 to 32")
-        while rows is None and r > 4 and relpos_smem(nj, r, d, n_pos) > SMEM_MAX:
+        while rows is None and r > 4 and relpos_smem(nj, r, d, n_pos, esize) > SMEM_MAX:
             r -= 4
-        smem = relpos_smem(nj, r, d, n_pos)
+        smem = relpos_smem(nj, r, d, n_pos, esize)
         if smem <= SMEM_MAX:
             row_tiles = _cdiv(s, r)
             per_sm = max(1, min(SMEM_SM // (smem + 1024), 2048 // (8 * r)))
@@ -306,10 +336,12 @@ def relpos_launch(n: int, s: int, h: int, d: int, n_pos: int, *, rows: int | Non
 def _relpos_lib() -> ctypes.CDLL:
     lib = _build.load("relpos_scores")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ajt_relpos_batched_f32.argtypes = [p, p, p, p, p] + [i] * 6 + [ll] * 3 + [i] * 3 + [ll, p]
-    lib.ajt_relpos_batched_f32.restype = i
-    lib.ajt_relpos_two_pass_f32.argtypes = [p, p, p, p, p] + [i] * 6 + [ll] * 3 + [i, ll, p]
-    lib.ajt_relpos_two_pass_f32.restype = i
+    for dt in _build.DTYPES.values():
+        batched, two_pass = (getattr(lib, f"ajt_relpos_{r}_{dt}") for r in ("batched", "two_pass"))
+        batched.argtypes = [p, p, p, p, p] + [i] * 6 + [ll] * 3 + [i] * 3 + [ll, p]
+        batched.restype = i
+        two_pass.argtypes = [p, p, p, p, p] + [i] * 6 + [ll] * 3 + [i, ll, p]
+        two_pass.restype = i
     lib.ajt_relpos_error_string.argtypes = [i]
     lib.ajt_relpos_error_string.restype = ctypes.c_char_p
     return lib
@@ -329,24 +361,26 @@ def _relpos_heads(q: torch.Tensor, pp: torch.Tensor, pe: torch.Tensor, num_heads
 
 def relpos_scores_plain(q: torch.Tensor, k: torch.Tensor, pp: torch.Tensor, pe: torch.Tensor, *,
                         num_heads: int) -> torch.Tensor:
-    """Mirror of ``relpos_scores_jnp``: softmax(q kᵀ + Σ_p pp·pe) per head."""
+    """Mirror of ``relpos_scores_jnp``: softmax(q kᵀ + Σ_p pp·pe) per head,
+    in f32 (bf16 operands widened, which is exact), the probabilities in q's
+    dtype."""
     n, s, _ = q.shape
     h, d, n_pos, stride = _relpos_heads(q, pp, pe, num_heads)
-    qh, kh = q.reshape(n, s, h, d), k.reshape(n, s, h, d)
-    pph = pp.reshape(n, s, h, stride)[..., :n_pos]
+    qh, kh = q.float().reshape(n, s, h, d), k.float().reshape(n, s, h, d)
+    pph = pp.float().reshape(n, s, h, stride)[..., :n_pos]
     scores = torch.einsum("nihd,njhd->nhij", qh, kh)
-    scores = scores + torch.einsum("nihp,hpij->nhij", pph, pe)
-    return torch.softmax(scores, dim=-1)
+    scores = scores + torch.einsum("nihp,hpij->nhij", pph, pe.float())
+    return torch.softmax(scores, dim=-1).to(q.dtype)
 
 
-def _rows(t: torch.Tensor, name: str, n: int, s: int, width: int) -> int:
-    """The row stride of an (n, s, width) float32 CUDA tensor whose rows are
-    evenly spaced with unit lane stride (a lane slice of a contiguous tensor
-    is), or raise."""
+def _rows(t: torch.Tensor, name: str, n: int, s: int, width: int, dtype: torch.dtype) -> int:
+    """The row stride of an (n, s, width) CUDA tensor of ``dtype`` whose rows
+    are evenly spaced with unit lane stride (a lane slice of a contiguous
+    tensor is), or raise."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype or dtype not in _build.DTYPES:
+        raise TypeError(f"{name} must be float32 or bfloat16, as q is, got {t.dtype}")
     if tuple(t.shape) != (n, s, width):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(n, s, width)}")
     ld = t.stride(1)
@@ -365,12 +399,14 @@ def launch_relpos_scores(q: torch.Tensor, k: torch.Tensor, pp: torch.Tensor, pe:
     h, d, n_pos, stride = _relpos_heads(q, pp, pe, num_heads)
     args = (q.data_ptr(), k.data_ptr(), pp.data_ptr(), pe.data_ptr(), out.data_ptr(), n, s, h, d,
             n_pos, stride, q.stride(1), k.stride(1), pp.stride(1))
+    dt = _build.DTYPES[q.dtype]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if plan.route == "batched":
-            rc = lib.ajt_relpos_batched_f32(*args, plan.nj, plan.rows, plan.nb, plan.smem, stream)
+            rc = getattr(lib, f"ajt_relpos_batched_{dt}")(*args, plan.nj, plan.rows, plan.nb,
+                                                          plan.smem, stream)
         else:
-            rc = lib.ajt_relpos_two_pass_f32(*args, plan.rows, plan.smem, stream)
+            rc = getattr(lib, f"ajt_relpos_two_pass_{dt}")(*args, plan.rows, plan.smem, stream)
     if rc != 0:
         raise RuntimeError(f"relpos_scores launch failed: "
                            f"{lib.ajt_relpos_error_string(rc).decode()} ({rc})")
@@ -378,29 +414,30 @@ def launch_relpos_scores(q: torch.Tensor, k: torch.Tensor, pp: torch.Tensor, pe:
 
 def relpos_scores_cuda(q: torch.Tensor, k: torch.Tensor, pp: torch.Tensor, pe: torch.Tensor, *,
                        num_heads: int) -> torch.Tensor:
-    """Rel-pos attention scores on the card; contract of :func:`relpos_scores_plain`.
+    """Rel-pos attention scores on the card; contract of :func:`relpos_scores_plain`,
+    q, k, pp and pe all float32 or all bfloat16.
 
-    The kernel copies 16 bytes at a time where the rows of q and k allow it,
-    else 4, so a float32 tensor's own alignment is all it needs; shapes,
-    dtypes, devices and row strides are checked here."""
+    The kernel copies 4 elements at a time where the rows of q and k allow
+    it, else 1, so a tensor's own alignment is all it needs; shapes, dtypes,
+    devices and row strides are checked here."""
     if q.ndim != 3 or pp.ndim != 3 or pe.ndim != 4:
         raise ValueError(f"q {tuple(q.shape)}, pp {tuple(pp.shape)} and pe {tuple(pe.shape)} "
                          "must have ranks 3, 3 and 4")
     n, s, hd = q.shape
     h, d, n_pos, stride = _relpos_heads(q, pp, pe, num_heads)
-    _rows(q, "q", n, s, hd)
-    _rows(k, "k", n, s, hd)
-    _rows(pp, "pp", n, s, h * stride)
-    if pe.device.type != "cuda" or pe.dtype != torch.float32 or not pe.is_contiguous():
-        raise ValueError(f"pe must be a contiguous float32 CUDA tensor, got {pe.dtype} on "
-                         f"{pe.device}")
+    _rows(q, "q", n, s, hd, q.dtype)
+    _rows(k, "k", n, s, hd, q.dtype)
+    _rows(pp, "pp", n, s, h * stride, q.dtype)
+    if pe.device.type != "cuda" or pe.dtype != q.dtype or not pe.is_contiguous():
+        raise ValueError(f"pe must be a contiguous CUDA tensor of q's dtype {q.dtype}, got "
+                         f"{pe.dtype} on {pe.device}")
     if tuple(pe.shape[2:]) != (s, s) or not q.device == k.device == pp.device == pe.device:
         raise ValueError(f"pe {tuple(pe.shape)} on {pe.device} does not fit q {tuple(q.shape)} "
                          f"on {q.device}")
-    plan = relpos_launch(n, s, h, d, n_pos)
-    out = torch.empty((n, h, s, s), dtype=torch.float32, device=q.device)
+    plan = relpos_launch(n, s, h, d, n_pos, esize=q.element_size())
+    out = torch.empty((n, h, s, s), dtype=q.dtype, device=q.device)
     launch_relpos_scores(q, k, pp, pe, out, h, plan)
-    launches["relpos_scores"] += 1
+    _build.count(launches, "relpos_scores", q.dtype)
     return out
 
 

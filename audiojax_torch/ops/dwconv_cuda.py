@@ -26,7 +26,14 @@ memory, which the TPU deinterleaves into two tiled depthwise calls
     y[b, t, g] = Σ_i Σ_r x_pad[b, t + i·dilation, g·M + r] · w[i, r, g]  (i outer, r inner)
 
 The lanes of group g are interleaved, [2g, 2g+1], as torch's ``groups=``
-reads them.  True depthwise convs stay on B4 at any T.  Both wrappers take x
+reads them.
+
+Both kernels take float32 or bfloat16 (the bf16 serving plan; the dtype
+``dwconv1d_pallas_tiled`` is only ever called with), x and w of one dtype
+(the Pallas kernels raise on a mismatch, ``dwconv_pallas.py:67-68,144-145``,
+and so do these); in bf16 the products and sums are the same f32 chain and
+each output is rounded once to bf16, to nearest even.  Each dtype has its own
+launch counter (``dwconv1d_bf16``, ``dwconv1d_tiled_bf16``).  True depthwise convs stay on B4 at any T.  Both wrappers take x
 contiguous and w through its strides: the model's (C, 1, k) and (G, 2, k)
 weights arrive as the views ``w[:, 0, :].t()`` and ``w.permute(2, 1, 0)``,
 uncopied.
@@ -72,13 +79,13 @@ __all__ = ["launches", "reset_launches", "DwconvLaunch", "dwconv_launch", "launc
 # the wrapper counts the launch it records, once; a replay launches the
 # recorded kernels without the wrapper, so a graphed path's launches are
 # (launches counted during its capture) × (replays).
-launches = {"dwconv1d": 0, "dwconv1d_tiled": 0}
+launches = {"dwconv1d": 0, "dwconv1d_tiled": 0, "dwconv1d_bf16": 0, "dwconv1d_tiled_bf16": 0}
 
 SMEM_MAX = 232448  # dynamic shared memory a block can have on sm_90
 SM_COUNT = 132
 MAX_BLOCKS = 2**31 - 1  # one grid dimension: item groups × channel tiles
 R_BUILT = (8, 16)  # outputs a thread the kernels are built for
-CT = 32  # input floats of a channel tile
+CT = 32  # input elements of a channel tile
 SHORT_MAX_NTT = 32  # time threads of a whole-row item: T_out ≤ 32·8
 LONG_NTT = 32  # time threads of a time tile
 MAX_THREADS = {8: 512, 16: 256}  # threads a block by r (the kernels' __launch_bounds__)
@@ -99,8 +106,8 @@ def _cdiv(a: int, b: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class DwconvLaunch:
     m: int  # input lanes a group (1: B4, 2: B5)
-    gran: int  # floats a copy: 4 (16-byte cp.async) or 1 (4-byte)
-    vc: int  # input floats a thread in the FMA loop (4, or 1; m on 4-byte copies)
+    gran: int  # elements a copy: 16 bytes (4 floats, 8 bf16) or 1
+    vc: int  # input elements a thread in the FMA loop (4, or 1; m on 1-element copies)
     r: int  # outputs a thread, at stride dilation
     ntt: int  # time threads: (32 / vc)·ntt threads a block
     tile: int  # outputs of a work item, ntt·r
@@ -114,16 +121,19 @@ class DwconvLaunch:
     grid: tuple[int, int]  # (item groups, channel tiles): block i is tile i % n of group i // n
     threads: int
     smem: int  # bytes: the ring and the block's taps
+    esize: int = 4  # bytes an element of x and y: 4 (float32) or 2 (bfloat16)
 
 
 @functools.lru_cache(maxsize=1024)  # the served shapes repeat on every forward
 def dwconv_launch(b: int, t: int, c: int, k: int, lo: int, hi: int, dil: int, m: int, *,
                   vector: bool = True, r: int | None = None, vc: int | None = None,
                   ntt: int | None = None, ipb: int | None = None,
-                  depth: int | None = None) -> DwconvLaunch:
+                  depth: int | None = None, esize: int = 4) -> DwconvLaunch:
     """B4's (m = 1) or B5's (m = 2) geometry for x (b, t, c), k taps, pads
-    (lo, hi) and dilation ``dil``; ``vector``: C % 4 == 0 and x 16-byte
-    aligned (16-byte copies), else 4-byte copies.
+    (lo, hi) and dilation ``dil``, of ``esize``-byte elements (4: float32, 2:
+    bfloat16); ``vector``: C a multiple of a 16-byte copy's elements (4, or 8
+    in bf16) and x 16-byte aligned (16-byte copies), else one element a copy.
+    The ring holds ``esize``-byte strip rows, the taps f32.
 
     The picks, from ``dwconv_geometry_sweep.py``'s tables (PERF.md): a float4
     a thread (vc 4; one float where T_out ≤ 64 and there are fewer than 4
@@ -144,16 +154,18 @@ def dwconv_launch(b: int, t: int, c: int, k: int, lo: int, hi: int, dil: int, m:
     if m not in (1, 2) or c % m or min(b, t, c, k, dil) < 1 or min(lo, hi) < 0 or t_out < 1:
         raise ValueError(f"no B4/B5 plan for x ({b}, {t}, {c}), k {k}, pads ({lo}, {hi}), "
                          f"dilation {dil}, {m} lanes a group")
-    if vector and c % 4:
-        raise ValueError(f"the vector path needs C % 4 == 0, got C = {c}")
-    gran = 4 if vector else 1
+    if esize not in (4, 2):
+        raise ValueError(f"the kernels take 4- or 2-byte elements, got {esize}")
+    gran = 16 // esize if vector else 1
+    if c % gran:
+        raise ValueError(f"the vector path needs C % {gran} == 0, got C = {c}")
     grid_y = _cdiv(c, CT)
     items = b * grid_y  # batch rows × channel tiles
     if vc is None:  # one float a thread for few short rows: more threads a block
         vc = m if not vector else (1 if m == 1 and t_out <= 64 and items < 4 * SM_COUNT else 4)
     if vc not in (((1, 4) if m == 1 else (4,)) if vector else (m,)):
-        raise ValueError(f"vc {vc} is not built for {'16' if vector else '4'}-byte copies "
-                         f"and {m} lanes a group")
+        raise ValueError(f"vc {vc} is not built for {'16-byte' if vector else '1-element'} "
+                         f"copies and {m} lanes a group")
     lanes = CT // vc
     step = math.lcm(dil, 32 // lanes)  # time threads: whole warps, a multiple of the dilation
     whole_rows = t_out <= 8 * SHORT_MAX_NTT
@@ -178,12 +190,15 @@ def dwconv_launch(b: int, t: int, c: int, k: int, lo: int, hi: int, dil: int, m:
     def ring_of(d: int) -> int:
         return d * tile + halo if carry else d * (tile + halo)
 
+    def smem_of(rows: int) -> int:  # the ring of esize-byte rows, then the f32 taps
+        return (esize * rows + 4 * k) * CT
+
     if depth is None:
-        depth = 3 if carry and 4 * (ring_of(3) + k) * CT <= SMEM_MAX else 2
+        depth = 3 if carry and smem_of(ring_of(3)) <= SMEM_MAX else 2
     if depth not in (2, 3):
         raise ValueError(f"the ring holds 2 or 3 items, got {depth}")
     ring = ring_of(depth)
-    smem = 4 * (ring + k) * CT
+    smem = smem_of(ring)
     if smem > SMEM_MAX:
         raise ValueError(f"B4/B5 plan needs {smem} bytes of shared memory (> {SMEM_MAX})")
     if carry:
@@ -206,7 +221,7 @@ def dwconv_launch(b: int, t: int, c: int, k: int, lo: int, hi: int, dil: int, m:
     if grid_x * grid_y > MAX_BLOCKS:
         raise ValueError(f"{grid_x} × {grid_y} blocks exceed the grid's {MAX_BLOCKS}")
     return DwconvLaunch(m, gran, vc, r, ntt, tile, carry, ipb, depth, direct, chunks, n_tiles,
-                        ring, (grid_x, grid_y), lanes * ntt, smem)
+                        ring, (grid_x, grid_y), lanes * ntt, smem, esize)
 
 
 # ── the library ────────────────────────────────────────────────────────────
@@ -221,10 +236,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C launchers' signatures on a library built from ``csrc/dwconv.cu``."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     plan = [i] * 15
-    lib.ajt_dwconv1d_f32.argtypes = [p, p, p] + [i] * 7 + [ll] * 2 + plan + [p]
-    lib.ajt_dwconv1d_f32.restype = i
-    lib.ajt_dwconv1d_grouped2_f32.argtypes = [p, p, p] + [i] * 7 + [ll] * 3 + plan + [p]
-    lib.ajt_dwconv1d_grouped2_f32.restype = i
+    for dt in _build.DTYPES.values():
+        getattr(lib, f"ajt_dwconv1d_{dt}").argtypes = [p, p, p] + [i] * 7 + [ll] * 2 + plan + [p]
+        getattr(lib, f"ajt_dwconv1d_{dt}").restype = i
+        getattr(lib, f"ajt_dwconv1d_grouped2_{dt}").argtypes = ([p, p, p] + [i] * 7 + [ll] * 3
+                                                               + plan + [p])
+        getattr(lib, f"ajt_dwconv1d_grouped2_{dt}").restype = i
     lib.ajt_dwconv_error_string.argtypes = [i]
     lib.ajt_dwconv_error_string.restype = ctypes.c_char_p
     return lib
@@ -254,15 +271,18 @@ def _launch(lib: ctypes.CDLL, fn: str, x: torch.Tensor, w: torch.Tensor, y: torc
 def launch_dwconv1d(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, pads, dilation: int,
                     plan: DwconvLaunch) -> None:
     """Launch B4 on checked x (B, T, C), w (k, C) (any strides) into y at
-    ``plan``'s geometry; counts nothing (``dwconv1d_cuda`` counts its launch)."""
-    _launch(_lib(), "ajt_dwconv1d_f32", x, w, y, pads, dilation, plan)
+    ``plan``'s geometry, in x's dtype; counts nothing (``dwconv1d_cuda``
+    counts its launch)."""
+    _launch(_lib(), f"ajt_dwconv1d_{_build.DTYPES[x.dtype]}", x, w, y, pads, dilation, plan)
 
 
 def launch_dwconv1d_grouped(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, pads,
                             dilation: int, plan: DwconvLaunch) -> None:
     """Launch B5 on checked x (B, T, 2G), w (k, 2, G) (any strides) into y at
-    ``plan``'s geometry; counts nothing (``dwconv1d_grouped_cuda`` counts)."""
-    _launch(_lib(), "ajt_dwconv1d_grouped2_f32", x, w, y, pads, dilation, plan)
+    ``plan``'s geometry, in x's dtype; counts nothing
+    (``dwconv1d_grouped_cuda`` counts)."""
+    _launch(_lib(), f"ajt_dwconv1d_grouped2_{_build.DTYPES[x.dtype]}", x, w, y, pads, dilation,
+            plan)
 
 
 # ── B4: depthwise conv1d ───────────────────────────────────────────────────
@@ -278,32 +298,44 @@ def _out_len(x: torch.Tensor, w: torch.Tensor, pads, dilation: int) -> int:
     return t_out
 
 
+def _same_dtype(x: torch.Tensor, w: torch.Tensor) -> None:
+    if x.dtype != w.dtype:  # the Pallas kernels' trace-time error
+        raise TypeError(f"conv dtype mismatch: x {x.dtype} vs w {w.dtype}")
+
+
 def dwconv1d_plain(x: torch.Tensor, w: torch.Tensor, *, pads=(0, 0),
                    dilation: int = 1) -> torch.Tensor:
-    """Shift-and-add mirror of ``dwconv1d_jnp`` (taps in order, f32)."""
+    """Shift-and-add mirror of ``dwconv1d_jnp``: f32 products and sums, taps
+    in order, the result in x's dtype (a bf16 x and w are widened first)."""
+    _same_dtype(x, w)
     t_out = _out_len(x, w, pads, dilation)
-    xp = F.pad(x, (0, 0, pads[0], pads[1]))
-    acc = xp[:, :t_out] * w[0]
+    xp = F.pad(x, (0, 0, pads[0], pads[1])).float()
+    wf = w.float()
+    acc = xp[:, :t_out] * wf[0]
     for i in range(1, w.shape[0]):
-        acc = acc + xp[:, i * dilation : i * dilation + t_out] * w[i]
-    return acc
+        acc = acc + xp[:, i * dilation : i * dilation + t_out] * wf[i]
+    return acc.to(x.dtype)
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
-    """x and w on the card in float32, x contiguous (w may have any strides)."""
+    """x and w on the card, both float32 or both bfloat16, x contiguous (w
+    may have any strides)."""
     for t, name in ((x, "x"), (w, "w")):
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype not in _build.DTYPES:
+            raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    _same_dtype(x, w)
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
 
 
 def _plan_for(x: torch.Tensor, w: torch.Tensor, pads, dilation: int, m: int) -> DwconvLaunch:
     b, t, c = x.shape
-    vector = c % 4 == 0 and x.data_ptr() % 16 == 0
-    return dwconv_launch(b, t, c, w.shape[0], pads[0], pads[1], dilation, m, vector=vector)
+    esize = x.element_size()
+    vector = c % (16 // esize) == 0 and x.data_ptr() % 16 == 0
+    return dwconv_launch(b, t, c, w.shape[0], pads[0], pads[1], dilation, m, vector=vector,
+                         esize=esize)
 
 
 def dwconv1d_cuda(x: torch.Tensor, w: torch.Tensor, *, pads=(0, 0),
@@ -315,9 +347,9 @@ def dwconv1d_cuda(x: torch.Tensor, w: torch.Tensor, *, pads=(0, 0),
     _check(x, w)
     t_out = _out_len(x, w, pads, dilation)
     plan = _plan_for(x, w, pads, dilation, 1)
-    y = torch.empty((x.shape[0], t_out, x.shape[2]), dtype=torch.float32, device=x.device)
+    y = torch.empty((x.shape[0], t_out, x.shape[2]), dtype=x.dtype, device=x.device)
     launch_dwconv1d(x, w, y, pads, dilation, plan)
-    launches["dwconv1d"] += 1
+    _build.count(launches, "dwconv1d", x.dtype)
     return y
 
 
@@ -336,19 +368,21 @@ def dwconv1d_grouped_plain(x: torch.Tensor, w: torch.Tensor, *, pads=(0, 0),
                            dilation: int = 1) -> torch.Tensor:
     """Shift-and-add mirror of ``_grouped_single_out_conv1d``: x (B, T, M·G),
     w (k, M, G), group g contracting input lanes [g·M, (g+1)·M); f32 products
-    and sums, taps outer, lanes inner."""
+    and sums, taps outer, lanes inner, the result in x's dtype."""
     k, m, g = w.shape
     if x.ndim != 3 or x.shape[2] != m * g:
         raise ValueError(f"x {tuple(x.shape)} does not fit w {tuple(w.shape)}")
+    _same_dtype(x, w)
     t_out = _out_len(x, w, pads, dilation)
-    xr = F.pad(x, (0, 0, pads[0], pads[1])).reshape(x.shape[0], -1, g, m)
+    xr = F.pad(x, (0, 0, pads[0], pads[1])).float().reshape(x.shape[0], -1, g, m)
+    wf = w.float()
     acc = None
     for i in range(k):
         seg = xr[:, i * dilation : i * dilation + t_out]
         for r in range(m):
-            term = seg[..., r] * w[i, r]
+            term = seg[..., r] * wf[i, r]
             acc = term if acc is None else acc + term
-    return acc
+    return acc.to(x.dtype)
 
 
 def dwconv1d_grouped_cuda(x: torch.Tensor, w: torch.Tensor, *, pads=(0, 0),
@@ -362,9 +396,9 @@ def dwconv1d_grouped_cuda(x: torch.Tensor, w: torch.Tensor, *, pads=(0, 0),
     _check(x, w)
     t_out = _out_len(x, w, pads, dilation)
     plan = _plan_for(x, w, pads, dilation, 2)
-    y = torch.empty((x.shape[0], t_out, w.shape[2]), dtype=torch.float32, device=x.device)
+    y = torch.empty((x.shape[0], t_out, w.shape[2]), dtype=x.dtype, device=x.device)
     launch_dwconv1d_grouped(x, w, y, pads, dilation, plan)
-    launches["dwconv1d_tiled"] += 1
+    _build.count(launches, "dwconv1d_tiled", x.dtype)
     return y
 
 

@@ -12,6 +12,7 @@
     python -m audiojax_torch.runtime.cli --model nkf_aec --input near.wav far.wav --output out.wav
     python -m audiojax_torch.runtime.cli --model sdaec|deep_echo|dfsmn_aec --input near.wav far.wav
     python -m audiojax_torch.runtime.cli --model gtcrn --artifact art/ --input noisy.wav
+    python -m audiojax_torch.runtime.cli --model zipenhancer --input noisy.wav --compute-dtype bfloat16
     python -m audiojax_torch.runtime.cli --model gtcrn --input noisy.wav --stream [--block-hops 4]
     python -m audiojax_torch.runtime.cli --model nkf_aec --input near.wav far.wav --stream
     python -m audiojax_torch.runtime.cli --model dfsmn_aec --input near.wav far.wav --stream
@@ -20,7 +21,11 @@
 With ``--artifact`` the command serves the weights of an artifact that
 ``python -m audiojax_torch.runtime.export`` wrote from an upstream checkpoint,
 with the config the artifact records; ``--model`` must name the artifact's
-model.  Without it, parameters are drawn at random from ``--seed``.  A
+model; an artifact exported with ``--compute-dtype`` is served in the dtype
+it records.  Without it, parameters are drawn at random from ``--seed``.
+``--compute-dtype bfloat16`` serves the bf16 plan (bf16 network, float32 DSP
+islands) of zipenhancer, mossformergan_se and mossformer2_ss; another model
+exits 2, naming ROADMAP A.10 where its JAX counterpart has the plan.  A
 two-input model (the echo cancellers ``nkf_aec``, ``sdaec``, ``deep_echo``
 and ``dfsmn_aec``) takes two ``--input`` files,
 the microphone (near end) first and the far-end reference second; a wrong
@@ -39,6 +44,7 @@ On the card the step is one captured CUDA graph; on the CPU it runs eagerly.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 from pathlib import Path
@@ -59,6 +65,9 @@ def main(argv=None) -> int:
     ap.add_argument("--stream", action="store_true",
                     help="serve with state-carry streaming (low latency) instead of windows")
     ap.add_argument("--block-hops", type=int, default=4, help="streaming block size in hops")
+    ap.add_argument("--compute-dtype", choices=["float32", "bfloat16"], default=None,
+                    help="activation compute dtype (bfloat16: the bf16 plan, float32 DSP "
+                         "islands); an artifact's recorded dtype unless given")
     ap.add_argument("--list", action="store_true", help="list registered models")
     args = ap.parse_args(argv)
 
@@ -92,20 +101,36 @@ def main(argv=None) -> int:
                   f"{spec.name!r}; refusing to serve with mixed geometry", file=sys.stderr)
             return 2
         stored = manifest.extra.get("config")
-        recorded = manifest.extra.get("activation_compute_dtype") or (stored or {}).get(
-            "compute_dtype")
-        if recorded not in (None, "float32"):
-            print(f"artifact records activation_compute_dtype={recorded!r}; the port serves "
-                  "the float32 plan only (bf16 plans wait for ROADMAP A.10)", file=sys.stderr)
-            return 2
-        if stored is not None:
-            # the exported config exactly (JSON turned tuples into lists)
-            def _detuple(v):
-                return tuple(_detuple(x) for x in v) if isinstance(v, list) else v
+        recorded = manifest.extra.get("activation_compute_dtype")
+        try:
+            if stored is not None:
+                # the exported config exactly (JSON turned tuples into lists)
+                def _detuple(v):
+                    return tuple(_detuple(x) for x in v) if isinstance(v, list) else v
 
-            cfg = type(cfg)(**{k: _detuple(v) for k, v in stored.items()})
+                cfg = type(cfg)(**{k: _detuple(v) for k, v in stored.items()})
+            if recorded and not args.compute_dtype:  # the dtype the artifact was exported for
+                if not registry.has_compute_dtype(cfg):
+                    print(f"artifact records activation_compute_dtype={recorded!r} but "
+                          f"{spec.name} has no compute_dtype knob; refusing to serve with a "
+                          "different dtype than exported", file=sys.stderr)
+                    return 2
+                cfg = dataclasses.replace(cfg, compute_dtype=recorded)
+        except ValueError as e:  # a plan the port has not ported (ROADMAP A.10)
+            print(f"artifact {args.artifact}: {e}", file=sys.stderr)
+            return 2
     else:
         manifest = spec.make_manifest(cfg)
+    if args.compute_dtype:
+        if not registry.has_compute_dtype(cfg):
+            print(f"{spec.name} has no compute_dtype knob; the bf16 plan serves "
+                  "zipenhancer, mossformergan_se and mossformer2_ss", file=sys.stderr)
+            return 2
+        try:
+            cfg = dataclasses.replace(cfg, compute_dtype=args.compute_dtype)
+        except ValueError as e:
+            print(f"{spec.name}: {e}", file=sys.stderr)
+            return 2
     inputs = [Path(p) for p in args.input]
     if len(inputs) != manifest.num_audio_inputs:
         print(f"{spec.name} needs {manifest.num_audio_inputs} input wav(s), got {len(inputs)}",
@@ -144,8 +169,10 @@ def main(argv=None) -> int:
                            manifest.out_sample_rate) for i, o in enumerate(result.outputs)]
     for p in paths:
         print(f"wrote {p}")
+    dtype = getattr(cfg, "compute_dtype", "float32")
     print(f"RTF: {result.rtf:.6f}  ({result.elapsed_s * 1e3:.2f} ms for "
-          f"{result.audio_duration_s:.2f} s audio on {device}; a first call, warm-up included)")
+          f"{result.audio_duration_s:.2f} s audio on {device}, {dtype}; a first call, warm-up "
+          "included)")
     return 0
 
 

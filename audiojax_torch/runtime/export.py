@@ -7,6 +7,8 @@ finish with a short synthetic request through ``Session`` on what was written.
 
     python -m audiojax_torch.runtime.export --model gtcrn \
         --checkpoint ckpt.pt --out artifact_dir/ [--no-smoke] [--device cpu]
+    python -m audiojax_torch.runtime.export --model zipenhancer \
+        --checkpoint ckpt.pt --out artifact_dir/ --compute-dtype bfloat16
 
 The import is fail-closed (unread checkpoint keys abort).  The smoke request
 runs on the card unless ``--device cpu`` is given; without CUDA and without
@@ -14,8 +16,13 @@ runs on the card unless ``--device cpu`` is given; without CUDA and without
 given as a path is unpickled (``torch.load(weights_only=False)``, as upstream
 checkpoints need): unpickling runs code, so export only files you trust.
 
-The JAX package's ``plan``, ``compute_dtype`` and ``aot`` options wait for
-ROADMAP A.10.
+``compute_dtype`` ("bfloat16") selects the model's activation compute dtype
+and is recorded in the manifest (``activation_compute_dtype``, and in the
+stored config), so that the CLI serves the artifact with it; the parameters
+are stored float32 and cast once where they are served.  A family whose
+config has no bf16 plan in the port (MossFormer2-SE, Mel-Band, SR) is
+refused by its config, naming ROADMAP A.10.  The JAX package's ``plan`` and
+``aot`` options wait for ROADMAP A.10.
 """
 from __future__ import annotations
 
@@ -27,10 +34,11 @@ __all__ = ["export_artifact"]
 
 
 def export_artifact(model_name: str, ckpt, out_dir, *, cfg=None, smoke: bool = True,
-                    import_kwargs=None, device=None) -> dict:
+                    import_kwargs=None, device=None, compute_dtype: str | None = None) -> dict:
     """checkpoint (path or state dict) → artifact directory; returns a report
     dict (``artifact``, ``model`` and, with ``smoke``, the request's
-    ``smoke`` summary)."""
+    ``smoke`` summary).  ``compute_dtype`` replaces the config's and is
+    recorded in the manifest."""
     import numpy as np
     import torch
 
@@ -43,6 +51,10 @@ def export_artifact(model_name: str, ckpt, out_dir, *, cfg=None, smoke: bool = T
     spec = registry.get(model_name)
     dev = resolve_device(device) if smoke else None
     cfg = cfg if cfg is not None else spec.make_config()
+    if compute_dtype is not None:
+        if not registry.has_compute_dtype(cfg):
+            raise ValueError(f"{model_name} has no compute_dtype knob")
+        cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)  # refused here if unported
     if isinstance(ckpt, (str, Path)):
         ckpt = torch.load(ckpt, map_location="cpu", weights_only=False)
 
@@ -58,6 +70,9 @@ def export_artifact(model_name: str, ckpt, out_dir, *, cfg=None, smoke: bool = T
     # exported with a non-default config does not serve with the defaults
     manifest = dataclasses.replace(
         manifest, extra={**manifest.extra, "config": dataclasses.asdict(cfg)})
+    if compute_dtype is not None:
+        manifest = dataclasses.replace(
+            manifest, extra={**manifest.extra, "activation_compute_dtype": compute_dtype})
     save_artifact(out_dir, params, manifest)
     report = {"artifact": str(out_dir), "model": model_name}
 
@@ -74,6 +89,7 @@ def export_artifact(model_name: str, ckpt, out_dir, *, cfg=None, smoke: bool = T
             raise RuntimeError("export smoke test produced non-finite output")
         report["smoke"] = {
             "device": str(dev),
+            "compute_dtype": getattr(cfg, "compute_dtype", "float32"),
             "out_samples": int(result.outputs[0].shape[-1]),
             "outputs": len(result.outputs),
             "rtf": round(result.rtf, 4),
@@ -94,9 +110,13 @@ def main(argv=None) -> int:
     ap.add_argument("--no-smoke", action="store_true", help="skip the inference smoke test")
     ap.add_argument("--device", default=None,
                     help="where the smoke test runs: cuda (default) or cpu")
+    ap.add_argument("--compute-dtype", choices=["float32", "bfloat16"], default=None,
+                    help="activation compute dtype, recorded in the manifest (bfloat16: the "
+                         "bf16 serving plan of zipenhancer, mossformergan_se, mossformer2_ss)")
     args = ap.parse_args(argv)
     report = export_artifact(args.model, args.checkpoint, args.out,
-                             smoke=not args.no_smoke, device=args.device)
+                             smoke=not args.no_smoke, device=args.device,
+                             compute_dtype=args.compute_dtype)
     print(json.dumps(report))
     return 0
 

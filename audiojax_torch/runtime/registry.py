@@ -9,7 +9,7 @@ from torch import nn
 
 from .manifest import Manifest
 
-__all__ = ["ModelSpec", "register", "get", "names"]
+__all__ = ["ModelSpec", "register", "get", "names", "has_compute_dtype", "prepare_compute_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +48,25 @@ def get(name: str) -> ModelSpec:
 def names() -> list[str]:
     _ensure_builtin()
     return sorted(_REGISTRY)
+
+
+def has_compute_dtype(cfg) -> bool:
+    """True when a model config has the activation ``compute_dtype`` knob."""
+    return dataclasses.is_dataclass(cfg) and any(
+        f.name == "compute_dtype" for f in dataclasses.fields(cfg))
+
+
+def prepare_compute_params(params, cfg):
+    """The compute-dtype preparation of a parameter tree, once per served
+    tree (``audiojax.runtime.registry.prepare_compute_params``), where the
+    model's module is built (``models.base.ParamModule``): the float32 leaves
+    cast to ``cfg.compute_dtype``.  A float32 config and a config without
+    the knob pass the tree through as it is."""
+    if not has_compute_dtype(cfg) or cfg.compute_dtype == "float32":
+        return params
+    from ..nn.core import cast_f32_tree, compute_dtype
+
+    return cast_f32_tree(params, compute_dtype(cfg.compute_dtype))
 
 
 def _ensure_builtin():

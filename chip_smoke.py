@@ -7,7 +7,8 @@ Phases, each of which raises (non-zero exit) on failure:
 
 1. Card: name and power limit from nvidia-smi.
 2. Build: every ``audiojax_torch/csrc/*.cu`` with nvcc (sm_90a), one nvcc per
-   source, all started together; each one's build time.
+   source, all started together; phase 3 starts once B1/B2's source is
+   built, beside the others; each one's build time.
 3. Kernels B1/B2: the STFT and ISTFT kernels against their plain PyTorch
    versions (1e-5 × max|ref|) and against a float64 numpy DFT (error at
    most 2 × the plain version's), at the MossFormerGAN, GTCRN and
@@ -110,7 +111,8 @@ Phases, each of which raises (non-zero exit) on failure:
    as long as its input, within 1 LSB of the eager server's and ≥ 40 dB
    against a CPU ``StreamingSession`` on the same clip (GTCRN, UL-UNAS,
    SDAEC, Deep-Echo and the cascade: the eager server and the CPU sessions on
-   2 of the lanes and the clips' first 2 s (the echo cancellers' first 1 s),
+   2 of the lanes and the clips' first 2 s (the echo cancellers' one lane's
+   first 1 s),
    held against a second graphed drive of the same, to 0 LSB); the captured
    step must launch B1 once (GTCRN, UL-UNAS, NKF,
    SDAEC, Deep-Echo), B4 9 times (DFSMN) or both (the cascade), the
@@ -171,15 +173,30 @@ Phases, each of which raises (non-zero exit) on failure:
    6 s and a 30 s request; every forward must launch B1 once (both
    microphones) and B2 once; card against CPU at its 20 dB gate, with the
    two source energies' relative gap on the card and on the CPU.
+24. Kernels in bf16: B3, B4, B5 and B6 in bfloat16 (the bf16 plans' kernel
+   instances) at every shape of the three bf16 paths (their float32 shapes)
+   and B4's off-path routes, each within one bf16 ulp of its plain version
+   on every element (the count that differ printed) and within 2 × the plain
+   version's float64 error; the 6 s request's shapes timed beside cuDNN's
+   bf16 conv (B4, B5), the bound from bf16 bytes and operations.
+25. Serving the bf16 plans: ``mossformergan_se``, ``zipenhancer`` and
+   ``mossformer2_ss`` with ``compute_dtype="bfloat16"`` on the requests of
+   phases 6, 8 and 10; every forward must launch the bf16 instances (48 B4
+   and 24 B6; 16 B4 and 8 B3; 96 B4, 24 B5 and 24 B6) and B1/B2 in float32;
+   each median beside the float32 plan's, card bf16 against card float32
+   at least 15 dB, and card against the CPU's bf16 plan at the gate measured
+   (``GATE_DB``).
 
-Phases 6, 8, 10, 12 and 15–23 print the launches of one forward, all of them
-and the ported kernels'.  They run in the order 1–10, 12, 14–23, 11, 13
-(phase 11 compares against the random-weight latencies).  The last line is
-``{"ok": true, "device": {...}}``; the line before it lists every kernel as
-JSON (its launches summed over the fifteen served paths, phase 11's fifteen
-and the seven graphed stream paths, with the count of each path beside it,
-and its times at its first serving shape), and the line before that the
-card.  Without CUDA the script exits non-zero and prints no result.
+Phases 6, 8, 10, 12, 15–23 and 25 print the launches of one forward, all of
+them and the ported kernels'.  They run in the order 1–10, 24, 25, 12,
+14–23, 11, 13 (phase 11 compares against the random-weight latencies).  The
+last line is ``{"ok": true, "device": {...}}``; the line before it lists
+every kernel as JSON, the bf16 instances as their own entries
+(``dwconv1d_bf16`` …; its launches summed over the eighteen served paths,
+phase 11's fifteen and the seven graphed stream paths, with the count of
+each path beside it, and its times at its first serving shape), and the line
+before that the card.  Without CUDA the script exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
@@ -199,6 +216,7 @@ from torch.profiler import ProfilerActivity, profile
 # the tensor cores, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_F64_FLOPS = 34e12
+PEAK_BF16_FLOPS = 989e12  # dense, tensor cores
 PEAK_HBM_BYTES = 3.35e12
 # × max|ref|: B1/B2 against their plain versions (measured at most 2.33e-06
 # at every shape held here, on the H100 80GB HBM3 at 700 W)
@@ -207,6 +225,13 @@ TOL_VS_PLAIN = 1e-5
 # hundred terms in another order
 TOL_B4_B6 = 1e-5
 F64_ROWS = 64  # batch rows (evenly spaced) held against the float64 references
+# the bf16 kernels against their plain versions: one bf16 ulp, |Δ| ≤ 2⁻⁷·|plain|
+# (plus 1e-6 near zero); both round the same f32 sums once, so they part only
+# where the two sums straddle a rounding boundary
+BF16_ULP = 2.0 ** -7
+# no bf16 instance runs on a float32 plan's path
+NO_BF16 = {"dwconv1d_bf16": 0, "dwconv1d_tiled_bf16": 0, "quad_attention_bf16": 0,
+           "relpos_scores_bf16": 0}
 MIN_SNR_DB = 40.0
 SR = 16000
 SERVE_REPEATS = 3
@@ -214,32 +239,32 @@ SERVE_REPEATS = 3
 # in_conv and out_conv) and 2 GAU attentions (local, cross) per SyncANet path,
 # 2 paths per block, 6 blocks
 GAN_PER_FORWARD = {"stft_packed": 1, "istft_packed": 1, "dwconv1d": 48, "dwconv1d_tiled": 0,
-                   "quad_attention": 24, "relpos_scores": 0}
+                   "quad_attention": 24, "relpos_scores": 0, **NO_BF16}
 # ZipEnhancer launches per forward: 8 Zipformer2 layers (4 encoders × a
 # frequency and a time layer), each with one score stage (B3) and two conv
 # modules (B4)
 ZIP_PER_FORWARD = {"stft_packed": 1, "istft_packed": 1, "dwconv1d": 16, "dwconv1d_tiled": 0,
-                   "quad_attention": 0, "relpos_scores": 8}
+                   "quad_attention": 0, "relpos_scores": 8, **NO_BF16}
 # MossFormer2-SS launches per forward: in each of 24 layers, 4 depthwise convs
 # (FLASH in_conv and out_conv, FSMN uv_conv, the first memory level) on B4,
 # the grouped 2-in/1-out second memory level on B5, the FLASH group attention
 # on B6; no STFT
 SS_PER_FORWARD = {"stft_packed": 0, "istft_packed": 0, "dwconv1d": 96, "dwconv1d_tiled": 24,
-                  "quad_attention": 24, "relpos_scores": 0}
+                  "quad_attention": 24, "relpos_scores": 0, **NO_BF16}
 # DFSMN launches per forward: the synthesis ISTFT (B2) once and the 9 FSMN
 # memories (B4); its analysis is a framed matrix product, no B1
 DFSMN_PER_FORWARD = {"stft_packed": 0, "istft_packed": 1, "dwconv1d": 9, "dwconv1d_tiled": 0,
-                     "quad_attention": 0, "relpos_scores": 0}
+                     "quad_attention": 0, "relpos_scores": 0, **NO_BF16}
 # MossFormer2-SE launches per forward: in each of 24 layers, 4 depthwise convs
 # (FLASH in_conv and out_conv, FSMN uv_conv and its memory) on B4 and the
 # FLASH group attention on B6; the synthesis on B2; its analysis is a framed
 # matrix product, no B1
 SE_PER_FORWARD = {"stft_packed": 0, "istft_packed": 1, "dwconv1d": 96, "dwconv1d_tiled": 0,
-                  "quad_attention": 24, "relpos_scores": 0}
+                  "quad_attention": 24, "relpos_scores": 0, **NO_BF16}
 # UL-UNAS and NKF-AEC launches per forward: one STFT (NKF's over far‖near
 # stacked) and one ISTFT; their 2-D convs run on cuDNN
 UL_PER_FORWARD = {"stft_packed": 1, "istft_packed": 1, "dwconv1d": 0, "dwconv1d_tiled": 0,
-                  "quad_attention": 0, "relpos_scores": 0}
+                  "quad_attention": 0, "relpos_scores": 0, **NO_BF16}
 NKF_PER_FORWARD = UL_PER_FORWARD
 # SDAEC and Deep-Echo launches per forward: one STFT over near‖far stacked and
 # one ISTFT; the DFSMN-AEC cascade (SDAEC backend) adds the mask synthesis on
@@ -255,10 +280,26 @@ MELBAND_PER_FORWARD = HGTCRN_PER_FORWARD = UL_PER_FORWARD
 # mel analysis is a product and its generator, upsampler and crossover are
 # cuDNN convs
 SR_PER_FORWARD = {**SE_PER_FORWARD, "istft_packed": 0}
+
+
+def bf16_plan(per_forward: dict) -> dict:
+    """A family's launches a forward in its bf16 plan: B3–B6 as their bf16
+    instances, B1/B2 (the float32 islands) as they are."""
+    out = dict(per_forward)
+    for k in ("dwconv1d", "dwconv1d_tiled", "quad_attention", "relpos_scores"):
+        out[f"{k}_bf16"], out[k] = out[k], 0
+    return out
 # card against CPU, int16 SNR: 40 dB, but H-GTCRN's float32 WPE is
 # ill-conditioned, and there the JAX package's own gate for the family holds
-# (20 dB; the port and the JAX package part at 27.3–39.3 dB on the CPU)
-GATE_DB = {"h_gtcrn": 20.0}
+# (20 dB; the port and the JAX package part at 27.3–39.3 dB on the CPU); the
+# bf16 plans, whose card and CPU round in other places, at the value measured
+# on the H100 80GB HBM3, rounded down to the dB (GAN 24.46, ZipEnhancer
+# 28.93, SS 35.71 at its lower source; never below 15 dB)
+GATE_DB = {"h_gtcrn": 20.0, "mossformergan_se_bf16": 24.0, "zipenhancer_bf16": 28.0,
+           "mossformer2_ss_bf16": 35.0}
+# the bf16 plan against the float32 plan on the card, int16 SNR: the JAX
+# package's own bf16 gate
+BF16_VS_F32_DB = 15.0
 # ~1 ms at the H100's clock: longer than the host takes to issue any timed call
 SPIN_CYCLES = 2_000_000
 GUARD_SPINS = 32
@@ -284,9 +325,53 @@ def spin_guard() -> None:
     torch.cuda.synchronize()
 
 
+# each kernel's name in a torch.profiler trace (a substring of its symbol); a
+# bf16 instance's symbol also names its element type, bf16
+PROFILE_KEYS = {"stft_packed": "::stft_kernel", "istft_packed": "::istft_kernel",
+                "dwconv1d": "dwconv_kernel", "dwconv1d_tiled": "dwconv_grouped_kernel",
+                "quad_attention": "quad_attention_kernel", "relpos_scores": "relpos"}
+
+
+def is_kernel(counter: str, key: str) -> bool:
+    """Whether a trace row named ``key`` is a launch of the wrapper counter
+    ``counter`` (``dwconv1d`` the float32 instance, ``dwconv1d_bf16`` the
+    bfloat16 one)."""
+    bf16 = counter.endswith("_bf16")
+    return PROFILE_KEYS[counter.removesuffix("_bf16")] in key and ("bf16" in key) == bf16
+
+
+@dataclasses.dataclass
+class KernelRow:
+    """One device row of a trace: a kernel (or copy) name, its launches and
+    their device µs, the fields of ``key_averages()``'s rows read here."""
+    key: str
+    count: int
+    self_device_time_total: float
+
+
+def device_rows(prof) -> list:
+    """The device rows of a finished trace, but the spin kernels', from the
+    profiler's raw events: what ``key_averages()`` gives for them, without
+    the Python tree of every host op that it builds first (seconds a trace
+    of the echo cancellers' tens of thousands of launches, far more than
+    the request itself)."""
+    rows = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        name = ev.name()
+        if "spin_kernel" in name:
+            continue
+        row = rows.setdefault(name, [0, 0])
+        row[0] += 1
+        row[1] += ev.duration_ns()
+    return [KernelRow(k, n, ns / 1e3) for k, (n, ns) in rows.items()]
+
+
 def cuda_rows(fn, expect: dict[str, int], calls: int = 1) -> list:
     """torch.profiler's per-kernel rows (device side) for one call of ``fn``,
-    which makes ``calls`` identical calls of the function measured.
+    which makes ``calls`` identical calls of the function measured;
+    ``expect`` counts launches by the wrappers' counter names.
 
     The profiler has been seen to drop device records on the H100 (a whole
     trace, or most of one, or a few of ~12k), so a trace counts only when every
@@ -303,10 +388,9 @@ def cuda_rows(fn, expect: dict[str, int], calls: int = 1) -> list:
             spin_guard()
             fn()
             spin_guard()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
+        rows = device_rows(prof)
         launches = sum(e.count for e in rows)
-        named = {k: sum(e.count for e in rows if k in e.key) for k in expect}
+        named = {k: sum(e.count for e in rows if is_kernel(k, e.key)) for k in expect}
         agrees = previous is not None and abs(launches - previous) <= launches // 1000
         if launches and named == expect and agrees and (launches >= 1000 or launches % calls == 0):
             return rows
@@ -353,8 +437,11 @@ def _ms(value, absent: str) -> str:
     return absent if value is None else f"{value:.4f}"
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound(flops: float, nbytes: float, bf16_flops: float = 0.0) -> tuple[float, str]:
+    """The least time (ms) of ``flops`` float32 and ``bf16_flops`` bfloat16
+    operations (at their peaks) against ``nbytes`` at the memory rate."""
+    t_ops = flops / PEAK_F32_FLOPS + bf16_flops / PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -746,14 +833,24 @@ def _hold(name: str, label: str, ker: torch.Tensor, plain: torch.Tensor, ref64_f
 
 
 def _report(name: str, label: str, shape: str, row: dict) -> None:
-    if row["ms"] < row["bound_ms"]:  # faster than the card can be: a timing fault
+    if row["ms"] is not None and row["ms"] < row["bound_ms"]:  # a timing fault
         fail(f"{name} {label}: {row['ms']:.4f} ms is below its bound {row['bound_ms']:.4f} ms")
     lib = "—" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+    differ = f" ({row['differ']})" if "differ" in row else ""
+    times = ("untimed" if row["ms"] is None else f"kernel {row['ms']:.4f}, plain "
+             f"{row['plain_ms']:.4f}, library {lib}")
     print(f"kernel {name:14s} {label:22s} {shape:32s}: err/max|ref| vs plain "
-          f"{row['err_vs_plain']:.2e}, vs f64 kernel {row['err64_kernel']:.2e} plain "
-          f"{row['err64_plain']:.2e}; device ms: kernel {row['ms']:.4f}, plain "
-          f"{row['plain_ms']:.4f}, library {lib}; bound {row['bound_ms']:.4f} "
+          f"{row['err_vs_plain']:.2e}{differ}, vs f64 kernel {row['err64_kernel']:.2e} plain "
+          f"{row['err64_plain']:.2e}; device ms: {times}; bound {row['bound_ms']:.4f} "
           f"({row['bound_by']})", flush=True)
+
+
+def _time(row: dict, timed: bool, run, plain, library=None) -> None:
+    """The kernel's, the plain version's and the library call's device ms
+    into ``row`` (None each, untimed)."""
+    row["ms"] = device_ms(run) if timed else None
+    row["plain_ms"] = device_ms(plain) if timed else None
+    row["library_ms"] = device_ms(library) if timed and library is not None else None
 
 
 def _f64_rows(n: int, count: int, dev) -> torch.Tensor:
@@ -761,53 +858,102 @@ def _f64_rows(n: int, count: int, dev) -> torch.Tensor:
     return torch.linspace(0, n - 1, min(n, count), device=dev).long().unique()
 
 
+def _hold_bf16(name: str, label: str, ker: torch.Tensor, plain: torch.Tensor, ref64_fn,
+               rows: torch.Tensor) -> dict:
+    """A bf16 kernel vs its plain version within one bf16 ulp on every
+    element; both vs a float64 reference of the same bf16 inputs on ``rows``,
+    the kernel within 2× the plain version's error."""
+    torch.cuda.synchronize()
+    if (ker.shape != plain.shape or ker.dtype != torch.bfloat16 or plain.dtype != torch.bfloat16
+            or not bool(torch.isfinite(ker).all())):
+        fail(f"{name} bf16 {label}: {ker.dtype} {tuple(ker.shape)} vs {plain.dtype} "
+             f"{tuple(plain.shape)}, or non-finite")
+    kf, pf = ker.float(), plain.float()
+    diff = (kf - pf).abs()
+    over = int((diff > BF16_ULP * pf.abs() + 1e-6).sum())
+    differ = int((diff > 0).sum())
+    ref = ref64_fn(rows)
+    e64_k = rel_err(kf[rows].cpu().numpy(), ref)
+    e64_p = rel_err(pf[rows].cpu().numpy(), ref)
+    if over:
+        fail(f"{name} bf16 {label}: {over} elements part from plain by more than one bf16 ulp")
+    if not e64_k <= 2.0 * e64_p:
+        fail(f"{name} bf16 {label}: f64 error {e64_k:.3e} > 2 × plain {e64_p:.3e}")
+    return {"err_vs_plain": float(diff.max()) / float(pf.abs().max()),
+            "max_abs_err": float(diff.max()), "err64_kernel": e64_k, "err64_plain": e64_p,
+            "differ": f"{differ} of {diff.numel()} elements differ, none by more than one ulp"}
+
+
+def hold(name, label, ker, plain, ref64_fn, rows, dtype) -> dict:
+    if dtype == torch.bfloat16:
+        return _hold_bf16(name, label, ker, plain, ref64_fn, rows)
+    return _hold(name, label, ker, plain, ref64_fn, rows)
+
+
 def hold_b4(gen, dev, label: str, shape: tuple, k: int, pads: tuple, dil: int,
-            f64_rows: int = F64_ROWS, offset: int = 0) -> dict:
+            f64_rows: int = F64_ROWS, offset: int = 0, dtype=torch.float32,
+            timed: bool = True) -> dict:
     """B4 against plain and float64 at one shape, timed beside cuDNN.  w is
     the model's (C, 1, k) weight seen as (k, C), as ``nn/core.py`` passes it;
-    x starts ``offset`` floats into a larger buffer."""
+    x starts ``offset`` elements into a larger buffer; ``dtype`` float32 or
+    bfloat16 (x and w drawn in float32 and rounded)."""
     import torch.nn.functional as F
 
     from audiojax_torch.ops import dwconv_cuda as D
 
     b, t, c = shape
-    x = torch.randn((b * t * c + offset,), generator=gen, device=dev)[offset:].view(b, t, c)
-    w = (torch.randn((c, 1, k), generator=gen, device=dev) / k ** 0.5)[:, 0, :].t()
+    x = torch.randn((b * t * c + offset,), generator=gen, device=dev).to(dtype)[offset:]
+    x = x.view(b, t, c)
+    w = (torch.randn((c, 1, k), generator=gen, device=dev) / k ** 0.5).to(dtype)[:, 0, :].t()
     run = lambda: D.dwconv1d_cuda(x, w, pads=pads, dilation=dil)  # noqa: E731
     plain = lambda: D.dwconv1d_plain(x, w, pads=pads, dilation=dil)  # noqa: E731
     w64 = w.double().cpu().numpy()
-    row = _hold("dwconv1d", label, run(), plain(), lambda r: ref_dwconv64(
-        x[r].double().cpu().numpy(), w64, pads, dil), _f64_rows(b, f64_rows, dev))
-    # cuDNN's depthwise conv on a contiguous (B, C, T) tensor (TF32 off); the
-    # layout change is made before the timing and left out of it
+    tag = "dwconv1d" if dtype == torch.float32 else "dwconv1d_bf16"
+    row = hold(tag, label, run(), plain(), lambda r: ref_dwconv64(
+        x[r].double().cpu().numpy(), w64, pads, dil), _f64_rows(b, f64_rows, dev), dtype)
+    # cuDNN's depthwise conv on a contiguous (B, C, T) tensor (TF32 off; bf16
+    # in bf16); the layout change is made before the timing and left out of it
     xt = F.pad(x.transpose(1, 2), pads).contiguous()
     wt = w.t().contiguous()[:, None, :]
-    row["ms"], row["plain_ms"] = device_ms(run), device_ms(plain)
-    row["library_ms"] = device_ms(lambda: F.conv1d(xt, wt, dilation=dil, groups=c))
+    _time(row, timed, run, plain, lambda: F.conv1d(xt, wt, dilation=dil, groups=c))
     t_out = t + sum(pads) - dil * (k - 1)
-    row["bound_ms"], row["bound_by"] = bound(2.0 * b * t_out * c * k,
-                                             4.0 * (b * t * c + k * c + b * t_out * c))
-    _report("dwconv1d", label, f"({b}, {t}, {c}) k{k} pads {pads} d{dil}", row)
+    es = x.element_size()
+    macs = 2.0 * b * t_out * c * k
+    row["bound_ms"], row["bound_by"] = bound(
+        macs if dtype == torch.float32 else 0.0, es * (b * t * c + k * c + b * t_out * c),
+        bf16_flops=0.0 if dtype == torch.float32 else macs)
+    _report(tag, label, f"({b}, {t}, {c}) k{k} pads {pads} d{dil}", row)
     return row
 
 
 def hold_b6(gen, dev, label: str, n: int, s: int, mask: bool, dk: int = 128, dv: int = 128,
-            f64_rows: int = F64_ROWS) -> dict:
-    """B6 against plain and float64 at one shape, scale 1/S."""
+            f64_rows: int = F64_ROWS, dtype=torch.float32, timed: bool = True,
+            out_dtype=None) -> dict:
+    """B6 against plain and float64 at one shape, scale 1/S, in ``dtype``,
+    the output in ``out_dtype`` (default ``dtype``; the bf16 plan's layers
+    take float32)."""
     from audiojax_torch.ops import attention_cuda as A
 
-    q, kk = (torch.randn((n, s, dk), generator=gen, device=dev) for _ in range(2))
-    v = torch.randn((n, s, dv), generator=gen, device=dev)
-    run = lambda: A.quad_attention_cuda(q, kk, v, scale=1.0 / s, mask_diag=mask)  # noqa: E731
-    plain = lambda: A.quad_attention_plain(q, kk, v, scale=1.0 / s, mask_diag=mask)  # noqa: E731
-    row = _hold("quad_attention", label, run(), plain(), lambda r: ref_quad64(
+    out_dtype = out_dtype or dtype
+    q, kk = (torch.randn((n, s, dk), generator=gen, device=dev).to(dtype) for _ in range(2))
+    v = torch.randn((n, s, dv), generator=gen, device=dev).to(dtype)
+    kw = dict(scale=1.0 / s, mask_diag=mask, out_dtype=out_dtype)
+    run = lambda: A.quad_attention_cuda(q, kk, v, **kw)  # noqa: E731
+    plain = lambda: A.quad_attention_plain(q, kk, v, **kw)  # noqa: E731
+    tag = "quad_attention" if dtype == torch.float32 else "quad_attention_bf16"
+    row = hold(tag, label, run(), plain(), lambda r: ref_quad64(
         *(a[r].double().cpu().numpy() for a in (q, kk, v)), 1.0 / s, mask),
-        _f64_rows(n, f64_rows, dev))
-    row["ms"], row["plain_ms"], row["library_ms"] = device_ms(run), device_ms(plain), None
-    row["bound_ms"], row["bound_by"] = bound(n * s * s * (2.0 * dk + 2.0 * dv),
-                                             4.0 * (n * s * (2 * dk + dv) + n * s * dv))
+        _f64_rows(n, f64_rows, dev), out_dtype)
+    _time(row, timed, run, plain)
+    es, eo = q.element_size(), torch.tensor([], dtype=out_dtype).element_size()
+    # bf16: the scores' bf16 products at the bf16 rate, the PV product in f32
+    qk, pv = 2.0 * n * s * s * dk, 2.0 * n * s * s * dv
+    row["bound_ms"], row["bound_by"] = bound(
+        pv + (qk if dtype == torch.float32 else 0.0), es * n * s * (2 * dk + dv) + eo * n * s * dv,
+        bf16_flops=0.0 if dtype == torch.float32 else qk)
     shape = f"({n}, {s}, {dk})" if dk == dv else f"({n}, {s}, K{dk}, V{dv})"
-    _report("quad_attention", label, shape + (" mask" if mask else ""), row)
+    out = " → f32" if out_dtype != dtype else ""
+    _report(tag, label, shape + (" mask" if mask else "") + out, row)
     return row
 
 
@@ -956,8 +1102,7 @@ def serve(card: str, latency: dict) -> dict:
 
     label, audio = requests[1]
     elapsed_ms = latency["gtcrn"] = float(np.median([r.elapsed_s * 1e3 for r in runs[label]]))
-    rows = cuda_rows(lambda: session.process(audio),
-                     {"::stft_kernel": 1, "::istft_kernel": 1})
+    rows = cuda_rows(lambda: session.process(audio), {"stft_packed": 1, "istft_packed": 1})
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     print(f"profile gtcrn {label}: {sum(e.count for e in rows)} device launches, device busy "
           f"{busy_ms:.3f} ms of {elapsed_ms:.3f} ms median elapsed unprofiled (idle share "
@@ -976,15 +1121,10 @@ def serve(card: str, latency: dict) -> dict:
 
 # ── phases 6, 8 and 10 ────────────────────────────────────────────────────────
 
-# each kernel's name in a torch.profiler trace (a substring of its symbol)
-PROFILE_KEYS = {"stft_packed": "::stft_kernel", "istft_packed": "::istft_kernel",
-                "dwconv1d": "dwconv_kernel", "dwconv1d_tiled": "dwconv_grouped_kernel",
-                "quad_attention": "quad_attention_kernel", "relpos_scores": "relpos"}
-
 
 def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latency: dict,
                    lead_silence: int = 0, clip=noisy_speech, seconds: tuple = (6, 30),
-                   rtf: bool = False, energies=None) -> dict:
+                   rtf: bool = False, energies=None, dtype: str = "float32") -> dict:
     """Phases 6, 8, 10, 12 and 15–23: serve ``name`` at full width and depth
     on its manifest's windows (the GAN's and ZipEnhancer's 6 s windows are
     each folded into 1.5 s fold windows); returns the kernels' launch counts
@@ -1002,24 +1142,30 @@ def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latenc
     ``audiojax_torch.utils.profiling.measure_rtf``; ``energies(model, x)``
     gives H-GTCRN's two source energies, whose relative gap on the card and
     on the CPU is printed beside its gate (a near tie may pick different
-    sources)."""
+    sources).  With ``dtype="bfloat16"`` it serves the family's bf16 plan
+    (path ``<name>_bf16``, phase 25): each request's median beside the
+    float32 plan's from the same run, the first request's output held
+    against the float32 plan's (``BF16_VS_F32_DB``), and the card held
+    against the CPU's bf16 plan at ``GATE_DB[<name>_bf16]``."""
     from audiojax_torch.runtime import registry
     from audiojax_torch.runtime.session import Session
 
     spec = registry.get(name)
-    cfg = spec.make_config()
+    bf16 = dtype != "float32"
+    path = f"{name}_bf16" if bf16 else name
+    cfg = spec.make_config(compute_dtype=dtype) if bf16 else spec.make_config()
     manifest = spec.make_manifest(cfg)
     window = manifest.input_audio_length
     fold = getattr(cfg, "fold_window", 0)
     head = manifest.pad_head
     sr = manifest.in_sample_rate
-    model = spec.make_module(spec.init_params(0, cfg, "cuda"), cfg)
+    model = spec.make_module(spec.init_params(0, cfg, "cuda"), cfg)  # casts a bf16 plan's tree
     session = Session(model, manifest, device="cuda")
     requests = [(f"{sec} s", _inputs(clip(sec * sr, seed, sr=sr)))
                 for sec, seed in zip(seconds, seeds)]
     t0 = time.perf_counter()
     session.process(*requests[0][1])  # warm-up: cuBLAS, cuDNN and allocator set-up
-    print(f"serve {name} warm-up ({requests[0][0]} request): "
+    print(f"serve {path} warm-up ({requests[0][0]} request): "
           f"{(time.perf_counter() - t0) * 1e3:.3f} ms  [{card}]", flush=True)
 
     for mod in kernel_modules():
@@ -1033,7 +1179,7 @@ def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latenc
     forwards = SERVE_REPEATS * len(requests)  # one forward per request
     expect = {k: forwards * n for k, n in per_forward.items()}
     if counts != expect:
-        fail(f"{name} serving launched {counts}, expected {expect}")
+        fail(f"{path} serving launched {counts}, expected {expect}")
 
     for label, ins in requests:
         audio = ins[0]
@@ -1050,39 +1196,50 @@ def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latenc
                 if not np.any(out):
                     fail(f"request {label} source {i}: all-zero output")
         ms = sorted(r.elapsed_s * 1e3 for r in runs[label])
-        med = float(np.median(ms))
+        med = latency[f"{path} {label}"] = float(np.median(ms))
+        beside = (f"; float32 plan {latency[f'{name} {label}']:.3f} ms (same run)"
+                  if bf16 and f"{name} {label}" in latency else "")
         _, _, n_win, bucket = session._window_geometry(n + head)
         folds = f", {window // fold * bucket} folds" if fold else ""
-        print(f"serve {name} {label:5s} ({n} samples"
+        print(f"serve {path} {label:5s} ({n} samples"
               f"{f' × {audio.shape[0]} channels' if audio.ndim > 1 else ''}"
               f"{f' × {len(ins)} inputs' if len(ins) > 1 else ''}"
               f"{f' + {head} head' if head else ''}"
               f", {n_win} windows → {bucket}{folds}; {manifest.output_sources} source(s)): "
               f"elapsed ms median {med:.3f} (min {ms[0]:.3f}, max {ms[-1]:.3f}, n={len(ms)}), "
-              f"RTF median {med / 1e3 / runs[label][0].audio_duration_s:.6f}  [{card}]",
+              f"RTF median {med / 1e3 / runs[label][0].audio_duration_s:.6f}{beside}  [{card}]",
               flush=True)
-    print(f"serve {name} launches over {SERVE_REPEATS} x {len(requests)} requests: "
+    print(f"serve {path} launches over {SERVE_REPEATS} x {len(requests)} requests: "
           f"{counts}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
 
     label, ins = requests[0]
-    elapsed_ms = latency[name] = float(np.median([r.elapsed_s * 1e3 for r in runs[label]]))
-    rows = cuda_rows(lambda: session.process(*ins),
-                     {PROFILE_KEYS[k]: n for k, n in per_forward.items()})
+    elapsed_ms = latency[path] = float(np.median([r.elapsed_s * 1e3 for r in runs[label]]))
+    if bf16:  # the bf16 plan against the float32 plan on the card, the same request
+        f32_cfg = spec.make_config()
+        f32 = Session(spec.make_module(spec.init_params(0, f32_cfg, "cuda"), f32_cfg), manifest,
+                      device="cuda").process(*ins)
+        snrs = [snr_db(a, b) for a, b in zip(f32.outputs, runs[label][0].outputs)]
+        print(f"serve {path} {label} card bf16 vs card float32: SNR "
+              f"{', '.join(f'{v:.2f}' for v in snrs)} dB (gate {BF16_VS_F32_DB:g})", flush=True)
+        if not min(snrs) >= BF16_VS_F32_DB:
+            fail(f"{path} bf16 vs float32 SNR {min(snrs):.2f} dB < {BF16_VS_F32_DB}")
+        del f32
+    rows = cuda_rows(lambda: session.process(*ins), per_forward)
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    print(f"profile {name} {label}: {sum(e.count for e in rows)} device launches, "
+    print(f"profile {path} {label}: {sum(e.count for e in rows)} device launches, "
           f"device busy {busy_ms:.3f} ms of {elapsed_ms:.3f} ms median elapsed unprofiled "
           f"(idle share {1.0 - busy_ms / elapsed_ms:.4f})  [{card}]", flush=True)
     # one request is one forward: every launch of the trace, beside the ported kernels'
-    print(f"profile {name} {label}: launches a forward {sum(e.count for e in rows)} in all, "
+    print(f"profile {path} {label}: launches a forward {sum(e.count for e in rows)} in all, "
           + ", ".join(f"{k} {n}" for k, n in per_forward.items() if n), flush=True)
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}", flush=True)
     for k, n in per_forward.items():
         if not n:
             continue
-        mine = [e for e in rows if PROFILE_KEYS[k] in e.key]
-        print(f"profile {name} {label}: {k} "
+        mine = [e for e in rows if is_kernel(k, e.key)]
+        print(f"profile {path} {label}: {k} "
               f"{sum(e.self_device_time_total for e in mine) / 1e3:.3f} ms device time over "
               f"{sum(e.count for e in mine)} launches (same trace)", flush=True)
 
@@ -1102,15 +1259,15 @@ def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latenc
                + ", ".join(f"{energy_gap(energies(m, x)):.4f}"
                            for m, x in ((model, xs[0].cuda()), (cpu_model, xs[0])))
                + " / CPU")
-    hold_card_vs_cpu(f"serve {name} {length / sr:g} s {'fold' if fold else 'window'}", name,
+    hold_card_vs_cpu(f"serve {path} {length / sr:g} s {'fold' if fold else 'window'}", path,
                      card_out, cpu_out, f"(CPU forward {cpu_s:.1f} s){gap}")
-    if lead_silence:
+    if lead_silence and not bf16:
         frame0_witness(name, model, cpu_model, clip(length, seeds[2], sr=sr))
     if manifest.task == "aec":  # no gate: the weights are random
         near, far = clip(seconds[0] * sr, seeds[2] + 1, sr=sr, local=False)
         out = session.process(near, far).audio.astype(np.float64)
         erle = 10.0 * np.log10(np.sum(near.astype(np.float64) ** 2) / max(np.sum(out ** 2), 1.0))
-        print(f"serve {name} echo-only {seconds[0]} s pair: echo-return-loss gain {erle:.2f} dB "
+        print(f"serve {path} echo-only {seconds[0]} s pair: echo-return-loss gain {erle:.2f} dB "
               "(random weights, no gate)", flush=True)
     if rtf:
         from audiojax_torch.utils.profiling import measure_rtf
@@ -1118,7 +1275,7 @@ def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latenc
         xs = [torch.from_numpy(c[None]).cuda() for c in _inputs(clip(window, seeds[0], sr=sr))]
         r = measure_rtf(lambda _, x: model(x, *xs[1:]), None, xs[0], sample_rate=sr, iters=3,
                         settle=1)
-        print(f"serve {name} measure_rtf on one {window / sr:g} s window (passes chained "
+        print(f"serve {path} measure_rtf on one {window / sr:g} s window (passes chained "
               f"through the first input, CUDA events; 3 timed after a warm-up and 1 settle): "
               f"{r['latency_s'] * 1e3:.3f} ms a pass, RTF {r['rtf']:.6f}  [{card}]", flush=True)
     return counts
@@ -1253,34 +1410,45 @@ B3_CASES = [
 ]
 
 
-def check_zip_kernels(dev) -> dict:
-    """Phase 7; returns B3's row at its first serving shape."""
+def hold_b3(gen, dev, label: str, n: int, s: int, dtype=torch.float32) -> dict:
+    """B3 against plain and float64 at one ZipEnhancer shape, in ``dtype``
+    (bf16: pe and the probabilities too).  H = 4, D = 32, P = 4 (stride 8)."""
     from audiojax_torch.ops import attention_cuda as A
 
     h, d, n_pos = 4, 32, 4
     stride = A.pos_stride(n_pos)
+    # q, k and pp as lane slices of one packed projection, as the model has them
+    proj = (0.5 * torch.randn((n, s, 2 * h * d + h * stride), generator=gen, device=dev)).to(dtype)
+    q, k, pp = proj[..., : h * d], proj[..., h * d : 2 * h * d], proj[..., 2 * h * d :]
+    pe = (0.5 * torch.randn((h, n_pos, s, s), generator=gen, device=dev)).to(dtype)
+    rows = torch.linspace(0, n - 1, min(n, F64_ROWS), device=dev).long().unique()
+    run = lambda: A.relpos_scores_cuda(q, k, pp, pe, num_heads=h)  # noqa: E731
+    plain = lambda: A.relpos_scores_plain(q, k, pp, pe, num_heads=h)  # noqa: E731
+    pe64 = pe.double().cpu().numpy()
+    tag = "relpos_scores" if dtype == torch.float32 else "relpos_scores_bf16"
+    row = hold(tag, label, run(), plain(), lambda r: ref_relpos64(
+        *(a[r].double().cpu().numpy() for a in (q, k, pp)), pe64), rows, dtype)
+    _time(row, True, run, plain)
+    # per probability: D-term dot product, P-term bias, max, subtract, exp,
+    # sum, divide (bf16: the dot products' bf16 operands at the bf16 rate);
+    # bytes: q, k, pp and pe read once, probs written once
+    es = proj.element_size()
+    dots = n * h * s * s * (2.0 * d + 2.0 * n_pos)
+    rest = n * h * s * s * 5.0
+    row["bound_ms"], row["bound_by"] = bound(
+        rest + (dots if dtype == torch.float32 else 0.0),
+        es * (n * s * proj.shape[-1] + h * n_pos * s * s + n * h * s * s),
+        bf16_flops=0.0 if dtype == torch.float32 else dots)
+    _report(tag, label, f"({n}, {s}) H{h} D{d} P{n_pos}", row)
+    return row
+
+
+def check_zip_kernels(dev) -> dict:
+    """Phase 7; returns B3's row at its first serving shape."""
     gen = torch.Generator(device=dev).manual_seed(1)
     serving = {}
     for label, n, s in B3_CASES:
-        # q, k and pp as lane slices of one packed projection, as the model has them
-        proj = 0.5 * torch.randn((n, s, 2 * h * d + h * stride), generator=gen, device=dev)
-        q, k, pp = proj[..., : h * d], proj[..., h * d : 2 * h * d], proj[..., 2 * h * d :]
-        pe = 0.5 * torch.randn((h, n_pos, s, s), generator=gen, device=dev)
-        rows = torch.linspace(0, n - 1, min(n, F64_ROWS), device=dev).long().unique()
-        run = lambda: A.relpos_scores_cuda(q, k, pp, pe, num_heads=h)  # noqa: E731
-        plain = lambda: A.relpos_scores_plain(q, k, pp, pe, num_heads=h)  # noqa: E731
-        pe64 = pe.double().cpu().numpy()
-        row = _hold("relpos_scores", label, run(), plain(), lambda r: ref_relpos64(
-            *(a[r].double().cpu().numpy() for a in (q, k, pp)), pe64), rows)
-        row["ms"], row["plain_ms"], row["library_ms"] = device_ms(run), device_ms(plain), None
-        # per probability: D-term dot product, P-term bias, max, subtract,
-        # exp, sum, divide; bytes: q, k, pp and pe read once, probs written once
-        row["bound_ms"], row["bound_by"] = bound(
-            n * h * s * s * (2.0 * d + 2.0 * n_pos + 5.0),
-            4.0 * (n * s * proj.shape[-1] + h * n_pos * s * s + n * h * s * s))
-        _report("relpos_scores", label, f"({n}, {s}) H{h} D{d} P{n_pos}", row)
-        serving.setdefault("relpos_scores", row)
-        del proj, q, k, pp, pe
+        serving.setdefault("relpos_scores", hold_b3(gen, dev, label, n, s))
     return serving
 
 
@@ -1350,36 +1518,47 @@ def check_se_kernels(dev) -> None:
         hold_b6(gen, dev, label, n, s, False, dk=128, dv=2048, f64_rows=SS_F64_ROWS)
 
 
-def check_ss_kernels(dev) -> dict:
-    """Phase 9; returns B5's row at its first serving shape."""
+def hold_b5(gen, dev, label: str, shape: tuple, k: int, pads: tuple, dil: int,
+            dtype=torch.float32) -> dict:
+    """B5 against plain and float64 at one MossFormer2-SS shape, timed beside
+    cuDNN's grouped conv, in ``dtype``."""
     import torch.nn.functional as F
 
     from audiojax_torch.ops import dwconv_cuda as D
 
+    b, t, c = shape
+    g = c // 2
+    x = torch.randn((b, t, c), generator=gen, device=dev).to(dtype)
+    # the model's (G, 2, k) weight seen as (k, 2, G), as nn/core.py passes it
+    w = (torch.randn((g, 2, k), generator=gen, device=dev) / (2 * k) ** 0.5).to(dtype)
+    w = w.permute(2, 1, 0)
+    run = lambda: D.dwconv1d_grouped_cuda(x, w, pads=pads, dilation=dil)  # noqa: E731
+    plain = lambda: D.dwconv1d_grouped_plain(x, w, pads=pads, dilation=dil)  # noqa: E731
+    w64 = w.double().cpu().numpy()
+    tag = "dwconv1d_tiled" if dtype == torch.float32 else "dwconv1d_tiled_bf16"
+    row = hold(tag, label, run(), plain(), lambda r: ref_grouped64(
+        x[r].double().cpu().numpy(), w64, pads, dil), _f64_rows(b, SS_F64_ROWS, dev), dtype)
+    # cuDNN's grouped conv (groups=G, two input channels a group) on a
+    # contiguous (B, 2G, T) tensor, the layout change left out of the timing
+    xt = F.pad(x.transpose(1, 2), pads).contiguous()
+    wt = w.permute(2, 1, 0).contiguous()
+    _time(row, True, run, plain, lambda: F.conv1d(xt, wt, dilation=dil, groups=g))
+    t_out = t + sum(pads) - dil * (k - 1)
+    es = x.element_size()
+    macs = 2.0 * b * t_out * g * 2 * k
+    row["bound_ms"], row["bound_by"] = bound(
+        macs if dtype == torch.float32 else 0.0, es * (b * t * c + k * c + b * t_out * g),
+        bf16_flops=0.0 if dtype == torch.float32 else macs)
+    _report(tag, label, f"({b}, {t}, {c}→{g}) k{k} pads {pads} d{dil}", row)
+    return row
+
+
+def check_ss_kernels(dev) -> dict:
+    """Phase 9; returns B5's row at its first serving shape."""
     gen = torch.Generator(device=dev).manual_seed(2)
     serving = {}
-    for label, (b, t, c), k, pads, dil in B5_SS_CASES:
-        g = c // 2
-        x = torch.randn((b, t, c), generator=gen, device=dev)
-        # the model's (G, 2, k) weight seen as (k, 2, G), as nn/core.py passes it
-        w = (torch.randn((g, 2, k), generator=gen, device=dev) / (2 * k) ** 0.5).permute(2, 1, 0)
-        run = lambda: D.dwconv1d_grouped_cuda(x, w, pads=pads, dilation=dil)  # noqa: E731
-        plain = lambda: D.dwconv1d_grouped_plain(x, w, pads=pads, dilation=dil)  # noqa: E731
-        w64 = w.double().cpu().numpy()
-        row = _hold("dwconv1d_tiled", label, run(), plain(), lambda r: ref_grouped64(
-            x[r].double().cpu().numpy(), w64, pads, dil), _f64_rows(b, SS_F64_ROWS, dev))
-        # cuDNN's grouped conv (groups=G, two input channels a group) on a
-        # contiguous (B, 2G, T) tensor, the layout change left out of the timing
-        xt = F.pad(x.transpose(1, 2), pads).contiguous()
-        wt = w.permute(2, 1, 0).contiguous()
-        row["ms"], row["plain_ms"] = device_ms(run), device_ms(plain)
-        row["library_ms"] = device_ms(lambda: F.conv1d(xt, wt, dilation=dil, groups=g))
-        t_out = t + sum(pads) - dil * (k - 1)
-        row["bound_ms"], row["bound_by"] = bound(2.0 * b * t_out * g * 2 * k,
-                                                 4.0 * (b * t * c + k * c + b * t_out * g))
-        _report("dwconv1d_tiled", label, f"({b}, {t}, {c}→{g}) k{k} pads {pads} d{dil}", row)
-        serving.setdefault("dwconv1d_tiled", row)
-        del x, xt
+    for label, shape, k, pads, dil in B5_SS_CASES:
+        serving.setdefault("dwconv1d_tiled", hold_b5(gen, dev, label, shape, k, pads, dil))
     for label, shape, k, pads, dil in B4_SS_CASES:
         hold_b4(gen, dev, label, shape, k, pads, dil, f64_rows=SS_F64_ROWS)
     for label, n, s in B6_SS_CASES:
@@ -1387,11 +1566,61 @@ def check_ss_kernels(dev) -> dict:
     return serving
 
 
+# ── phases 24 and 25 ───────────────────────────────────────────────────────
+
+
+def check_bf16_kernels(dev) -> dict:
+    """Phase 24: B3, B4, B5 and B6 in bfloat16 at every shape of the bf16
+    serving paths (ZipEnhancer, MossFormerGAN-SE and MossFormer2-SS: their
+    float32 shapes, B3_CASES, B4_CASES, B5_SS_CASES, B4_SS_CASES, B6_CASES,
+    B6_SS_CASES; B4's off-path routes too), each within one bf16 ulp of its
+    plain version (B6 as the layers take it, float32 out: within TOL_B4_B6)
+    and within 2× its float64 error; timed at the serving shapes (cuDNN's
+    bf16 conv beside B4 and B5), the off-path ones held only; returns each
+    bf16 instance's row at its first serving shape."""
+    gen = torch.Generator(device=dev).manual_seed(24)
+    bf, f32 = torch.bfloat16, torch.float32
+    serving = {}
+    for label, shape, k, pads, dil in B4_CASES:
+        serving.setdefault("dwconv1d_bf16", hold_b4(gen, dev, label, shape, k, pads, dil,
+                                                    dtype=bf))
+    for label, shape, k, pads, dil in B4_SS_CASES:
+        hold_b4(gen, dev, label, shape, k, pads, dil, f64_rows=SS_F64_ROWS, dtype=bf)
+    for label, shape, k, pads, dil, offset in B4_OFFPATH_CASES:  # C % 8 != 0 in bf16 too
+        hold_b4(gen, dev, label, shape, k, pads, dil, offset=offset, dtype=bf, timed=False)
+    for label, shape, k, pads, dil in B5_SS_CASES:
+        serving.setdefault("dwconv1d_tiled_bf16", hold_b5(gen, dev, label, shape, k, pads, dil,
+                                                          dtype=bf))
+    # B6 as the bf16 layers take it, its f32 sums out in f32; the Pallas
+    # contract's bf16 output (one rounding of the same sums) at one shape
+    for label, n, s, mask in B6_CASES:
+        serving.setdefault("quad_attention_bf16", hold_b6(gen, dev, label, n, s, mask, dtype=bf,
+                                                          out_dtype=f32))
+    for label, n, s in B6_SS_CASES:
+        hold_b6(gen, dev, label, n, s, False, dk=128, dv=2048, f64_rows=SS_F64_ROWS, dtype=bf,
+                out_dtype=f32)
+    hold_b6(gen, dev, B6_CASES[0][0], *B6_CASES[0][1:], dtype=bf, timed=False)
+    for label, n, s in B3_CASES:
+        serving.setdefault("relpos_scores_bf16", hold_b3(gen, dev, label, n, s, dtype=bf))
+    return serving
+
+
+def serve_bf16(card: str, latency: dict) -> dict:
+    """Phase 25: the bf16 plans of MossFormerGAN-SE, ZipEnhancer and
+    MossFormer2-SS, on the requests of phases 6, 8 and 10 (their seeds)."""
+    return {f"{name}_bf16": serve_windowed(card, name, bf16_plan(per_forward), seeds, latency,
+                                          dtype="bfloat16", **kw)
+            for name, per_forward, seeds, kw in (
+                ("mossformergan_se", GAN_PER_FORWARD, (11, 12, 13), {}),
+                ("zipenhancer", ZIP_PER_FORWARD, (21, 22, 23), {"lead_silence": 201}),
+                ("mossformer2_ss", SS_PER_FORWARD, (31, 32, 33), {"clip": speech_mix}))}
+
+
 # ── phase 11 ───────────────────────────────────────────────────────────────
 
 # GTCRN launches per forward: one STFT and one ISTFT over the window batch
 GTCRN_PER_FORWARD = {"stft_packed": 1, "istft_packed": 1, "dwconv1d": 0, "dwconv1d_tiled": 0,
-                     "quad_attention": 0, "relpos_scores": 0}
+                     "quad_attention": 0, "relpos_scores": 0, **NO_BF16}
 # (family, request seconds, launches a forward, seed, clip, leading silence of
 # the clip held card against CPU)
 IMPORTED = [
@@ -1540,7 +1769,7 @@ def serve_imported(card: str, random_ms: dict) -> dict:
 
 STREAM_LANES, STREAM_BLOCK_HOPS = 8, 4
 NO_LAUNCHES = {"stft_packed": 0, "istft_packed": 0, "dwconv1d": 0, "dwconv1d_tiled": 0,
-               "quad_attention": 0, "relpos_scores": 0}
+               "quad_attention": 0, "relpos_scores": 0, **NO_BF16}
 # (model, clip seconds, the ported kernels' launches a step, first clip seed,
 # the eager check): GTCRN's and UL-UNAS's steps analyse their block on B1
 # (their synthesis is a matrix product and an overlap-add), NKF's, SDAEC's
@@ -1626,9 +1855,8 @@ def graph_trace(card: str, name: str, server, per_step: dict,
             for _ in range(replays):
                 server._graph.replay()
             spin_guard()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
-        seen = {k: sum(e.count for e in rows if PROFILE_KEYS[k] in e.key) for k in per_step}
+        rows = device_rows(prof)
+        seen = {k: sum(e.count for e in rows if is_kernel(k, e.key)) for k in per_step}
         if any(seen[k] > want[k] for k in want):
             fail(f"stream {name}: a trace shows {seen}, more than captured × replays {want}")
         if seen == want:
@@ -1799,7 +2027,14 @@ def serve_sr(card: str, dev, latency: dict) -> dict:
 
 
 def build_all() -> None:
-    """Phase 2: one nvcc per source, all started together."""
+    """Every kernel source built, one nvcc each, all started together."""
+    start_builds()()
+
+
+def start_builds():
+    """Phase 2: ``build_all``'s builds, started together; waits for B1/B2's
+    source (all that phase 3 needs) and returns a function that waits for
+    the rest, so that they build while phase 3 runs."""
     from audiojax_torch.ops import _build
 
     def one(name: str) -> float:
@@ -1809,12 +2044,18 @@ def build_all() -> None:
 
     names = [src.stem for src in sorted(_build.CSRC.glob("*.cu"))]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:
-        seconds = list(pool.map(one, names))
-    for name, sec in zip(names, seconds):
-        print(f"build: csrc/{name}.cu in {sec:.2f} s", flush=True)
-    print(f"build: {len(names)} sources in {time.perf_counter() - t0:.2f} s into "
-          f"{_build.BUILD_DIR}", flush=True)
+    pool = ThreadPoolExecutor(len(names))
+    futures = {name: pool.submit(one, name) for name in names}
+    futures["stft"].result()
+
+    def finish() -> None:
+        for name, future in futures.items():
+            print(f"build: csrc/{name}.cu in {future.result():.2f} s", flush=True)
+        pool.shutdown()
+        print(f"build: {len(names)} sources in {time.perf_counter() - t0:.2f} s into "
+              f"{_build.BUILD_DIR}", flush=True)
+
+    return finish
 
 
 def main() -> int:
@@ -1836,8 +2077,9 @@ def main() -> int:
         print(f"phase {n} in {time.perf_counter() - t0:.1f} s", flush=True)
         return out
 
-    phase(2, build_all)
+    finish_builds = phase(2, start_builds)
     rows = phase(3, check_kernels, dev)
+    phase("2, the rest of the builds", finish_builds)
     rows.update(phase(4, check_gan_kernels, dev))
     latency = {}
     by_path = {"gtcrn": phase(5, serve, card, latency)}
@@ -1853,6 +2095,9 @@ def main() -> int:
     rows.update(phase(9, check_ss_kernels, dev))
     by_path["mossformer2_ss"] = phase(10, serve_windowed, card, "mossformer2_ss",
                                       SS_PER_FORWARD, (31, 32, 33), latency, clip=speech_mix)
+    # the bf16 plans: their kernels, then the three families beside phases 6, 8, 10
+    rows.update(phase(24, check_bf16_kernels, dev))
+    by_path.update(phase(25, serve_bf16, card, latency))
     # phases 12 and 14–20 before phase 11, which compares against their latency
     by_path["dfsmn"] = phase(12, serve_windowed, card, "dfsmn", DFSMN_PER_FORWARD,
                              (51, 52, 53), latency)
@@ -1888,6 +2133,9 @@ def main() -> int:
         "relpos_scores": ("audiojax_torch/csrc/relpos_scores.cu",
                           "audiojax/ops/attention_pallas.py:195"),
     }
+    # the bf16 instances (the bf16 plans' path), beside the float32 ones
+    sources.update({f"{k}_bf16": v for k, v in list(sources.items())
+                    if k not in ("stft_packed", "istft_packed")})
     kernels = []
     for name, (source, replaces) in sources.items():
         row = rows[name]

@@ -847,6 +847,34 @@ def one_thread():
     torch.set_num_threads(n)
 
 
+# the bf16 plans against the JAX package on the CPU (ROADMAP §C): the port's
+# bf16 output at least 15 dB from the JAX package's float32 one (its own bf16
+# gate), and no more than BF16_MARGIN_DB further from it than the JAX
+# package's bf16 is (measured at most 0.56 dB further, ZipEnhancer: XLA:CPU
+# keeps fused bf16 chains in f32, the port rounds each op as the card does;
+# with XLA's excess precision off the JAX package's own bf16 parts from its
+# float32 as far); each family's gate against JAX bf16 is its own
+BF16_VS_F32_DB = 15.0
+BF16_MARGIN_DB = 1.0
+
+
+def hold_bf16(ref32, ref16, out, gate_db: float, what: str) -> None:
+    """The port's bf16 int16 output against the JAX package's bf16 one (at
+    least ``gate_db``) and its float32 one (at least ``BF16_VS_F32_DB``, and
+    no more than ``BF16_MARGIN_DB`` further from it than JAX bf16 is)."""
+    from reference_loader import snr_db
+
+    s16, s32, j32 = snr_db(ref16, out), snr_db(ref32, out), snr_db(ref32, ref16)
+    rows = ", ".join(f"{snr_db(a, b):.2f}/{snr_db(c, b):.2f}/{snr_db(c, a):.2f}"
+                     for a, b, c in zip(ref16, out, ref32))
+    print(f"\n{what}: port bf16 vs JAX bf16 {s16:.2f} dB, vs JAX float32 {s32:.2f} dB; "
+          f"JAX bf16 vs JAX float32 {j32:.2f} dB (by row, the same three: {rows})")
+    assert out.dtype == np.int16 and out.shape == ref16.shape and np.any(out)
+    assert s16 >= gate_db
+    assert s32 >= BF16_VS_F32_DB
+    assert s32 >= j32 - BF16_MARGIN_DB
+
+
 INIT_NUMPY = {"gtcrn": init_gtcrn_numpy, "mossformergan_se": init_mossformergan_numpy,
               "zipenhancer": init_zipenhancer_numpy, "mossformer2_ss": init_mossformer2_ss_numpy,
               "dfsmn": init_dfsmn_numpy, "mossformer2_se": init_mossformer2_se_numpy,

@@ -22,7 +22,7 @@ from audiojax.frontend import kaldi as JK
 from audiojax.models import dfsmn as J
 from audiojax.runtime import registry as jregistry
 from audiojax.runtime.session import Session as JSession
-from test_torch_ckpt_builders import build_dfsmn_state_dict, flat_tree
+from test_torch_ckpt_builders import build_dfsmn_state_dict, flat_tree, one_thread  # noqa: F401
 
 from audiojax_torch.dsp.stft import frame_signal
 from audiojax_torch.frontend import kaldi as TK

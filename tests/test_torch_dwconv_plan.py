@@ -446,7 +446,7 @@ def test_strided_weights_reach_the_launcher_uncopied(stub_lib):
     name, args = stub_lib.calls[1]
     assert name == "ajt_dwconv1d_grouped2_f32"
     assert args[1] == g.data_ptr() and args[10:13] == (1, 7, 14)
-    assert D.launches == {"dwconv1d": before["dwconv1d"] + 1,
+    assert D.launches == {**before, "dwconv1d": before["dwconv1d"] + 1,
                           "dwconv1d_tiled": before["dwconv1d_tiled"] + 1}
 
 

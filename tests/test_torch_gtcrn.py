@@ -17,6 +17,7 @@ from audiojax.models import gtcrn as J
 from audiojax.runtime import registry as jregistry
 from audiojax.runtime.session import Session as JSession
 from reference_loader import snr_db
+from test_torch_ckpt_builders import one_thread  # noqa: F401
 
 from audiojax_torch.models import gtcrn as T
 from audiojax_torch.params import params_from_numpy

@@ -28,6 +28,8 @@ from audiojax.nn import mossformer as JM
 from audiojax.runtime import registry as jregistry
 from audiojax.runtime.session import Session as JSession
 
+from test_torch_ckpt_builders import one_thread  # noqa: F401
+
 from audiojax_torch.models import mossformer2_se as T
 from audiojax_torch.nn import mossformer as TM
 from audiojax_torch.params import params_from_numpy

@@ -28,6 +28,7 @@ from audiojax.nn import mossformer as JM
 from audiojax.runtime import registry as jregistry
 from audiojax.runtime.session import Session as JSession
 from reference_loader import snr_db
+from test_torch_ckpt_builders import hold_bf16, one_thread  # noqa: F401
 
 from audiojax_torch.models import mossformer2_ss as T
 from audiojax_torch.nn import mossformer as TM
@@ -37,6 +38,10 @@ from audiojax_torch.runtime.session import Session as TSession
 
 TOL = 1e-5
 MIN_SNR_DB = 40.0
+# the bf16 plan: the port's bf16 output against the JAX package's bf16 one on
+# the CPU, int16 SNR, just below what was measured (39.63 and 38.49 dB by source; ROADMAP §C);
+# against its float32 one: test_torch_ckpt_builders.hold_bf16
+BF16_GATE_DB = 37.0
 
 TINY = dict(dim=64, depth=2, group_size=16, qk_dim=32, vu_dim=96, fsmn_inner=32, dw_kernel=5,
             rot_dim=8, lorder=5)
@@ -89,9 +94,25 @@ def test_config_and_init_keys_and_shapes(tiny):
     assert _keys_shapes(back) == _keys_shapes(ported)
 
 
-def test_bf16_plan_refused():
-    with pytest.raises(ValueError, match="A.10"):
-        T.MossFormer2SsConfig(compute_dtype="bfloat16")
+def test_bf16_plan_refused(tiny):
+    """The bf16 plan, refused until ROADMAP A.10's first part, served: each
+    source of a 0.25 s two-row mix (tiny widths) against the JAX package's
+    bf16 and float32 forwards, on the parameters carried across by
+    ``params_from_numpy`` and cast by each package's
+    ``prepare_compute_params``.  Any other compute dtype is refused."""
+    with pytest.raises(ValueError, match="compute_dtype 'float16'"):
+        T.MossFormer2SsConfig(compute_dtype="float16")
+    jcfg, tcfg, pj, pt = tiny
+    jb, tb = (dataclasses.replace(c, compute_dtype="bfloat16") for c in (jcfg, tcfg))
+    audio = np.stack([_mix(4000, 8), _mix(4000, 9)])
+    refs32 = jax.jit(lambda p, a: J.mossformer2_ss_forward(p, a, jcfg))(pj, jnp.asarray(audio))
+    refs16 = jax.jit(lambda p, a: J.mossformer2_ss_forward(p, a, jb))(
+        jregistry.prepare_compute_params(pj, jb), jnp.asarray(audio))
+    outs = T.mossformer2_ss_forward(tregistry.prepare_compute_params(pt, tb),
+                                    torch.from_numpy(audio), tb)
+    for i, (r32, r16, out) in enumerate(zip(refs32, refs16, outs)):
+        hold_bf16(np.asarray(r32), np.asarray(r16), out.numpy(), BF16_GATE_DB,
+                  f"mossformer2_ss source {i}")
 
 
 def test_flash_layer_matches_jax(tiny):

@@ -26,6 +26,7 @@ from audiojax.models import mossformergan_se as J
 from audiojax.runtime import registry as jregistry
 from audiojax.runtime.session import Session as JSession
 from reference_loader import snr_db
+from test_torch_ckpt_builders import hold_bf16, one_thread  # noqa: F401
 
 from audiojax_torch.models import mossformergan_se as T
 from audiojax_torch.params import params_from_numpy
@@ -34,6 +35,10 @@ from audiojax_torch.runtime.session import Session as TSession
 
 TOL = 1e-5
 MIN_SNR_DB = 40.0
+# the bf16 plan: the port's bf16 output against the JAX package's bf16 one on
+# the CPU, int16 SNR, just below what was measured (27.66 dB; ROADMAP §C);
+# against its float32 one: test_torch_ckpt_builders.hold_bf16
+BF16_GATE_DB = 27.0
 
 TINY = dict(emb_dim=16, emb_ks=2, uv_channels=24, n_blocks=1, dense_depth=2, lorder=4,
             mf_hidden=32, mf_vdim=16, mf_qk=16, mf_rot=8, dw_kernel=7,
@@ -78,8 +83,10 @@ def test_config_and_init_keys_and_shapes(tiny):
     ported = T.init_mossformergan(0, tcfg, device="cpu")
     assert all(v.dtype == torch.float32 and v.device.type == "cpu"
                for v in jax.tree_util.tree_leaves(ported))
-    with pytest.raises(ValueError, match="A.10"):
-        T.MossFormerGanConfig(compute_dtype="bfloat16")
+    # the bf16 plan is served; any other compute dtype is refused by name
+    assert T.MossFormerGanConfig(compute_dtype="bfloat16").compute_dtype == "bfloat16"
+    with pytest.raises(ValueError, match="compute_dtype 'float16'"):
+        T.MossFormerGanConfig(compute_dtype="float16")
 
 
 def test_gau_matches_jax(tiny):
@@ -121,6 +128,23 @@ def test_forward_full_width_matches_jax():
     assert out.dtype == np.int16 and out.shape == audio.shape
     assert snr_db(ref, out) >= MIN_SNR_DB
     np.testing.assert_array_equal(T.MossFormerGAN(pt, tcfg)(torch.from_numpy(audio)).numpy(), out)
+
+
+def test_bf16_forward_matches_jax(tiny):
+    """The bf16 plan (tiny widths, three 0.25 s clips, no fold) against the JAX
+    package's bf16 and float32 forwards, on the parameters carried across by
+    ``params_from_numpy`` and cast by each package's
+    ``prepare_compute_params``."""
+    jcfg, tcfg, pj, pt = tiny
+    jb, tb = (dataclasses.replace(c, compute_dtype="bfloat16") for c in (jcfg, tcfg))
+    audio = np.stack([_noisy(4000, seed) for seed in (8, 9, 10)])
+    ref32 = np.asarray(jax.jit(lambda p, a: J.mossformergan_forward(p, a, jcfg))(
+        pj, jnp.asarray(audio)))
+    ref16 = np.asarray(jax.jit(lambda p, a: J.mossformergan_forward(p, a, jb))(
+        jregistry.prepare_compute_params(pj, jb), jnp.asarray(audio)))
+    out = T.mossformergan_forward(tregistry.prepare_compute_params(pt, tb),
+                                  torch.from_numpy(audio), tb).numpy()
+    hold_bf16(ref32, ref16, out, BF16_GATE_DB, "mossformergan_se")
 
 
 def test_session_matches_jax(tiny):

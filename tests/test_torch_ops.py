@@ -107,7 +107,7 @@ def test_grouped_conv_routes_to_b5(monkeypatch):
     p = {"w": torch.from_numpy(np.ascontiguousarray(w.transpose(2, 1, 0)))}  # torch (G, 2, k)
     out = tcore.conv1d(p, torch.from_numpy(x), padding=4, dilation=2, groups=g)
     assert calls == [(k, 2, g)]
-    assert dwconv_cuda.launches == {"dwconv1d": 0, "dwconv1d_tiled": 0}
+    assert not any(dwconv_cuda.launches.values())
     _close(out, jcore.conv1d({"w": jnp.asarray(w)}, jnp.asarray(x), padding=4, dilation=2,
                              groups=g))
     tcore.conv1d({"w": torch.zeros(2 * g, 1, k)}, torch.from_numpy(x), padding=2,

@@ -279,7 +279,7 @@ def test_alpha_align_with_cache_matches_jax(params, monkeypatch):
                                None if cache is None else t(cache), return_cache=True)
         close(ga, ra)
         close(gc, rc)
-    assert dwconv_cuda.launches == {"dwconv1d": 0, "dwconv1d_tiled": 0}
+    assert not any(dwconv_cuda.launches.values())
 
 
 # ── forward, Session ───────────────────────────────────────────────────────

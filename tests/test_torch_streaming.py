@@ -34,7 +34,7 @@ from audiojax.models import ul_unas as JUL
 from audiojax.nn import rnn as JR
 from audiojax.runtime import registry as jregistry
 from audiojax.runtime.streaming import StreamingServer as JServer
-from test_torch_ckpt_builders import flat_tree
+from test_torch_ckpt_builders import flat_tree, one_thread  # noqa: F401
 
 from audiojax_torch.dsp import stft as TD
 from audiojax_torch.models import dfsmn as TDF

@@ -29,7 +29,7 @@ from audiojax.nn import erb as JE
 from audiojax.nn import rnn as JR
 from audiojax.runtime import registry as jregistry
 from audiojax.runtime.session import Session as JSession
-from test_torch_ckpt_builders import flat_tree
+from test_torch_ckpt_builders import flat_tree, one_thread  # noqa: F401
 
 from audiojax_torch.models import gtcrn as TG
 from audiojax_torch.models import ul_unas as T

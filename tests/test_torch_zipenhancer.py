@@ -38,6 +38,7 @@ from audiojax.ops import stft_pallas as jstft
 from audiojax.runtime import registry as jregistry
 from audiojax.runtime.session import Session as JSession
 from reference_loader import snr_db
+from test_torch_ckpt_builders import hold_bf16, one_thread  # noqa: F401
 
 from audiojax_torch.dsp.stft import _window_np
 from audiojax_torch.models import zipenhancer as T
@@ -48,6 +49,10 @@ from audiojax_torch.runtime.session import Session as TSession
 
 TOL = 1e-5
 MIN_SNR_DB = 40.0
+# the bf16 plan: the port's bf16 output against the JAX package's bf16 one on
+# the CPU, int16 SNR, just below what was measured (27.10 dB; ROADMAP §C);
+# against its float32 one: test_torch_ckpt_builders.hold_bf16
+BF16_GATE_DB = 26.0
 
 TINY = dict(channels=16, num_heads=2, query_head_dim=8, pos_head_dim=4, value_head_dim=8,
             ff_hidden=24, nonlin_hidden=12, conv_kernel=7, pos_dim=16,
@@ -101,8 +106,10 @@ def test_config_and_init_keys_and_shapes(tiny):
     assert module.params["ts0"]["f_layer"]["norm"]["log_scale"].shape == ()
     assert module.params["ts1"]["combine_scale"].shape == (16,)
     assert module.params["ts1"]["down_t"]["bias"].shape == (2,)
-    with pytest.raises(ValueError, match="A.10"):
-        T.ZipEnhancerConfig(compute_dtype="bfloat16")
+    # the bf16 plan is served; any other compute dtype is refused by name
+    assert T.ZipEnhancerConfig(compute_dtype="bfloat16").compute_dtype == "bfloat16"
+    with pytest.raises(ValueError, match="compute_dtype 'float16'"):
+        T.ZipEnhancerConfig(compute_dtype="float16")
 
 
 def test_blocks_match_jax():
@@ -167,6 +174,23 @@ def test_session_matches_jax(tiny):
     assert out.audio.dtype == np.int16 and out.audio.shape == ref.audio.shape == clip.shape
     assert snr_db(ref.audio, out.audio) >= MIN_SNR_DB
     assert out.audio_duration_s == ref.audio_duration_s == 7.0
+
+
+def test_bf16_forward_matches_jax(tiny):
+    """The bf16 plan (tiny widths, three 0.25 s clips, no fold) against the JAX
+    package's bf16 and float32 forwards, on the parameters carried across by
+    ``params_from_numpy`` and cast by each package's
+    ``prepare_compute_params``."""
+    jcfg, tcfg, pj, pt = tiny
+    jb, tb = (dataclasses.replace(c, compute_dtype="bfloat16") for c in (jcfg, tcfg))
+    audio = np.stack([_noisy(4000, seed) for seed in (8, 9, 10)])
+    ref32 = np.asarray(jax.jit(lambda p, a: J.zipenhancer_forward(p, a, jcfg))(
+        pj, jnp.asarray(audio)))
+    ref16 = np.asarray(jax.jit(lambda p, a: J.zipenhancer_forward(p, a, jb))(
+        jregistry.prepare_compute_params(pj, jb), jnp.asarray(audio)))
+    out = T.zipenhancer_forward(tregistry.prepare_compute_params(pt, tb), torch.from_numpy(audio),
+                                tb).numpy()
+    hold_bf16(ref32, ref16, out, BF16_GATE_DB, "zipenhancer")
 
 
 def _stft64(x, cfg):
