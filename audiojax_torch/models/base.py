@@ -6,7 +6,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..runtime.registry import prepare_compute_params
+from ..runtime.registry import prepare_compute_params, spec_for_module
 
 __all__ = ["ParamModule", "glorot_np", "dense_np", "conv_np"]
 
@@ -19,15 +19,20 @@ class ParamModule(nn.Module):
     when the module was made; the buffers move with ``.to(device)``.  Where
     ``cfg`` has a ``compute_dtype`` other than float32 (the bf16 plan), the
     tree's float32 leaves are cast to it here, once
-    (``runtime.registry.prepare_compute_params``).  A subclass defines
-    ``forward``."""
+    (``runtime.registry.prepare_compute_params``), or as the ``prepare_params``
+    hook of the spec that builds the class casts it.  ``param_view``, where set
+    (``runtime.optimize.wrap_forward``: an optimized artifact's q8f32 or
+    weight-only bf16 tree), maps the view at every forward, so the buffers
+    keep their stored dtype on the device.  A subclass defines ``forward``."""
 
     _SEP = "__"
+    param_view = None  # tree -> tree at every forward
 
     def __init__(self, params: dict, cfg):
         super().__init__()
         self.cfg = cfg
-        self._skeleton = self._register(prepare_compute_params(params, cfg), ())
+        spec = spec_for_module(type(self))
+        self._skeleton = self._register(prepare_compute_params(params, cfg, spec), ())
 
     def _register(self, node, path: tuple):
         """Hold ``node``'s leaves as buffers; return ``node`` with each leaf
@@ -42,7 +47,8 @@ class ParamModule(nn.Module):
 
     @property
     def params(self) -> dict:
-        return _fill(self._skeleton, dict(self.named_buffers()))
+        tree = _fill(self._skeleton, dict(self.named_buffers()))
+        return tree if self.param_view is None else self.param_view(tree)
 
 
 def _fill(node, buffers: dict):

@@ -90,7 +90,7 @@ def dfsmn_mask_net(p, fbank: torch.Tensor, state=None, *, return_trunk: bool = F
     before the mask head (B, T, hidden) comes third: the DFSMN-AEC VAD head
     reads it."""
     x = torch.relu(core.dense(p["lin1"], fbank))
-    lorder = p["layers"][0]["mem"]["w"].shape[-1]  # torch layout (C, 1, lorder)
+    lorder = core.weight_shape(p["layers"][0]["mem"]["w"])[-1]  # the port's (C, 1, lorder)
     new_state = []
     for i, layer in enumerate(p["layers"]):
         f1 = torch.relu(core.dense(layer["lin"], x))

@@ -18,7 +18,22 @@ product (the JAX package's ``_width_runs``).  The overlap average is a
 gather: each bin adds the mask entries of the bands that hold it (at most
 two at the default layout) in band order and divides by their count, so no
 atomics and the same sum on every run.  ``shard_hint`` (an identity without
-a mesh) is dropped.  Only the float32 plan is ported.
+a mesh) is dropped.
+
+``compute_dtype="bfloat16"`` is the JAX package's bf16 plan: the parameter
+tree's float32 leaves are cast once, and the band split, the axial
+transformers and the mask estimator run in bf16; the band selection, B1, B2,
+the overlap average and the complex product stay float32 (the mask is widened
+once).  The attention scores and their softmax are float32 products of the
+bf16 q and k on every device, and the probabilities are rounded to bf16: the
+JAX package keeps that branch on every backend but the TPU
+(``f32_scores = x.dtype == float32 or backend != "tpu"``), and the CPU
+reference the port is held to takes it; the TPU's bf16 scores are not ported
+(ROADMAP §C).
+
+The q8 plans' quantized weights are read through ``core.as_weight``, the
+band split's, the mask MLP's stacked and the GLU heads' as in the JAX package;
+``dense`` takes the dynamic int8 route on the others under q8dyn.
 """
 from __future__ import annotations
 
@@ -69,13 +84,12 @@ class MelBandConfig:
     in_sample_rate: int = 44100
     out_sample_rate: int = 44100
     fold_window: int = 0
+    # the transformer stack's dtype: "float32" or "bfloat16" (B1, B2 and the
+    # complex mask stay float32)
     compute_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.compute_dtype != "float32":
-            raise ValueError(f"compute_dtype {self.compute_dtype!r}: this family's bf16 plan "
-                             "is not ported yet (ROADMAP A.10; zipenhancer, mossformergan_se "
-                             "and mossformer2_ss serve it)")
+        core.compute_dtype(self.compute_dtype)  # raises on any other name
 
     @property
     def stft(self) -> StftConfig:
@@ -158,11 +172,12 @@ def _attention(p, x: torch.Tensor, rope, cfg: MelBandConfig) -> torch.Tensor:
     cos_b, sin_b = cos[:, None, :], sin[:, None, :]
     q = q * cos_b + torch.matmul(q, swap) * sin_b
     k = k * cos_b + torch.matmul(k, swap) * sin_b
-    scores = torch.matmul(q.permute(0, 2, 1, 3), k.permute(0, 2, 3, 1)) * dh**-0.5
-    attn = torch.softmax(scores, dim=-1)  # (n, h, s, s)
+    # float32 scores and softmax on every device (the module docstring says why)
+    scores = core.matmul_f32(q.permute(0, 2, 1, 3), k.permute(0, 2, 3, 1)) * dh**-0.5
+    attn = torch.softmax(scores, dim=-1).to(x.dtype)  # (n, h, s, s)
     del scores  # ~1.2 GB at a 30 s request's time attention: one such tensor alive, not two
-    out = torch.matmul(attn, v.permute(0, 2, 1, 3)).permute(0, 2, 1, 3)  # (n, s, h, dh)
-    out = out * gates[..., None]
+    out = core.matmul_f32(attn, v.permute(0, 2, 1, 3)).to(x.dtype).permute(0, 2, 1, 3)
+    out = out * gates[..., None]  # (n, s, h, dh)
     return core.dense(p["to_out"], out.reshape(n, s, h * dh))
 
 
@@ -178,9 +193,11 @@ def melband_net(p, spec: torch.Tensor, cfg: MelBandConfig) -> torch.Tensor:
     spectrum, same shape."""
     _, widths, _ = band_layout(cfg)
     sel_idx, gather, inv_counts = _layout_tensors(cfg, spec.device)
+    dtype = core.compute_dtype(cfg.compute_dtype)
+    core.expect_cast(p["band_split"][0]["norm"]["g"], dtype)
     b, t, fc, _ = spec.shape
     bt = b * t
-    flat = spec[:, :, sel_idx, :].reshape(bt, -1)  # (B·T, 2S): band-major [re, im] pairs
+    flat = spec[:, :, sel_idx, :].reshape(bt, -1).to(dtype)  # (B·T, 2S): band-major [re, im]
 
     # band split: per-band RMSNorm + Linear, each equal-width run one batched
     # product → (bands, B·T, dim)
@@ -191,14 +208,14 @@ def melband_net(p, spec: torch.Tensor, cfg: MelBandConfig) -> torch.Tensor:
         bands = p["band_split"][i0: i0 + r]
         gains = torch.stack([q["norm"]["g"] for q in bands])  # (r, w)
         normed = (rms_norm(None, part, eps=0.0) * gains).transpose(0, 1)  # (r, B·T, w)
-        wts = torch.stack([q["lin"]["w"] for q in bands])  # (r, w, dim)
+        wts = torch.stack([core.as_weight(q["lin"]["w"]) for q in bands])  # (r, w, dim)
         bias = torch.stack([q["lin"]["b"] for q in bands])  # (r, dim)
         feats.append(torch.baddbmm(bias[:, None, :], normed, wts))
     x = torch.cat(feats, dim=0)  # (nb, B·T, dim)
     nb, d, dh = cfg.num_bands, cfg.dim, cfg.dim_head
 
-    trope = rope_mm_tables(t, dh, dh, spec.device)
-    frope = rope_mm_tables(nb, dh, dh, spec.device)
+    trope = rope_mm_tables(t, dh, dh, spec.device, dtype)
+    frope = rope_mm_tables(nb, dh, dh, spec.device, dtype)
     for i in range(cfg.depth):
         # time attention over the nb·B band rows, then band attention over the B·T frames
         seq = _transformer(p[f"time{i}"], x.reshape(nb * b, t, d), trope, cfg)
@@ -206,20 +223,22 @@ def melband_net(p, spec: torch.Tensor, cfg: MelBandConfig) -> torch.Tensor:
         seq = _transformer(p[f"freq{i}"], seq, frope, cfg)
         x = seq.transpose(0, 1)  # (nb, B·T, dim)
 
-    # mask estimator: the shared-width tanh MLP batched over bands, then each
-    # run's GLU head as one batched product
+    # mask estimator: the shared-width tanh MLP batched over bands (its
+    # products and tanh in float32, as the JAX package asks), then each run's
+    # GLU head as one batched product
     h = x
     for lay in p["me_hidden"]:
-        h = torch.tanh(torch.baddbmm(lay["b"][:, None, :], h, lay["w"]))  # (nb, B·T, inner)
+        h = torch.tanh(torch.baddbmm(lay["b"][:, None, :].float(), h.float(),
+                                     core.as_weight(lay["w"]).float())).to(dtype)
     masks = []
     for i0, r, w in _width_runs(widths):
         heads = p["me_out"][i0: i0 + r]
-        wts = torch.stack([q["w"] for q in heads])  # (r, inner, 2w)
+        wts = torch.stack([core.as_weight(q["w"]) for q in heads])  # (r, inner, 2w)
         bias = torch.stack([q["b"] for q in heads])  # (r, 2w)
         g = torch.baddbmm(bias[:, None, :], h[i0: i0 + r], wts)  # (r, B·T, 2w)
         m = g[..., :w] * torch.sigmoid(g[..., w:])  # GLU
         masks.append(m.transpose(0, 1).reshape(bt, r * w))  # band-major flatten
-    mask = torch.cat(masks, dim=-1).reshape(bt, -1, 2)  # (B·T, S, 2)
+    mask = torch.cat(masks, dim=-1).reshape(bt, -1, 2).float()  # (B·T, S, 2), the f32 island
 
     # overlap average: each bin sums the entries of the bands that hold it
     mask = torch.cat([mask, mask.new_zeros((bt, 1, 2))], dim=1)

@@ -12,7 +12,14 @@ STFT, which is a float32 product of the frames with the plain DFT basis, as
 in the JAX package (so no B1 on this path).  On the card each layer launches
 B4 four times (FLASH ``in_conv`` and ``out_conv``, the FSMN's ``uv_conv`` and
 its 39-tap memory) and B6 once (the FLASH group attention); the synthesis is
-B2.  Only the float32 plan is ported.
+B2.
+
+``compute_dtype="bfloat16"`` is the JAX package's bf16 plan: the parameter
+tree's float32 leaves are cast once, the fbank and its deltas (a float32
+island) are cast to bf16 once at the network's edge, and the FLASH layers
+and gated FSMN blocks run in bf16 (B4 and B6 in their bf16 instances, the
+linear attention in f32, as in MossFormer2-SS); the mask is widened back,
+and the mask-STFT product, B2 and the int16 output stay float32.
 """
 from __future__ import annotations
 
@@ -66,13 +73,12 @@ class MossFormer2SeConfig:
     in_sample_rate: int = 48000
     out_sample_rate: int = 48000
     fold_window: int = 0
+    # the mask network's dtype: "float32" or "bfloat16" (the fbank, the mask
+    # STFT and B2 stay float32)
     compute_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.compute_dtype != "float32":
-            raise ValueError(f"compute_dtype {self.compute_dtype!r}: this family's bf16 plan "
-                             "is not ported yet (ROADMAP A.10; zipenhancer, mossformergan_se "
-                             "and mossformer2_ss serve it)")
+        core.compute_dtype(self.compute_dtype)  # raises on any other name
 
     @property
     def frame_cfg(self) -> StftConfig:
@@ -92,10 +98,14 @@ def deltas(x: torch.Tensor) -> torch.Tensor:
 
 
 def mossformer2_se_net(p, fbank: torch.Tensor, cfg: MossFormer2SeConfig) -> torch.Tensor:
-    """(B, T, 180) fbank and deltas → (B, T, 961) ReLU mask.  GroupNorm(1)
-    normalises each batch row (window) over (T, C) on its own."""
+    """(B, T, 180) fbank and deltas → (B, T, 961) ReLU mask, float32; in
+    between in ``cfg.compute_dtype``.  GroupNorm(1) normalises each batch row
+    (window) over (T, C) on its own."""
+    dtype = core.compute_dtype(cfg.compute_dtype)
+    core.expect_cast(p["in_norm"]["g"], dtype)
+    fbank = fbank.to(dtype)
     x = core.dense(p["encoder"], group_norm_all(p["in_norm"], fbank))  # 180 → 512
-    x = x + sinusoid_positions(x.shape[1], cfg.dim, x.device)[None] * p["pos_scale"]
+    x = x + sinusoid_positions(x.shape[1], cfg.dim, x.device).to(x.dtype)[None] * p["pos_scale"]
 
     h = x
     for i in range(cfg.depth):
@@ -108,7 +118,7 @@ def mossformer2_se_net(p, fbank: torch.Tensor, cfg: MossFormer2SeConfig) -> torc
     gate = core.dense(p["tail_gate"], x)
     d = cfg.dim
     x = torch.tanh(gate[..., :d]) * torch.sigmoid(gate[..., d:])
-    return torch.relu(core.dense(p["decoder"], x))
+    return torch.relu(core.dense(p["decoder"], x)).float()
 
 
 def mossformer2_se_forward(params, audio: torch.Tensor,

@@ -16,8 +16,14 @@ launches B4 four times and B6 once (``nn.mossformer``).  The generator runs
 channel-first ``(B, C, T)`` on cuDNN: its transposed convs as
 ``F.conv_transpose1d`` on the stored forward kernel (flipped and
 transposed), which computes what the JAX package's input-dilated forward
-conv computes without the stuffed zeros' products.  Only the float32 plan
-is ported.
+conv computes without the stuffed zeros' products.
+
+``compute_dtype="bfloat16"`` is the JAX package's bf16 plan: only the mask
+net's parameters are cast (``prepare_params_sr``, the family spec's
+``prepare_params``, which ``ParamModule`` calls), the log-mel is cast once at the mask net's
+edge, the mask net runs in bf16 (B4 and B6 in their bf16 instances) and its
+output is widened; the upsampler, the mel analysis, the HiFi-GAN generator
+(never cast) and the crossover stay float32.
 """
 from __future__ import annotations
 
@@ -46,6 +52,8 @@ __all__ = [
     "snake",
     "hifigan_generator",
     "sr_masknet",
+    "sr_log_mel",
+    "prepare_params_sr",
     "mossformer_sr_forward",
     "init_mossformer_sr_numpy",
     "init_mossformer_sr",
@@ -79,13 +87,11 @@ class MossFormerSrConfig:
     gen_res_dilations: tuple = (1, 3, 5)
     in_sample_rate: int = 16000
     out_sample_rate: int = 48000
+    # the mask net's dtype: "float32" or "bfloat16" (the generator stays float32)
     compute_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.compute_dtype != "float32":
-            raise ValueError(f"compute_dtype {self.compute_dtype!r}: this family's bf16 plan "
-                             "is not ported yet (ROADMAP A.10; zipenhancer, mossformergan_se "
-                             "and mossformer2_ss serve it)")
+        core.compute_dtype(self.compute_dtype)  # raises on any other name
 
     @property
     def mel_cfg(self) -> StftConfig:
@@ -138,13 +144,13 @@ def snake(p, x: torch.Tensor) -> torch.Tensor:
 
 def _conv(p, x: torch.Tensor, *, padding: int, dilation: int = 1) -> torch.Tensor:
     """Channel-first conv1d, 'same' geometry from a symmetric pad."""
-    return F.conv1d(x, p["w"], p.get("b"), padding=padding, dilation=dilation)
+    return F.conv1d(x, core.as_weight(p["w"]), p.get("b"), padding=padding, dilation=dilation)
 
 
 def _conv_transpose(p, x: torch.Tensor, *, stride: int, padding: int) -> torch.Tensor:
     """ConvTranspose1d from the stored equivalent forward kernel (out, in, k):
     torch's (in, out, k) weight is that kernel flipped in time."""
-    w = p["w"].flip(-1).transpose(0, 1)
+    w = core.as_weight(p["w"]).flip(-1).transpose(0, 1)
     return F.conv_transpose1d(x, w, p.get("b"), stride=stride, padding=padding)
 
 
@@ -173,10 +179,22 @@ def hifigan_generator(p, mel: torch.Tensor, cfg: MossFormerSrConfig) -> torch.Te
     return torch.tanh(_conv(p["post"], x, padding=3)[:, 0])
 
 
+def prepare_params_sr(params, cfg: MossFormerSrConfig):
+    """SR's compute-dtype cast (``audiojax.models.mossformer_sr.
+    prepare_params_sr``): the mask net's float32 leaves cast to
+    ``cfg.compute_dtype``, the HiFi-GAN generator (``gen``) left float32."""
+    dtype = core.compute_dtype(cfg.compute_dtype)
+    return {k: (v if k == "gen" else core.cast_f32_tree(v, dtype)) for k, v in params.items()}
+
+
 def sr_masknet(p, mel: torch.Tensor, cfg: MossFormerSrConfig) -> torch.Tensor:
-    """(B, T, n_mels) log-mel → (B, T, n_mels) enhanced mel for the generator."""
+    """(B, T, n_mels) log-mel → (B, T, n_mels) enhanced mel for the generator,
+    float32; in between in ``cfg.compute_dtype``."""
+    dtype = core.compute_dtype(cfg.compute_dtype)
+    core.expect_cast(p["front_norm"]["g"], dtype)
+    mel = mel.to(dtype)
     x = core.dense(p["front"], group_norm_all(p["front_norm"], mel))
-    x = x + sinusoid_positions(x.shape[1], cfg.dim, x.device)[None] * p["pos_scale"]
+    x = x + sinusoid_positions(x.shape[1], cfg.dim, x.device).to(x.dtype)[None] * p["pos_scale"]
     h = x
     for i in range(cfg.depth):
         h = flash_layer(p[f"flash{i}"], h, group_size=cfg.group_size, qk_dim=cfg.qk_dim,
@@ -188,7 +206,7 @@ def sr_masknet(p, mel: torch.Tensor, cfg: MossFormerSrConfig) -> torch.Tensor:
     gate = core.dense(p["tail_gate"], x)
     d = cfg.dim
     x = torch.tanh(gate[..., :d]) * torch.sigmoid(gate[..., d:])
-    return torch.relu(core.dense(p["decoder"], x))
+    return torch.relu(core.dense(p["decoder"], x)).float()
 
 
 def _reflect_ends(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -197,21 +215,23 @@ def _reflect_ends(x: torch.Tensor, pad: int) -> torch.Tensor:
                       torch.flip(x[..., -(pad + 1): -1], (-1,))], dim=-1)
 
 
+def sr_log_mel(up: torch.Tensor, cfg: MossFormerSrConfig) -> torch.Tensor:
+    """The upsampled audio (B, 3L) → its HiFi-GAN log-mel (B, T, n_mels): reflect
+    pad (n_fft − hop)/2, uncentred frames, the plain DFT basis, slaney mels."""
+    frames = frame_signal(_reflect_ends(up, (cfg.n_fft - cfg.hop) // 2), cfg.mel_cfg)
+    spec = torch.matmul(frames, stft_basis(cfg.mel_cfg, up.device))
+    fb = cfg.n_fft // 2 + 1
+    mag = torch.sqrt(spec[..., :fb] ** 2 + spec[..., fb:] ** 2 + 1e-9)
+    return torch.log(torch.clamp(torch.matmul(mag, _mel_bank(cfg, up.device)), min=1e-5))
+
+
 def mossformer_sr_forward(params, audio: torch.Tensor,
                           cfg: MossFormerSrConfig = MossFormerSrConfig()) -> torch.Tensor:
     """int16 (B, L) at 16 kHz → int16 (B, 3L) at 48 kHz."""
     in_len = audio.shape[-1]
     up = upsample_sinc(audio, cfg)  # (B, 3L), no alignment pad
     model_len = up.shape[-1]
-
-    # HiFi-GAN mel framing: reflect pad (n_fft − hop)/2, uncentred frames
-    frames = frame_signal(_reflect_ends(up, (cfg.n_fft - cfg.hop) // 2), cfg.mel_cfg)
-    spec = torch.matmul(frames, stft_basis(cfg.mel_cfg, up.device))
-    fb = cfg.n_fft // 2 + 1
-    mag = torch.sqrt(spec[..., :fb] ** 2 + spec[..., fb:] ** 2 + 1e-9)
-    mel = torch.log(torch.clamp(torch.matmul(mag, _mel_bank(cfg, up.device)), min=1e-5))
-
-    gen = hifigan_generator(params["gen"], sr_masknet(params, mel, cfg), cfg)
+    gen = hifigan_generator(params["gen"], sr_masknet(params, sr_log_mel(up, cfg), cfg), cfg)
     if gen.shape[-1] < model_len:  # reflect-extend the tail
         gp = model_len - gen.shape[-1]
         gen = torch.cat([gen, torch.flip(gen[..., -(gp + 1): -1], (-1,))], dim=-1)

@@ -189,7 +189,7 @@ def x_conv_block(p, x, spec, cfg, *, deconv=False, last=False, state=None):
 
 def x_dws_block(p, x, spec, cfg, *, deconv=False, last=False, state=None):
     groups = spec[5]
-    out_ch = p["pconv"]["w"].shape[0]  # decoder blocks differ from the spec
+    out_ch = core.weight_shape(p["pconv"]["w"])[0]  # decoder blocks differ from the spec
     h = affine_prelu(p["pconv_act"], core.conv2d(p["pconv"], x, groups=groups))
     if groups == 2:
         h = shuffle_channels(h)
@@ -203,7 +203,7 @@ def x_dws_block(p, x, spec, cfg, *, deconv=False, last=False, state=None):
 
 def x_mb_block(p, x, spec, cfg, *, deconv=False, last=False, state=None):
     in_ch, stride, groups = x.shape[-1], spec[4], spec[5]
-    out_ch = p["pconv1"]["w"].shape[0]  # decoder blocks differ from the spec
+    out_ch = core.weight_shape(p["pconv1"]["w"])[0]  # decoder blocks differ from the spec
     h = affine_prelu(p["pconv1_act"], core.conv2d(p["pconv1"], x, groups=groups))
     if groups == 2:
         h = shuffle_channels(h)

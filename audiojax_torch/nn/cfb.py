@@ -41,11 +41,14 @@ __all__ = [
 
 def iccrn_layer_norm(p, x: torch.Tensor, eps_base: float) -> torch.Tensor:
     """Normalise over the (F, C) plane per (batch, frame) with the unbiased
-    variance (the centred energy over c·f − 1); ``p``: w, b of shape (F, C)."""
+    variance (the centred energy over c·f − 1); ``p``: w, b of shape (F, C).
+    The gain is keyed ``w``, so a q8 plan quantizes it where it is large: it
+    is read through ``core.as_weight`` (the JAX package reads it raw and
+    refuses a q8dyn tree here)."""
     f, c = x.shape[-2], x.shape[-1]
     xc = x - torch.mean(x, dim=(-2, -1), keepdim=True)
     var_u = torch.sum(xc * xc, dim=(-2, -1), keepdim=True) / float(f * c - 1)
-    return xc * torch.rsqrt(var_u + eps_base) * p["w"] + p["b"]
+    return xc * torch.rsqrt(var_u + eps_base) * core.as_weight(p["w"]) + p["b"]
 
 
 def ch_lstm_f(p, x: torch.Tensor, *, with_linear: bool = True) -> torch.Tensor:

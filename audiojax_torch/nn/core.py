@@ -32,6 +32,11 @@ is widened (``dense`` of a float32 input by a bf16 weight is float32, as
 ``jnp.matmul`` promotes).  Where the JAX package asks for a float32 result of
 bf16 operands (``preferred_element_type=jnp.float32``), the port widens them,
 which is exact, and multiplies in true float32 (``matmul_f32``).
+
+A quantized weight (``{'q8', 'scale'}``, the q8 plans, ``utils/quantize.py``)
+is read through ``as_weight`` (int8 values times their scales) by the convs,
+the RNNs and the models that read weights themselves; ``dense`` takes the
+dynamic int8 route on one (``dyn_int8_matmul``, the q8dyn plan's product).
 """
 from __future__ import annotations
 
@@ -41,7 +46,8 @@ import torch.nn.functional as F
 from ..ops.dwconv_cuda import fast_dwconv1d, fast_dwconv1d_grouped
 
 __all__ = ["COMPUTE_DTYPES", "compute_dtype", "cast_f32_tree", "expect_cast", "matmul_f32",
-           "dense", "prelu", "conv1d", "conv1d_transpose", "conv2d", "conv2d_transpose", "layer_norm", "rms_norm"]
+           "is_q8", "as_weight", "weight_shape", "int_mm", "dyn_int8_matmul", "dense", "prelu",
+           "conv1d", "conv1d_transpose", "conv2d", "conv2d_transpose", "layer_norm", "rms_norm"]
 
 # the activation compute dtypes of the port's plans, by the configs' names
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -54,11 +60,30 @@ def compute_dtype(name: str) -> torch.dtype:
     return COMPUTE_DTYPES[name]
 
 
+def is_q8(w) -> bool:
+    """True for a ``{'q8', 'scale'}`` quantized weight."""
+    return isinstance(w, dict) and "q8" in w
+
+
+def as_weight(w):
+    """A quantized weight as ``q8 · scale`` in the scale's dtype (where it
+    lies); a tensor passes through."""
+    if is_q8(w):
+        return w["q8"].to(w["scale"].dtype) * w["scale"]
+    return w
+
+
+def weight_shape(w) -> torch.Size:
+    """A weight's shape, quantized or not."""
+    return (w["q8"] if is_q8(w) else w).shape
+
+
 def cast_f32_tree(tree, dtype: torch.dtype):
     """Counterpart of ``audiojax.nn.core.cast_f32_tree``: every float32 leaf
     of a parameter tree (dicts and lists of tensors) cast to ``dtype``, other
-    leaves passed through; the tree itself for float32.  Idempotent."""
-    if dtype == torch.float32:
+    leaves and quantized weights passed through; the tree itself for
+    float32.  Idempotent."""
+    if dtype == torch.float32 or is_q8(tree):
         return tree
     if isinstance(tree, dict):
         return {k: cast_f32_tree(v, dtype) for k, v in tree.items()}
@@ -70,8 +95,9 @@ def cast_f32_tree(tree, dtype: torch.dtype):
 def expect_cast(leaf: torch.Tensor, dtype: torch.dtype) -> None:
     """Raise unless a network's parameter ``leaf`` (a float32 one in the
     float32 plan) has been cast to the plan's ``dtype``: a bf16 plan takes
-    its tree cast once, where its module is built, and no forward casts it."""
-    if leaf.dtype != dtype:
+    its tree cast once, where its module is built, and no forward casts it.
+    A quantized weight (a q8 plan, always float32 compute) passes."""
+    if not is_q8(leaf) and leaf.dtype != dtype:
         raise TypeError(f"a {dtype} plan takes its parameters cast to {dtype} "
                         f"(runtime.registry.prepare_compute_params), got {leaf.dtype}")
 
@@ -83,10 +109,46 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
+def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 (M, K) @ int8 (K, N) → the exact int32 product by
+    ``torch._int_mm``.  On the card (cuBLASLt) it takes M > 16 and K, N
+    multiples of 8, so the operands are padded to that on every device with
+    zeros, which add nothing to an integer sum, and the product sliced back."""
+    m, k = a.shape
+    n = b.shape[1]
+    mp, kp, np_ = max(32, -(-m // 8) * 8), -(-k // 8) * 8, -(-n // 8) * 8
+    if (mp, kp) != (m, k):
+        a = F.pad(a, (0, kp - k, 0, mp - m))
+    if (kp, np_) != (k, n):
+        b = F.pad(b, (0, np_ - n, 0, kp - k))
+    return torch._int_mm(a.contiguous(), b.contiguous())[:m, :n]
+
+
+def dyn_int8_matmul(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The q8dyn plan's product (``audiojax.nn.core.dyn_int8_matmul``): each
+    row of ``x (..., in)`` quantized to int8 by its own symmetric scale, an
+    exact int8 × int8 product summed in int32, rescaled by the row's scale
+    and the weight's per-column one (``scale (1, out)``).  Float32 out.
+
+    Never a float product: 127²·K passes 2²⁴ from K = 1,041, where float32
+    sums stop being exact."""
+    amax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    xs = torch.clamp(amax, min=torch.finfo(torch.float32).tiny) * (1.0 / 127.0)
+    # clip before the cast: a rounded x / xs can reach 128, which would wrap
+    xq = torch.clamp(torch.round(x / xs), -127, 127).to(torch.int8)
+    lead = x.shape[:-1]
+    acc = int_mm(xq.reshape(-1, x.shape[-1]), q8).reshape(*lead, q8.shape[-1])
+    return acc.to(torch.float32) * xs.to(torch.float32) * scale.reshape(-1)
+
+
 def dense(p, x: torch.Tensor) -> torch.Tensor:
     """x: (..., in) @ w (in, out) + b, in the promoted dtype of x and w (a
-    bf16 weight on a float32 input gives float32, as in the JAX package)."""
+    bf16 weight on a float32 input gives float32, as in the JAX package).  A
+    quantized ``w`` takes the dynamic int8 route (the q8dyn plan)."""
     w = p["w"]
+    if is_q8(w):
+        y = dyn_int8_matmul(x, w["q8"], w["scale"]).to(x.dtype)
+        return y + p["b"] if "b" in p else y
     if w.dtype != x.dtype:
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
@@ -110,7 +172,7 @@ def _conv(p, x_nchw: torch.Tensor, pads, dilation, groups, stride=(1, 1)) -> tor
     if hl != hr or wl != wr or min(hl, wl) < 0:
         x_nchw = F.pad(x_nchw, (wl, wr, hl, hr))  # negative entries crop
         hl = wl = 0
-    y = F.conv2d(x_nchw, p["w"], p.get("b"), stride=tuple(stride), padding=(hl, wl),
+    y = F.conv2d(x_nchw, as_weight(p["w"]), p.get("b"), stride=tuple(stride), padding=(hl, wl),
                  dilation=tuple(dilation), groups=groups)
     return y.permute(0, 2, 3, 1)
 
@@ -120,7 +182,7 @@ def conv1d(p, x: torch.Tensor, *, stride: int = 1, padding=0, dilation: int = 1,
     """Channel-last 1-D convolution: x (B, T, Cin) → (B, T', Cout).
 
     ``padding`` is an int or ``(lo, hi)``; a negative entry crops."""
-    w = p["w"]
+    w = as_weight(p["w"])
     lo, hi = _pair(padding)
     if min(lo, hi) < 0:  # crop first, so both routes see non-negative pads
         x = x[:, max(0, -lo): x.shape[1] - max(0, -hi)]
@@ -152,7 +214,7 @@ def conv1d_transpose(p, x: torch.Tensor, *, stride: int = 1, padding=0, dilation
 
     out = (in - 1)·stride - 2·padding + dilation·(k - 1) + 1 + output_padding.
     """
-    k = p["w"].shape[2]
+    k = weight_shape(p["w"])[2]
     if stride != 1:
         b, t, c = x.shape
         z = x.new_zeros((b, (t - 1) * stride + 1, c))
@@ -176,7 +238,7 @@ def conv2d_transpose(p, x: torch.Tensor, *, stride=(1, 1), padding=(0, 0), dilat
 
     out = (in - 1)·stride - 2·padding + dilation·(k - 1) + 1 per axis.
     """
-    kh, kw = p["w"].shape[2:]
+    kh, kw = weight_shape(p["w"])[2:]
     sh, sw = stride
     xc = x.permute(0, 3, 1, 2)
     if (sh, sw) != (1, 1):

@@ -78,7 +78,7 @@ def scale_norm(p, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
 
 def _depthwise_res(p, x: torch.Tensor) -> torch.Tensor:
     """ConvModule: x + depthwise conv over time ('same' padding)."""
-    k = p["w"].shape[-1]
+    k = core.weight_shape(p["w"])[-1]
     return x + core.conv1d(p, x, padding=(k - 1) // 2, groups=x.shape[-1])
 
 

@@ -10,7 +10,8 @@ time-reversed input.
 Weight layout (right-multiplication, as in the JAX package):
   GRU   w_i: (in, 3H), w_h: (H, 3H), b_i / b_h: (3H,)   gate order r|z|n
   LSTM  w_i: (in, 4H), w_h: (H, 4H), b_i / b_h: (4H,)   gate order i|f|g|o
-Stacked groups add a leading G axis.
+Stacked groups add a leading G axis.  A quantized ``w_i`` or ``w_h`` (the
+q8 plans) is read through ``core.as_weight``, as in the JAX package.
 
 On the card the time loop is a Python loop of small launches; that cost is
 recorded in PERF.md and is left to a later CUDA graph or fused recurrence.
@@ -20,8 +21,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core import as_weight
+
 __all__ = ["gru_cell", "gru", "gru_bidir", "grouped_gru", "grouped_gru_bidir", "lstm",
            "lstm_bidir", "init_lstm_numpy"]
+
+
+def _float(p) -> dict:
+    """``p`` with its weights as float tensors (a quantized one dequantized)."""
+    return {**p, "w_i": as_weight(p["w_i"]), "w_h": as_weight(p["w_h"])}
 
 
 def _cell(xt: torch.Tensor, gh: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -36,6 +44,7 @@ def _cell(xt: torch.Tensor, gh: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 def gru_cell(p, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """One GRU step: x (..., in), h (..., H) → h' (..., H), for models that run
     their own recurrence (NKF-AEC's Kalman scan)."""
+    p = _float(p)
     return _cell(torch.matmul(x, p["w_i"]) + p["b_i"], torch.matmul(h, p["w_h"]) + p["b_h"], h)
 
 
@@ -55,6 +64,7 @@ def _scan(xp: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor, h: torch.Tenso
 def gru(p, x: torch.Tensor, h0: torch.Tensor | None = None, *, reverse: bool = False,
         return_state: bool = False):
     """GRU over ``x (B, T, in)`` → ``(B, T, H)``."""
+    p = _float(p)
     hidden = p["w_h"].shape[0]
     xp = torch.matmul(x, p["w_i"]) + p["b_i"]
     if h0 is None:
@@ -68,6 +78,7 @@ def gru_bidir(p_fwd, p_bwd, x: torch.Tensor, *, return_state: bool = False):
     with ``return_state`` also ``(fwd state after the last step, bwd state
     after the first)``.  Both directions share one loop: the backward one
     runs on the time-reversed input as the second of two stacked recurrences."""
+    p_fwd, p_bwd = _float(p_fwd), _float(p_bwd)
     both = {k: torch.stack([p_fwd[k], p_bwd[k]]) for k in ("w_i", "w_h", "b_i", "b_h")}
     y, _ = _stacked_scan(both, torch.stack([x, torch.flip(x, dims=(1,))]), None)
     yf, yb = y[0], torch.flip(y[1], dims=(1,))
@@ -87,6 +98,7 @@ def _group_merge(y: torch.Tensor) -> torch.Tensor:
 
 def _stacked_scan(p, xs: torch.Tensor, h0: torch.Tensor | None, reverse=False):
     """One batched recurrence for stacked params over ``xs (G, B, T, in)``."""
+    p = _float(p)
     g, b = xs.shape[:2]
     hidden = p["w_h"].shape[-2]
     xp = torch.matmul(xs, p["w_i"][:, None]) + p["b_i"][:, None, None]
@@ -114,6 +126,7 @@ def grouped_gru_bidir(p_fwd, p_bwd, x: torch.Tensor, *, groups: int) -> torch.Te
     of every group share one loop of 2G stacked recurrences.
     """
     xs = _group_split(x, groups)
+    p_fwd, p_bwd = _float(p_fwd), _float(p_bwd)
     both = {k: torch.cat([p_fwd[k], p_bwd[k]]) for k in ("w_i", "w_h", "b_i", "b_h")}
     y, _ = _stacked_scan(both, torch.cat([xs, torch.flip(xs, dims=(2,))]), None)
     yf, yb = y[:groups], torch.flip(y[groups:], dims=(2,))
@@ -150,6 +163,7 @@ def _lstm_loop(xp: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor, h: torch.
 def lstm(p, x: torch.Tensor, state=None, *, reverse: bool = False, return_state: bool = False):
     """LSTM over ``x (B, T, in)`` → ``(B, T, H)``; ``state`` is ``(h, c)``, each
     (B, H); with ``return_state`` also ``(h, c)`` after the last step."""
+    p = _float(p)
     hidden = p["w_h"].shape[0]
     # time-major, so that each step's slice is contiguous
     xp = torch.matmul(x.transpose(0, 1), p["w_i"]) + p["b_i"]
@@ -169,6 +183,7 @@ def lstm_bidir(p_fwd, p_bwd, x: torch.Tensor) -> torch.Tensor:
 
     Both directions share one loop: the backward one runs on the
     time-reversed input as the second of two stacked recurrences."""
+    p_fwd, p_bwd = _float(p_fwd), _float(p_bwd)
     hidden = p_fwd["w_h"].shape[0]
     both = {k: torch.stack([p_fwd[k], p_bwd[k]]) for k in ("w_i", "w_h", "b_i", "b_h")}
     xt = x.transpose(0, 1)  # (T, B, in)

@@ -147,7 +147,7 @@ def conv_module(p, x: torch.Tensor) -> torch.Tensor:
     h = core.dense(p["in_proj"], x)
     c = h.shape[-1] // 2
     mid = h[..., :c] * torch.sigmoid(h[..., c:])
-    k = p["dw"]["w"].shape[-1]
+    k = core.weight_shape(p["dw"]["w"])[-1]
     mid = core.conv1d(p["dw"], mid, padding=(k - 1) // 2, groups=c)
     return core.dense(p["out_proj"], swoosh_r(mid))
 

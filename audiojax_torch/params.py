@@ -20,8 +20,19 @@ keys.  Every layout change happens here, once:
   * every other leaf (dense ``(in, out)``, GRU ``(…, in, 3H)``, biases,
     PReLU slopes, LayerNorm gains) keeps its layout.
 
+Two plans' leaves are carried too:
+  * a ``{'q8', 'scale'}`` node (the q8f32 and q8dyn plans,
+    ``utils/quantize.py``) stands where its float weight stands, int8 values
+    and float32 scales; both take the weight's layout change (a conv1d scale
+    ``(k, 1, out)`` becomes ``(out, 1, k)``, a conv2d one
+    ``(kh, kw, 1, out)`` becomes ``(out, 1, kh, kw)``; ``me_hidden``'s stay
+    ``(bands, 1, out)``).
+  * a bfloat16 leaf (the weight-only bf16 plan) comes as a torch tensor,
+    since numpy has no bfloat16 without ``ml_dtypes``, and takes its key's
+    layout change like a float32 one.  A float32 torch tensor is taken too.
+
 A ``w`` of any other rank has no port layout and is refused, and so is a
-leaf that is not float32 (an object array among them).
+leaf of any other dtype (an object array among them).
 """
 from __future__ import annotations
 
@@ -34,20 +45,39 @@ __all__ = ["params_from_numpy", "STACKED_DENSE"]
 
 # top-level keys whose 3-D ``w`` leaves are stacked dense weights (bands, in, out)
 STACKED_DENSE = ("me_hidden",)
+# a leaf's dtypes by what it is: a float leaf, and a q8 node's two parts
+_FLOAT = (torch.float32, torch.bfloat16)
+_Q8 = {"q8": (torch.int8,), "scale": (torch.float32,)}
 
 
-def _leaf(path: str, key: str, a, device: torch.device) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype != np.float32:
-        raise TypeError(f"parameter {path!r} is {a.dtype}; the port takes float32 trees "
-                        "(dicts and lists of float32 arrays)")
-    if key == "w" and a.ndim == 4:
-        a = np.transpose(a, (3, 2, 0, 1))
-    elif key == "w" and a.ndim == 3 and path.split("/")[0] not in STACKED_DENSE:
-        a = np.transpose(a, (2, 1, 0))
-    elif key == "w" and a.ndim not in (2, 3):
-        raise ValueError(f"no port layout for a {a.ndim}-D weight {a.shape} at {path!r}")
-    return torch.from_numpy(np.array(a, order="C")).to(device)  # a writable copy
+def _layout(path: str, key: str, ndim: int) -> tuple | None:
+    """The permutation from the JAX package's layout to the port's, or None."""
+    if key != "w":
+        return None
+    if ndim == 4:
+        return (3, 2, 0, 1)
+    if ndim == 3 and path.split("/")[0] not in STACKED_DENSE:
+        return (2, 1, 0)
+    if ndim not in (2, 3):
+        raise ValueError(f"no port layout for a {ndim}-D weight at {path!r}")
+    return None
+
+
+def _leaf(path: str, key: str, a, device: torch.device, dtypes=_FLOAT) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        t = a.detach().to("cpu")
+    else:
+        a = np.asarray(a)
+        if a.dtype not in (np.float32, np.int8):
+            raise TypeError(f"parameter {path!r} is {a.dtype}; the port takes float32 trees "
+                            "(dicts and lists of float32 arrays), q8 nodes and bf16 tensors")
+        t = torch.from_numpy(np.array(a, order="C"))  # a writable copy
+    if t.dtype not in dtypes:
+        raise TypeError(f"parameter {path!r} is {t.dtype}; expected one of {dtypes}")
+    perm = _layout(path, key, t.dim())
+    if perm is not None:
+        t = t.permute(perm)
+    return t.contiguous().to(device)
 
 
 def params_from_numpy(tree: dict, device=None) -> dict:
@@ -56,6 +86,9 @@ def params_from_numpy(tree: dict, device=None) -> dict:
     dev = resolve_device(device)
 
     def conv(node, path: str, key: str):
+        if isinstance(node, dict) and set(node) == {"q8", "scale"}:  # a quantized weight
+            return {part: _leaf(f"{path}/{part}", key, node[part], dev, _Q8[part])
+                    for part in ("q8", "scale")}
         if isinstance(node, dict):
             return {k: conv(v, f"{path}/{k}" if path else k, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):

@@ -522,7 +522,8 @@ def _mossformer_sr_manifest(cfg):
 
 
 def _register_mossformer_sr():
-    from ..models.mossformer_sr import MossFormer2SR, MossFormerSrConfig, init_mossformer_sr
+    from ..models.mossformer_sr import (MossFormer2SR, MossFormerSrConfig, init_mossformer_sr,
+                                        prepare_params_sr)
 
     register(
         ModelSpec(
@@ -532,6 +533,8 @@ def _register_mossformer_sr():
             init_params=init_mossformer_sr,
             make_module=MossFormer2SR,
             make_manifest=_mossformer_sr_manifest,
+            # the HiFi-GAN generator stays float32 in the bf16 plan
+            prepare_params=prepare_params_sr,
         )
     )
 

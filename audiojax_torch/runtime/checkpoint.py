@@ -1,16 +1,20 @@
 """Artifact save/load: ``params.pt`` + ``manifest.json``.
 
 Counterpart of ``audiojax.runtime.checkpoint``.  An artifact directory holds
-the importer's tree as ``params.pt`` (``torch.save`` of CPU float32 tensors
-in the JAX package's layout, lists kept as lists) and the manifest as JSON,
-whose required keys are checked at load.  ``load_artifact`` reads the tree
-with ``weights_only=True`` (no code runs) and converts it once, through
+the importer's tree as ``params.pt`` (``torch.save`` of CPU tensors in the
+JAX package's layout, lists kept as lists) and the manifest as JSON, whose
+required keys are checked at load.  The leaves are float32, or what an
+optimization plan (``runtime/optimize.py``) stores: ``{'q8', 'scale'}``
+nodes of int8 values and float32 scales (q8f32, q8dyn) and bfloat16 leaves
+(the weight-only bf16 plan).  ``load_artifact`` reads the tree with
+``weights_only=True`` (no code runs) and converts it once, through
 ``params_from_numpy``, onto the serving device.
 
 ``torch.save`` keeps lists and empty containers as they are, so the JAX
 package's msgpack work-arounds (``_check_roundtrippable``, ``_relist``) have
-no counterpart here.  Reading the JAX package's ``params.msgpack`` waits for
-ROADMAP A.10.
+no counterpart here.  Reading the JAX package's ``params.msgpack`` is queued
+(ROADMAP A.10): the card's machine has no ``msgpack``, so it needs a reader
+of its own.
 """
 from __future__ import annotations
 
@@ -36,16 +40,27 @@ def _map(tree, fn):
     return fn(tree)
 
 
+# what a plan stores besides float32: int8 (a q8 node's values) and bfloat16
+_STORED = (torch.float32, torch.int8, torch.bfloat16)
+
+
 def _to_tensor(a) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype != np.float32:
-        raise TypeError(f"artifact leaves are float32; got {a.dtype}")
-    return torch.from_numpy(np.array(a, order="C"))
+    if isinstance(a, torch.Tensor):
+        t = a.detach().to("cpu").contiguous().clone()
+    else:
+        a = np.asarray(a)
+        if a.dtype not in (np.float32, np.int8):
+            raise TypeError(f"artifact leaves are float32 (or a plan's int8); got {a.dtype}")
+        t = torch.from_numpy(np.array(a, order="C"))
+    if t.dtype not in _STORED:
+        raise TypeError(f"artifact leaves are float32, int8 or bfloat16; got {t.dtype}")
+    return t
 
 
 def save_artifact(path, params, manifest: Manifest) -> Path:
-    """Write ``params`` (a nested dict/list tree of float32 arrays) and
-    ``manifest`` into the directory ``path``."""
+    """Write ``params`` (a nested dict/list tree of float32 arrays, or of a
+    plan's int8 arrays and bfloat16 tensors) and ``manifest`` into the
+    directory ``path``."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     torch.save(_map(params, _to_tensor), path / PARAMS_FILE)
@@ -54,9 +69,11 @@ def save_artifact(path, params, manifest: Manifest) -> Path:
 
 
 def load_tree(path) -> dict:
-    """The artifact's tree as float32 numpy arrays, in the JAX package's layout."""
+    """The artifact's tree in the JAX package's layout: numpy arrays (float32,
+    a q8 node's int8), and bfloat16 leaves as CPU tensors (numpy has no
+    bfloat16 without ``ml_dtypes``)."""
     tree = torch.load(Path(path) / PARAMS_FILE, map_location="cpu", weights_only=True)
-    return _map(tree, lambda t: t.numpy())
+    return _map(tree, lambda t: t if t.dtype == torch.bfloat16 else t.numpy())
 
 
 def load_artifact(path, device=None):

@@ -12,6 +12,8 @@
     python -m audiojax_torch.runtime.cli --model nkf_aec --input near.wav far.wav --output out.wav
     python -m audiojax_torch.runtime.cli --model sdaec|deep_echo|dfsmn_aec --input near.wav far.wav
     python -m audiojax_torch.runtime.cli --model gtcrn --artifact art/ --input noisy.wav
+    python -m audiojax_torch.runtime.cli --model gtcrn --input noisy.flac --output clean.wav
+    python -m audiojax_torch.runtime.cli --model melband_roformer --artifact q8art/ --input mix.wav
     python -m audiojax_torch.runtime.cli --model zipenhancer --input noisy.wav --compute-dtype bfloat16
     python -m audiojax_torch.runtime.cli --model gtcrn --input noisy.wav --stream [--block-hops 4]
     python -m audiojax_torch.runtime.cli --model nkf_aec --input near.wav far.wav --stream
@@ -22,13 +24,19 @@ With ``--artifact`` the command serves the weights of an artifact that
 ``python -m audiojax_torch.runtime.export`` wrote from an upstream checkpoint,
 with the config the artifact records; ``--model`` must name the artifact's
 model; an artifact exported with ``--compute-dtype`` is served in the dtype
-it records.  Without it, parameters are drawn at random from ``--seed``.
+it records, and one optimized by ``runtime.optimize`` (or ``export --plan``)
+as its manifest's ``optimize`` record says: q8f32 and weight-only bf16
+weights mapped to float32 at every forward (stream: once, on the host), q8dyn
+as it is.  Without it, parameters are drawn at random from ``--seed``.
 ``--compute-dtype bfloat16`` serves the bf16 plan (bf16 network, float32 DSP
-islands) of zipenhancer, mossformergan_se and mossformer2_ss; another model
-exits 2, naming ROADMAP A.10 where its JAX counterpart has the plan.  A
-two-input model (the echo cancellers ``nkf_aec``, ``sdaec``, ``deep_echo``
-and ``dfsmn_aec``) takes two ``--input`` files,
-the microphone (near end) first and the far-end reference second; a wrong
+islands) of the families whose config has the knob (zipenhancer,
+mossformergan_se, mossformer2_ss, mossformer2_se, melband_roformer,
+melband_roformer_stereo, mossformer2_sr); another model exits 2.  Inputs are
+read by ``audio_io.read_audio``: WAV, FLAC (the native bridge), or any
+container an ffmpeg hook decodes.  A two-input model (the echo cancellers
+``nkf_aec``, ``sdaec``, ``deep_echo`` and ``dfsmn_aec``) takes two
+``--input`` files, the microphone (near end) first and the far-end
+reference second; a wrong
 count of inputs exits 2 with the model's count.  The model runs on the card
 unless ``--device cpu`` is given; without CUDA and without ``--device cpu``
 the command fails.
@@ -57,7 +65,7 @@ def main(argv=None) -> int:
                     "mossformer2_ss, dfsmn, mossformer2_se, ul_unas, nkf_aec, sdaec, "
                     "deep_echo or dfsmn_aec (see --list)")
     ap.add_argument("--input", nargs="*", default=[],
-                    help="input wav path(s): near then far for the echo cancellers")
+                    help="input audio path(s), WAV or FLAC: near then far for the echo cancellers")
     ap.add_argument("--output", help="output wav path (multi-source models append _0, _1, …)")
     ap.add_argument("--artifact", help="artifact dir with params.pt + manifest.json")
     ap.add_argument("--seed", type=int, default=0, help="random-parameter seed when no artifact")
@@ -67,7 +75,9 @@ def main(argv=None) -> int:
     ap.add_argument("--block-hops", type=int, default=4, help="streaming block size in hops")
     ap.add_argument("--compute-dtype", choices=["float32", "bfloat16"], default=None,
                     help="activation compute dtype (bfloat16: the bf16 plan, float32 DSP "
-                         "islands); an artifact's recorded dtype unless given")
+                         "islands, of zipenhancer, mossformergan_se, mossformer2_ss, "
+                         "mossformer2_se, melband_roformer[_stereo] and mossformer2_sr); an "
+                         "artifact's recorded dtype unless given")
     ap.add_argument("--list", action="store_true", help="list registered models")
     args = ap.parse_args(argv)
 
@@ -87,9 +97,10 @@ def main(argv=None) -> int:
         return 2
 
     from ..device import resolve_device
-    from .audio_io import read_wav, resample_np, to_mono, write_wav
+    from .audio_io import read_audio, resample_np, to_mono, write_wav
     from .checkpoint import load_artifact
     from .manifest import Manifest
+    from .optimize import materialize_params, wrap_forward
     from .session import Session
 
     device = resolve_device(args.device)
@@ -116,15 +127,15 @@ def main(argv=None) -> int:
                           "different dtype than exported", file=sys.stderr)
                     return 2
                 cfg = dataclasses.replace(cfg, compute_dtype=recorded)
-        except ValueError as e:  # a plan the port has not ported (ROADMAP A.10)
+        except ValueError as e:  # a compute dtype the config does not know
             print(f"artifact {args.artifact}: {e}", file=sys.stderr)
             return 2
     else:
         manifest = spec.make_manifest(cfg)
     if args.compute_dtype:
         if not registry.has_compute_dtype(cfg):
-            print(f"{spec.name} has no compute_dtype knob; the bf16 plan serves "
-                  "zipenhancer, mossformergan_se and mossformer2_ss", file=sys.stderr)
+            print(f"{spec.name} has no compute_dtype knob; see --compute-dtype in --help",
+                  file=sys.stderr)
             return 2
         try:
             cfg = dataclasses.replace(cfg, compute_dtype=args.compute_dtype)
@@ -139,7 +150,7 @@ def main(argv=None) -> int:
 
     audios = []
     for p in inputs:
-        data, rate = read_wav(p)
+        data, rate = read_audio(p)
         if manifest.input_channels == 1:
             data = to_mono(data)[None]
         audios.append(resample_np(data, rate, manifest.in_sample_rate))
@@ -156,8 +167,10 @@ def main(argv=None) -> int:
               f"(seed {args.seed})", file=sys.stderr)
         params = spec.init_params(args.seed, cfg, device)
     if args.stream:
-        return _stream(spec, params, cfg, manifest, audios, inputs, args, device)
-    model = spec.make_module(params, cfg)
+        # a stream builds its step from the spec: an optimized tree is mapped once
+        return _stream(spec, materialize_params(params, manifest), cfg, manifest, audios, inputs,
+                       args, device)
+    model = wrap_forward(spec.make_module(params, cfg), manifest)
     result = Session(model, manifest, device=device).process(*audios)
 
     out_base = Path(args.output) if args.output else inputs[0].with_name(

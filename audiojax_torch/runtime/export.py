@@ -9,6 +9,8 @@ finish with a short synthetic request through ``Session`` on what was written.
         --checkpoint ckpt.pt --out artifact_dir/ [--no-smoke] [--device cpu]
     python -m audiojax_torch.runtime.export --model zipenhancer \
         --checkpoint ckpt.pt --out artifact_dir/ --compute-dtype bfloat16
+    python -m audiojax_torch.runtime.export --model melband_roformer \
+        --checkpoint ckpt.pt --out artifact_dir/ --plan q8f32
 
 The import is fail-closed (unread checkpoint keys abort).  The smoke request
 runs on the card unless ``--device cpu`` is given; without CUDA and without
@@ -19,10 +21,10 @@ checkpoints need): unpickling runs code, so export only files you trust.
 ``compute_dtype`` ("bfloat16") selects the model's activation compute dtype
 and is recorded in the manifest (``activation_compute_dtype``, and in the
 stored config), so that the CLI serves the artifact with it; the parameters
-are stored float32 and cast once where they are served.  A family whose
-config has no bf16 plan in the port (MossFormer2-SE, Mel-Band, SR) is
-refused by its config, naming ROADMAP A.10.  The JAX package's ``plan`` and
-``aot`` options wait for ROADMAP A.10.
+are stored float32 and cast once where they are served.  ``plan`` (a name in
+``runtime.optimize.PLANS``: q8f32, q8dyn, bf16 …) optimizes the written
+artifact in place before the smoke request, which then serves what the plan
+wrote.  The JAX package's ``aot`` option is queued (ROADMAP A.10).
 """
 from __future__ import annotations
 
@@ -34,11 +36,13 @@ __all__ = ["export_artifact"]
 
 
 def export_artifact(model_name: str, ckpt, out_dir, *, cfg=None, smoke: bool = True,
-                    import_kwargs=None, device=None, compute_dtype: str | None = None) -> dict:
+                    import_kwargs=None, device=None, compute_dtype: str | None = None,
+                    plan=None) -> dict:
     """checkpoint (path or state dict) → artifact directory; returns a report
     dict (``artifact``, ``model`` and, with ``smoke``, the request's
     ``smoke`` summary).  ``compute_dtype`` replaces the config's and is
-    recorded in the manifest."""
+    recorded in the manifest; ``plan`` (a ``runtime.optimize.Plan``)
+    optimizes the artifact in place."""
     import numpy as np
     import torch
 
@@ -46,6 +50,7 @@ def export_artifact(model_name: str, ckpt, out_dir, *, cfg=None, smoke: bool = T
     from ..importers import _IMPORTERS, import_checkpoint
     from . import registry
     from .checkpoint import load_artifact, save_artifact
+    from .optimize import optimize_artifact, wrap_forward
     from .session import Session
 
     spec = registry.get(model_name)
@@ -75,6 +80,8 @@ def export_artifact(model_name: str, ckpt, out_dir, *, cfg=None, smoke: bool = T
             manifest, extra={**manifest.extra, "activation_compute_dtype": compute_dtype})
     save_artifact(out_dir, params, manifest)
     report = {"artifact": str(out_dir), "model": model_name}
+    if plan is not None:
+        optimize_artifact(out_dir, out_dir, plan)
 
     if smoke:
         # synthetic int16 inputs through the Session, on what is on disk
@@ -84,7 +91,8 @@ def export_artifact(model_name: str, ckpt, out_dir, *, cfg=None, smoke: bool = T
         # (channels, n): a two-channel model (stereo Mel-Band, H-GTCRN) takes two
         audios = [(rng.standard_normal((manifest.input_channels, length)) * 6000)
                   .astype(np.int16) for _ in range(manifest.num_audio_inputs)]
-        result = Session(spec.make_module(served, cfg), manifest, device=dev).process(*audios)
+        model = wrap_forward(spec.make_module(served, cfg), manifest)
+        result = Session(model, manifest, device=dev).process(*audios)
         if not all(np.isfinite(o.astype(np.float64)).all() for o in result.outputs):
             raise RuntimeError("export smoke test produced non-finite output")
         report["smoke"] = {
@@ -107,16 +115,23 @@ def main(argv=None) -> int:
     ap.add_argument("--checkpoint", required=True,
                     help="torch checkpoint path (unpickled: only files you trust)")
     ap.add_argument("--out", required=True, help="artifact output directory")
+    ap.add_argument("--plan", help="optimization plan applied to the artifact (see "
+                    "python -m audiojax_torch.runtime.optimize --list-plans)")
     ap.add_argument("--no-smoke", action="store_true", help="skip the inference smoke test")
     ap.add_argument("--device", default=None,
                     help="where the smoke test runs: cuda (default) or cpu")
     ap.add_argument("--compute-dtype", choices=["float32", "bfloat16"], default=None,
                     help="activation compute dtype, recorded in the manifest (bfloat16: the "
-                         "bf16 serving plan of zipenhancer, mossformergan_se, mossformer2_ss)")
+                         "bf16 serving plan of the families with the knob)")
     args = ap.parse_args(argv)
+    from .optimize import PLANS
+
+    if args.plan and args.plan not in PLANS:
+        ap.error(f"unknown plan {args.plan!r}; available: {sorted(PLANS)}")
     report = export_artifact(args.model, args.checkpoint, args.out,
                              smoke=not args.no_smoke, device=args.device,
-                             compute_dtype=args.compute_dtype)
+                             compute_dtype=args.compute_dtype,
+                             plan=PLANS[args.plan] if args.plan else None)
     print(json.dumps(report))
     return 0
 

@@ -6,7 +6,10 @@ per-source output trimming, butt-join or Hann-taper overlap-add stitching,
 and an RTF report.  All windows of a request are stacked on the batch axis
 and go through the model in one call; the window count is rounded up to a
 power of two (all-zero pad windows, dropped before stitching), as in the JAX
-package.  Windows are sliced and stitched in numpy.
+package.  Windows are sliced and stitched in numpy, where the JAX package
+takes its native bridge for mono int16: on the card's host the bridge's
+slicing is slower than numpy's strided copies and its Hann-taper stitch no
+faster (``chip_smoke.py`` phase 26 times both), so one route serves.
 """
 from __future__ import annotations
 

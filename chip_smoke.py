@@ -7,8 +7,10 @@ Phases, each of which raises (non-zero exit) on failure:
 
 1. Card: name and power limit from nvidia-smi.
 2. Build: every ``audiojax_torch/csrc/*.cu`` with nvcc (sm_90a), one nvcc per
-   source, all started together; phase 3 starts once B1/B2's source is
-   built, beside the others; each one's build time.
+   source, and the native bridge (``native/audioio.cc`` with g++, into the
+   package's ``_build``), all started together; phase 3 starts once B1/B2's
+   source is built, beside the others; each one's build time.  A bridge
+   that does not build fails the run with the compiler's message.
 3. Kernels B1/B2: the STFT and ISTFT kernels against their plain PyTorch
    versions (1e-5 × max|ref|) and against a float64 numpy DFT (error at
    most 2 × the plain version's), at the MossFormerGAN, GTCRN and
@@ -186,16 +188,39 @@ Phases, each of which raises (non-zero exit) on failure:
    each median beside the float32 plan's, card bf16 against card float32
    at least 15 dB, and card against the CPU's bf16 plan at the gate measured
    (``GATE_DB``).
+26. The native bridge and FLAC: every function of the bridge against the
+   port's numpy code (bit for bit; RMS normalisation and OLA stitch within
+   1 LSB), timed both ways on the host; a 7 s GTCRN request written as FLAC
+   (``tests/flac_golden.py``), decoded by the bridge through ``read_audio``
+   and served by ``Session`` on the card, equal bit for bit to the WAV
+   request's answer; each whole request (read, serve, encode) timed.
+27. The bf16 plans of MossFormer2-SE, Mel-Band Roformer (mono and stereo)
+   and MossFormer2-SR: first B4 and B6 in bf16 at SE's and SR's serving
+   shapes (phase 14's; B4 within one bf16 ulp of its plain twin, B6 with
+   float32 out as the layers take it), then each family on the requests of
+   phases 15, 21 and 22, as phase 25 serves its three: the bf16 launches, the
+   medians beside the float32 plans', card bf16 against card float32 and
+   against the CPU's bf16 plan at the gates measured (SR's output only at a
+   6 dB sanity floor: its random generator is chaotic, so its bf16 mask net
+   is held alone, card against CPU, at ``SR_MASKNET_BF16_GATE_DB``).
+28. The plans through the artifact: Mel-Band Roformer exported from a
+   synthetic checkpoint, optimized with q8f32, q8dyn and weight-only bf16,
+   loaded and served on the card (1 B1, 1 B2 a forward); each 6 s median
+   beside the float32 artifact's, its optimize_report.json, its weights'
+   bytes on the card, one profiled request, card against card float32 (at
+   ``PLAN_VS_F32_GATE_DB``) and against the CPU on the same artifact; then a GTCRN artifact under q8dyn
+   with its GRU and dense leaves int8 (``min_size`` 256) streamed on 4 lanes,
+   the captured CUDA graph equal to the eager server.
 
-Phases 6, 8, 10, 12, 15–23 and 25 print the launches of one forward, all of
-them and the ported kernels'.  They run in the order 1–10, 24, 25, 12,
-14–23, 11, 13 (phase 11 compares against the random-weight latencies).  The
-last line is ``{"ok": true, "device": {...}}``; the line before it lists
-every kernel as JSON, the bf16 instances as their own entries
-(``dwconv1d_bf16`` …; its launches summed over the eighteen served paths,
-phase 11's fifteen and the seven graphed stream paths, with the count of
-each path beside it, and its times at its first serving shape), and the line
-before that the card.  Without CUDA the script exits non-zero and prints no
+Phases 6, 8, 10, 12, 15–23, 25, 27 and 28 print the launches of one forward,
+all of them and the ported kernels'.  They run in the order 1–10, 24, 25,
+12, 14–23, 26–28, 11, 13 (phase 11 compares against the random-weight
+latencies).  The last line is ``{"ok": true, "device": {...}}``; the line
+before it lists every kernel as JSON, the bf16 instances as their own
+entries (``dwconv1d_bf16`` …; its launches summed over the served paths,
+phase 11's fifteen and the graphed stream paths, with the count of each path
+beside it, and its times at its first serving shape), and the line before
+that the card.  Without CUDA the script exits non-zero and prints no
 result.
 """
 from __future__ import annotations
@@ -296,10 +321,31 @@ def bf16_plan(per_forward: dict) -> dict:
 # on the H100 80GB HBM3, rounded down to the dB (GAN 24.46, ZipEnhancer
 # 28.93, SS 35.71 at its lower source; never below 15 dB)
 GATE_DB = {"h_gtcrn": 20.0, "mossformergan_se_bf16": 24.0, "zipenhancer_bf16": 28.0,
-           "mossformer2_ss_bf16": 35.0}
+           "mossformer2_ss_bf16": 35.0,
+           # the other bf16 plans and q8dyn, measured the same way (SE 35.00,
+           # held at 34 below the print's precision; Mel-Band 36.76, stereo
+           # 37.68; q8dyn 36.46, each row's int8 rounding of the activations on
+           # the card and the CPU)
+           "mossformer2_se_bf16": 34.0, "melband_roformer_bf16": 36.0,
+           "melband_roformer_stereo_bf16": 37.0, "melband_roformer_q8dyn": 36.0,
+           # SR's output only as a sanity floor (9.12 measured): its random
+           # generator is chaotic and turns any rounding of the bf16 mask net
+           # into a ~9 dB gap, so its output moves with the libraries'
+           # algorithm choice; SR_MASKNET_BF16_GATE_DB holds the plan
+           "mossformer2_sr_bf16": 6.0}
 # the bf16 plan against the float32 plan on the card, int16 SNR: the JAX
 # package's own bf16 gate
 BF16_VS_F32_DB = 15.0
+# … but where a family's measured distance lies below it: MossFormer2-SR's
+# random-weight generator is chaotic, and amplifies the bf16 mask net's
+# rounding in either package (the JAX package's own bf16 plan lies 11.26 dB
+# from its float32 one at the test widths; 9.02 dB measured on the H100 80GB
+# HBM3 at 700 W; ROADMAP §C), so its output is held only to a sanity floor
+# with room below that reading, and its mask net alone carries the gate
+BF16_VS_F32_GATE_DB = {"mossformer2_sr_bf16": 6.0}
+# … so SR's bf16 mask net is held alone too, card against CPU on the same
+# log-mel (float SNR of its output, before the generator): 33.85 dB measured
+SR_MASKNET_BF16_GATE_DB = 33.0
 # ~1 ms at the H100's clock: longer than the host takes to issue any timed call
 SPIN_CYCLES = 2_000_000
 GUARD_SPINS = 32
@@ -1124,7 +1170,8 @@ def serve(card: str, latency: dict) -> dict:
 
 def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latency: dict,
                    lead_silence: int = 0, clip=noisy_speech, seconds: tuple = (6, 30),
-                   rtf: bool = False, energies=None, dtype: str = "float32") -> dict:
+                   rtf: bool = False, energies=None, dtype: str = "float32",
+                   inner=None) -> dict:
     """Phases 6, 8, 10, 12 and 15–23: serve ``name`` at full width and depth
     on its manifest's windows (the GAN's and ZipEnhancer's 6 s windows are
     each folded into 1.5 s fold windows); returns the kernels' launch counts
@@ -1142,7 +1189,9 @@ def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latenc
     ``audiojax_torch.utils.profiling.measure_rtf``; ``energies(model, x)``
     gives H-GTCRN's two source energies, whose relative gap on the card and
     on the CPU is printed beside its gate (a near tie may pick different
-    sources).  With ``dtype="bfloat16"`` it serves the family's bf16 plan
+    sources); ``inner(model, cpu_model, x)`` holds a part of the network card
+    against CPU on the window ``x`` (SR's bf16 mask net).  With
+    ``dtype="bfloat16"`` it serves the family's bf16 plan
     (path ``<name>_bf16``, phase 25): each request's median beside the
     float32 plan's from the same run, the first request's output held
     against the float32 plan's (``BF16_VS_F32_DB``), and the card held
@@ -1220,10 +1269,11 @@ def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latenc
         f32 = Session(spec.make_module(spec.init_params(0, f32_cfg, "cuda"), f32_cfg), manifest,
                       device="cuda").process(*ins)
         snrs = [snr_db(a, b) for a, b in zip(f32.outputs, runs[label][0].outputs)]
+        gate32 = BF16_VS_F32_GATE_DB.get(path, BF16_VS_F32_DB)
         print(f"serve {path} {label} card bf16 vs card float32: SNR "
-              f"{', '.join(f'{v:.2f}' for v in snrs)} dB (gate {BF16_VS_F32_DB:g})", flush=True)
-        if not min(snrs) >= BF16_VS_F32_DB:
-            fail(f"{path} bf16 vs float32 SNR {min(snrs):.2f} dB < {BF16_VS_F32_DB}")
+              f"{', '.join(f'{v:.2f}' for v in snrs)} dB (gate {gate32:g})", flush=True)
+        if not min(snrs) >= gate32:
+            fail(f"{path} bf16 vs float32 SNR {min(snrs):.2f} dB < {gate32}")
         del f32
     rows = cuda_rows(lambda: session.process(*ins), per_forward)
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
@@ -1261,6 +1311,8 @@ def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latenc
                + " / CPU")
     hold_card_vs_cpu(f"serve {path} {length / sr:g} s {'fold' if fold else 'window'}", path,
                      card_out, cpu_out, f"(CPU forward {cpu_s:.1f} s){gap}")
+    if inner is not None:
+        inner(model, cpu_model, xs[0])
     if lead_silence and not bf16:
         frame0_witness(name, model, cpu_model, clip(length, seeds[2], sr=sr))
     if manifest.task == "aec":  # no gate: the weights are random
@@ -2026,15 +2078,443 @@ def serve_sr(card: str, dev, latency: dict) -> dict:
     return serve_windowed(card, "mossformer2_sr", SR_PER_FORWARD, (97, 98, 99), latency)
 
 
+# ── phases 26, 27 and 28 ───────────────────────────────────────────────────
+
+
+def load_flac_golden():
+    """``tests/flac_golden.py``: a FLAC encoder in numpy alone, written from
+    the format's specification."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "tests" / "flac_golden.py"
+    spec = importlib.util.spec_from_file_location("flac_golden", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class numpy_route:
+    """Within it the port takes its numpy code where it would call the native
+    bridge (``native.available()`` reads False)."""
+
+    def __enter__(self):
+        from audiojax_torch.runtime import native
+
+        self.native, self.available = native, native.available
+        native.available = lambda: False
+
+    def __exit__(self, *exc):
+        self.native.available = self.available
+
+
+def host_ms(fn, iters: int = 5) -> float:
+    """Median host milliseconds of ``fn()`` (host code, no device)."""
+    t = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        t.append(time.perf_counter() - t0)
+    return float(np.median(t)) * 1e3
+
+
+def build_native() -> float:
+    """Phase 2's native build: ``native/audioio.cc`` with g++ into the
+    package's ``_build``; fails with the compiler's message."""
+    from audiojax_torch.runtime import native
+
+    t0 = time.perf_counter()
+    if not native.available():
+        fail(f"the native bridge did not build: {native.build_error()}")
+    return time.perf_counter() - t0
+
+
+def check_native(card: str) -> dict:
+    """Phase 26: every function of the native bridge against the port's numpy
+    code on the same inputs (bit for bit; the RMS normalisation and the OLA
+    stitch within 1 LSB, their float sums in another order), each timed both
+    ways on the host; then a 7 s GTCRN request written as FLAC, decoded by
+    the bridge through ``read_audio`` and served by ``Session`` on the card,
+    equal bit for bit to the same request read from WAV, each whole request
+    (read, serve, encode the answer) timed on the host's clock.  Returns the
+    requests' kernel launches."""
+    import io
+    import tempfile
+    import wave
+    from pathlib import Path
+
+    from audiojax_torch.runtime import audio_io, native, registry
+    from audiojax_torch.runtime.manifest import Manifest
+    from audiojax_torch.runtime.session import Session
+
+    flac = load_flac_golden()
+    rng = np.random.default_rng(26)
+    print(f"native: {native.library_path()} (g++ {' '.join(native.GXX_FLAGS)})", flush=True)
+
+    def held(what, ours, ref, lsb: int = 0, times=None):
+        ours, ref = np.asarray(ours), np.asarray(ref)
+        if ours.shape != ref.shape or ours.dtype != ref.dtype:
+            fail(f"native {what}: {ours.dtype} {ours.shape} vs {ref.dtype} {ref.shape}")
+        worst = int(np.abs(ours.astype(np.int64) - ref.astype(np.int64)).max())
+        if worst > lsb:
+            fail(f"native {what}: {worst} LSB from the numpy code (limit {lsb})")
+        t = "" if times is None else f"; host ms native {times[0]:.3f}" + (
+            "" if len(times) < 2 else f", numpy {times[1]:.3f}")
+        print(f"native {what}: {ours.dtype} {ours.shape}, max {worst} LSB from the numpy code "
+              f"(limit {lsb}){t}", flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="native_") as tmp:
+        tmp = Path(tmp)
+        stereo = (rng.standard_normal((2, 6 * 48000)) * 9000).astype(np.int16)
+        with numpy_route():
+            wav_p = audio_io.write_wav(tmp / "s.wav", stereo, 48000)
+            ref_wav = audio_io.read_wav(wav_p)[0]
+        held("read_wav_mono16 (6 s 48 kHz stereo)", native.read_wav_mono16(wav_p)[0],
+             audio_io.to_mono(ref_wav))
+        buf = io.BytesIO()
+        with wave.open(buf, "wb") as w:
+            w.setnchannels(2)
+            w.setsampwidth(2)
+            w.setframerate(48000)
+            w.writeframes(stereo.T.astype("<i2").tobytes())
+        blob = native.encode_wav_pcm16(stereo, 48000)
+        if blob != buf.getvalue():
+            fail("native encode_wav_pcm16: the bytes differ from the stdlib wave module's")
+        print(f"native encode_wav_pcm16 (6 s 48 kHz stereo): {len(blob)} bytes, equal to the "
+              "stdlib wave module's", flush=True)
+
+        req = noisy_speech(30 * SR, 261)
+        for window, stride, head, num in ((32000, 20000, 0, 32), (32000, 32000, 8000, 16)):
+            ours = native.slice_windows(req, window, stride, head, num)
+            padded = np.concatenate([np.zeros(head, np.int16), req,
+                                     np.zeros((num - 1) * stride + window, np.int16)])
+            ref = np.stack([padded[s:s + window] for s in range(0, num * stride, stride)])
+            held(f"slice_windows (30 s, window {window}, stride {stride}, head {head})", ours,
+                 ref, times=(host_ms(lambda: native.slice_windows(req, window, stride, head,
+                                                                    num)),
+                             host_ms(lambda: np.stack([padded[s:s + window] for s in
+                                                       range(0, num * stride, stride)]))))
+        for rin, rout in ((48000, 16000), (16000, 48000), (44100, 16000)):
+            x = stereo[:, : 6 * rin]
+            ours = audio_io.resample_np(x, rin, rout)
+            with numpy_route():
+                ref = audio_io.resample_np(x, rin, rout)
+                t_np = host_ms(lambda: audio_io.resample_np(x, rin, rout))
+            held(f"resample_linear {rin} → {rout} (6 s stereo)", ours, ref,
+                 times=(host_ms(lambda: audio_io.resample_np(x, rin, rout)), t_np))
+        quiet = (req // 16).astype(np.int16)
+        with numpy_route():
+            ref = audio_io.normalise_rms(quiet, 4096.0)
+            t_np = host_ms(lambda: audio_io.normalise_rms(quiet, 4096.0))
+        held("normalise_rms (30 s)", native.normalise_rms(quiet, 4096.0), ref, lsb=1,
+             times=(host_ms(lambda: native.normalise_rms(quiet, 4096.0)), t_np))
+        # SR's 30 s output: 32 windows of 96,000 samples at a 60,000 stride
+        wins = (rng.standard_normal((32, 96000)) * 9000).astype(np.int16)
+        manifest = Manifest(model_name="ola", task="super_resolution", model_family="ola",
+                            in_sample_rate=16000, out_sample_rate=48000,
+                            model_sample_rate=48000, input_audio_length=32000,
+                            overlap_length=12000)
+        stitcher = Session(torch.nn.Identity(), manifest, device="cpu")
+        with numpy_route():
+            ref = stitcher._stitch(wins, 20000, 3.0)
+            t_np = host_ms(lambda: stitcher._stitch(wins, 20000, 3.0), iters=3)
+        held("ola_stitch (32 × 96000, stride 60000)", native.ola_stitch(wins, 60000), ref,
+             lsb=1, times=(host_ms(lambda: native.ola_stitch(wins, 60000), iters=3), t_np))
+        for label, pcm, kw in (("7 s mono fixed order 2", req[None, : 7 * SR], {}),
+                               ("6 s stereo mid-side", stereo[:, : 6 * 16000],
+                                {"stereo": "mid_side"})):
+            data = flac.encode_flac(pcm, 16000, **kw)
+            out, rate = native.decode_flac(data)
+            if rate != 16000:
+                fail(f"native decode_flac {label}: rate {rate}")
+            held(f"decode_flac ({label}, {len(data)} bytes)", out, pcm,
+                 times=(host_ms(lambda: native.decode_flac(data)),))
+
+        # a 7 s GTCRN request, as FLAC and as WAV, through read_audio and Session
+        pcm = noisy_speech(7 * SR, 262)
+        (tmp / "r.flac").write_bytes(flac.encode_flac(pcm[None], SR))
+        audio_io.write_wav(tmp / "r.wav", pcm, SR)
+        spec = registry.get("gtcrn")
+        cfg = spec.make_config()
+        session = Session(spec.make_module(spec.init_params(0, cfg, "cuda"), cfg),
+                          spec.make_manifest(cfg), device="cuda")
+        session.process(pcm)  # warm-up
+
+        def request(path):
+            """One whole request: read, serve on the card, encode the answer."""
+            t0 = time.perf_counter()
+            audio, rate = audio_io.read_audio(path)
+            if rate != SR or not np.array_equal(audio[0], pcm):
+                fail(f"read_audio {path.name}: not the request written")
+            res = session.process(audio[0])
+            audio_io.write_wav(tmp / f"out_{path.name}.wav", res.audio, SR)
+            return res, (time.perf_counter() - t0) * 1e3
+
+        for mod in kernel_modules():
+            mod.reset_launches()
+        (r_flac, ms_flac), (r_wav, ms_wav) = request(tmp / "r.flac"), request(tmp / "r.wav")
+        counts = launch_counts()
+    if counts != {k: 2 * n for k, n in GTCRN_PER_FORWARD.items()}:
+        fail(f"native gtcrn requests launched {counts}")
+    if (r_flac.audio.shape != pcm.shape or not np.any(r_flac.audio)
+            or not np.array_equal(r_flac.audio, r_wav.audio)):
+        fail("the FLAC request's answer differs from the WAV request's")
+    print(f"native gtcrn 7 s request decoded from FLAC by the bridge and served on the card: "
+          f"equal bit for bit to the WAV request's answer; whole request ms (read, serve, "
+          f"encode) FLAC {ms_flac:.3f}, WAV {ms_wav:.3f}; elapsed ms "
+          f"{r_flac.elapsed_s * 1e3:.3f} / {r_wav.elapsed_s * 1e3:.3f}  [{card}]", flush=True)
+    return counts
+
+
+def check_bf16_se_sr_kernels(dev) -> None:
+    """Phase 27's kernels: B4 and B6 in bfloat16 at the MossFormer2-SE and
+    MossFormer2-SR serving shapes (phase 14's shapes), B4 within one bf16 ulp
+    of its plain version, B6 as the layers take it (float32 out, within
+    TOL_B4_B6), each within 2× the plain version's float64 error; timed
+    beside cuDNN's bf16 conv (B4), the bound from bf16 bytes and operations."""
+    gen = torch.Generator(device=dev).manual_seed(27)
+    for label, shape, k, pads, dil in B4_SE_CASES + B4_SR_CASES:
+        hold_b4(gen, dev, label, shape, k, pads, dil, f64_rows=SS_F64_ROWS,
+                dtype=torch.bfloat16)
+    for label, n, s in B6_SE_CASES + B6_SR_CASES:
+        hold_b6(gen, dev, label, n, s, False, dk=128, dv=2048, f64_rows=SS_F64_ROWS,
+                dtype=torch.bfloat16, out_dtype=torch.float32)
+
+
+def sr_masknet_card_vs_cpu(model, cpu_model, x: torch.Tensor) -> None:
+    """SR's mask net alone, card against CPU on the CPU's log-mel of ``x``
+    (the float32 upsampler and mel analysis), its float output's SNR at
+    ``SR_MASKNET_BF16_GATE_DB``: the generator after it is chaotic on random
+    weights and amplifies any rounding difference."""
+    from audiojax_torch.models.mossformer_sr import sr_log_mel, sr_masknet, upsample_sinc
+
+    cfg = model.cfg
+    with torch.inference_mode():
+        mel = sr_log_mel(upsample_sinc(x, cfg), cfg)
+        card = sr_masknet(model.params, mel.cuda(), cfg).cpu().numpy()
+        cpu = sr_masknet(cpu_model.params, mel, cfg).numpy()
+    snr = snr_db(cpu, card)
+    print(f"serve mossformer2_sr_bf16 mask net alone, card vs CPU on one window's log-mel: "
+          f"SNR {snr:.2f} dB (gate {SR_MASKNET_BF16_GATE_DB:g})", flush=True)
+    if not snr >= SR_MASKNET_BF16_GATE_DB:
+        fail(f"mossformer2_sr_bf16 mask net card vs CPU SNR {snr:.2f} dB < "
+             f"{SR_MASKNET_BF16_GATE_DB}")
+
+
+def serve_bf16_rest(card: str, dev, latency: dict) -> dict:
+    """Phase 27: the bf16 plans of MossFormer2-SE, Mel-Band Roformer (mono and
+    stereo) and MossFormer2-SR on the requests of phases 15, 21 and 22 (their
+    seeds), after their bf16 kernels at those shapes."""
+    check_bf16_se_sr_kernels(dev)
+    return {f"{name}_bf16": serve_windowed(card, name, bf16_plan(per_forward), seeds, latency,
+                                          dtype="bfloat16", **kw)
+            for name, per_forward, seeds, kw in (
+                ("mossformer2_se", SE_PER_FORWARD, (54, 55, 56), {}),
+                ("melband_roformer", MELBAND_PER_FORWARD, (91, 92, 93), {"clip": music_mix}),
+                ("melband_roformer_stereo", MELBAND_PER_FORWARD, (94, 95, 96),
+                 {"clip": stereo_mix}),
+                ("mossformer2_sr", SR_PER_FORWARD, (97, 98, 99),
+                 {"inner": sr_masknet_card_vs_cpu}))}
+
+
+# the plans through the artifact (phase 28): Mel-Band Roformer's (the JAX
+# package's plan_for gives it q8f32), and its path names in the kernels line
+PLAN_PATHS = {"q8f32": "melband_roformer_q8f32", "q8dyn": "melband_roformer_q8dyn",
+              "bf16": "melband_roformer_bf16_weights"}
+# each plan's answer against the float32 artifact's on the card, int16 SNR,
+# at the value measured on the H100 80GB HBM3 at 700 W rounded down to the
+# dB (q8f32 39.69, q8dyn 35.15, weight-only bf16 44.29): the card-vs-CPU
+# check runs the same quantization and layout code on both sides, so a
+# fault in it that shows only at full width shows here
+PLAN_VS_F32_GATE_DB = {"q8f32": 39.0, "q8dyn": 35.0, "bf16": 44.0}
+STREAM_Q8_LANES, STREAM_Q8_SECONDS = 4, 3
+
+
+def _buffer_bytes(model) -> dict:
+    """A module's parameter bytes on the device, by dtype."""
+    out = {}
+    for t in model.buffers():
+        key = str(t.dtype).removeprefix("torch.")
+        out[key] = out.get(key, 0) + t.numel() * t.element_size()
+    return out
+
+
+def serve_plans(card: str) -> dict:
+    """Phase 28: Mel-Band Roformer at full width and depth from a synthetic
+    checkpoint (``tests/test_torch_ckpt_builders.py``) goes export →
+    ``optimize_artifact`` with q8f32, q8dyn and weight-only bf16 → load onto
+    the card → ``Session`` (``wrap_forward``); each plan's 6 s request median
+    beside the float32 artifact's, its optimize_report.json, the weights'
+    bytes on the card, one profiled request, card plan against card float32
+    (``PLAN_VS_F32_GATE_DB``), and card against the CPU port on the same artifact (one window, the
+    family's gate).  Then a GTCRN artifact under q8dyn with ``min_size=256``
+    (its GRU and dense leaves int8) streams through ``StreamingServer``: the
+    captured CUDA graph against the eager server.  Returns each path's
+    kernel launches."""
+    import tempfile
+    import warnings
+    from pathlib import Path
+
+    from audiojax_torch.runtime import registry
+    from audiojax_torch.runtime.checkpoint import load_artifact
+    from audiojax_torch.runtime.export import export_artifact
+    from audiojax_torch.runtime.optimize import (PLANS, Plan, materialize_params,
+                                                 optimize_artifact, wrap_forward)
+    from audiojax_torch.runtime.session import Session
+    from audiojax_torch.runtime.streaming import StreamingServer
+
+    builders = load_builders()
+    name = "melband_roformer"
+    spec = registry.get(name)
+    cfg = spec.make_config()
+    by_path, latency, answers = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="plans_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        export_artifact(name, builders.BUILDERS[name](cfg, seed=28), tmp / "float32", cfg=cfg,
+                        smoke=False)
+        arts, reports = {"float32": tmp / "float32"}, {}
+        print(f"plans {name}: float32 artifact exported in {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        for plan in PLAN_PATHS:
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                arts[plan] = optimize_artifact(arts["float32"], tmp / plan, PLANS[plan])
+            reports[plan] = json.loads((arts[plan] / "optimize_report.json").read_text())
+            if PLANS[plan].experimental != any("EXPERIMENTAL" in str(w.message) for w in caught):
+                fail(f"plans {plan}: the experimental warning was not given as the plan says")
+            print(f"plans {name} {plan}: optimize_artifact {time.perf_counter() - t0:.3f} s, "
+                  f"report {json.dumps({k: v for k, v in reports[plan].items() if k != 'plan'})}",
+                  flush=True)
+
+        sr = spec.make_manifest(cfg).in_sample_rate
+        ins = (music_mix(6 * sr, 281, sr=sr),)
+        window = (music_mix(spec.make_manifest(cfg).input_audio_length, 282, sr=sr)[None],)
+        for plan, art in arts.items():
+            params, manifest = load_artifact(art, device="cuda")
+            cpu_params, _ = load_artifact(art, device="cpu")
+            model = wrap_forward(spec.make_module(params, cfg), manifest)
+            session = Session(model, manifest, device="cuda")
+            session.process(*ins)  # warm-up
+            for mod in kernel_modules():
+                mod.reset_launches()
+            runs = [session.process(*ins) for _ in range(SERVE_REPEATS)]
+            counts = launch_counts()
+            expect = {k: SERVE_REPEATS * n for k, n in MELBAND_PER_FORWARD.items()}
+            if counts != expect:
+                fail(f"plans {plan} serving launched {counts}, expected {expect}")
+            if plan in PLAN_PATHS:
+                by_path[PLAN_PATHS[plan]] = counts
+            for r in runs:
+                if r.audio.dtype != np.int16 or r.audio.shape != ins[0].shape or not np.any(
+                        r.audio):
+                    fail(f"plans {plan}: {r.audio.dtype} {r.audio.shape}, expected int16 "
+                         f"{ins[0].shape}, not all zero")
+            ms = sorted(r.elapsed_s * 1e3 for r in runs)
+            latency[plan] = med = float(np.median(ms))
+            answers[plan] = runs[0].audio
+            beside = ""
+            if plan != "float32":
+                vs32 = snr_db(answers["float32"], runs[0].audio)
+                beside = (f"; float32 artifact {latency['float32']:.3f} ms (same run), card "
+                          f"{plan} vs card float32 SNR {vs32:.2f} dB (gate "
+                          f"{PLAN_VS_F32_GATE_DB[plan]:g}); compression "
+                          f"{reports[plan].get('compression', '—')}")
+                if not vs32 >= PLAN_VS_F32_GATE_DB[plan]:
+                    fail(f"plans {plan} vs float32 SNR {vs32:.2f} dB < "
+                         f"{PLAN_VS_F32_GATE_DB[plan]}")
+            print(f"plans {name} {plan} 6 s request: elapsed ms median {med:.3f} (min "
+                  f"{ms[0]:.3f}, max {ms[-1]:.3f}, n={len(ms)}); weights on the card by dtype "
+                  f"{_buffer_bytes(model)} bytes{beside}  [{card}]", flush=True)
+            rows = cuda_rows(lambda: session.process(*ins), MELBAND_PER_FORWARD)
+            busy = sum(e.self_device_time_total for e in rows) / 1e3
+            print(f"profile plans {plan} 6 s: {sum(e.count for e in rows)} device launches, "
+                  f"device busy {busy:.3f} ms of {med:.3f} ms median elapsed unprofiled (idle "
+                  f"share {1.0 - busy / med:.4f})  [{card}]", flush=True)
+            for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+                print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}",
+                      flush=True)
+            cpu_model = wrap_forward(spec.make_module(cpu_params, cfg), manifest)
+            with torch.inference_mode():
+                card_out = model(torch.from_numpy(window[0]).cuda())
+                t0 = time.perf_counter()
+                cpu_out = cpu_model(torch.from_numpy(window[0]))
+            hold_card_vs_cpu(f"plans {name} {plan} 2 s window", PLAN_PATHS.get(plan, name),
+                             card_out, cpu_out, f"(CPU forward {time.perf_counter() - t0:.1f} s, "
+                             "the same artifact)")
+            del model, session, params, cpu_params, cpu_model
+
+        # a q8dyn stream: GTCRN with its GRU and dense leaves int8
+        gspec = registry.get("gtcrn")
+        gcfg = gspec.make_config()
+        export_artifact("gtcrn", builders.BUILDERS["gtcrn"](gcfg, seed=29), tmp / "gtcrn",
+                        smoke=False)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            art = optimize_artifact(tmp / "gtcrn", tmp / "gtcrn_q8dyn",
+                                    Plan("q8dyn_256", quantize="q8dyn", q8_min_size=256,
+                                         experimental=True))
+        report = json.loads((art / "optimize_report.json").read_text())
+        params, manifest = load_artifact(art, device="cuda")
+    served = materialize_params(params, manifest)  # q8dyn: as it is
+    n_int8 = sum(1 for _, t in _leaves(served) if t.dtype == torch.int8)
+    clips = [(noisy_speech(STREAM_Q8_SECONDS * SR, 290 + i, pitch=110.0 + 20.0 * i),)
+             for i in range(STREAM_Q8_LANES)]
+    per_step = {**NO_LAUNCHES, "stft_packed": 1}
+    outs = {}
+    for jit in (True, False):
+        server = StreamingServer(gspec, served, gcfg, max_streams=STREAM_Q8_LANES,
+                                 block_hops=STREAM_BLOCK_HOPS, jit=jit, device="cuda")
+        for mod in kernel_modules():
+            mod.reset_launches()
+        server.replays = 0
+        outs[jit], ticks, total = drive_streams(server, clips, 29)
+        counts = launch_counts()
+        if jit:
+            if server.captured_launches != per_step or any(counts.values()):
+                fail(f"q8dyn stream graph: captured {server.captured_launches}, wrapper counts "
+                     f"{counts}")
+            by_path["gtcrn_q8dyn_stream"] = {k: n * server.replays
+                                             for k, n in server.captured_launches.items()}
+            graph_ms = float(np.median(ticks)) * 1e3
+            graph_rtf = total / STREAM_Q8_SECONDS
+        elif counts != {k: n * len(ticks) for k, n in per_step.items()}:
+            fail(f"q8dyn stream eager: {counts} over {len(ticks)} steps")
+        else:
+            eager_ms = float(np.median(ticks)) * 1e3
+            active = torch.ones(STREAM_Q8_LANES, dtype=torch.bool, device="cuda")
+            blocks = [torch.zeros((STREAM_Q8_LANES, server.block), dtype=torch.int16,
+                                  device="cuda")]
+            rows = cuda_rows(lambda: server._masked_step(active, *blocks), {})
+            int8 = [e for e in rows if "int8" in e.key.lower() or "s8" in e.key.lower()
+                    or "imma" in e.key.lower() or "i8" in e.key.lower()]
+        del server
+    worst = max(int(np.abs(g.astype(np.int32) - e).max()) for g, e in zip(outs[True],
+                                                                         outs[False]))
+    for g, (clip,) in zip(outs[True], clips):
+        if g.dtype != np.int16 or g.shape != clip.shape or not np.any(g):
+            fail(f"q8dyn stream: {g.dtype} {g.shape}, expected int16 {clip.shape}")
+    print(f"plans gtcrn q8dyn stream (min_size 256: {report['leaves_quantized']} leaves int8, "
+          f"{n_int8} int8 tensors on the card; {STREAM_Q8_LANES} lanes × {STREAM_Q8_SECONDS} s, "
+          f"irregular pushes): graph vs eager max {worst} LSB; tick median graph "
+          f"{graph_ms:.4f} ms, eager {eager_ms:.4f} ms; RTF a stream graph {graph_rtf:.6f}; "
+          f"eager step {sum(e.count for e in rows)} launches, its int8 GEMM rows "
+          f"{[(e.key[:60], e.count) for e in int8]}  [{card}]", flush=True)
+    if worst > 0:
+        fail(f"q8dyn stream: graph and eager differ by {worst} LSB")
+    return by_path
+
+
 def build_all() -> None:
     """Every kernel source built, one nvcc each, all started together."""
     start_builds()()
 
 
 def start_builds():
-    """Phase 2: ``build_all``'s builds, started together; waits for B1/B2's
-    source (all that phase 3 needs) and returns a function that waits for
-    the rest, so that they build while phase 3 runs."""
+    """Phase 2: ``build_all``'s builds and the native bridge's, started
+    together; waits for B1/B2's source (all that phase 3 needs) and returns a
+    function that waits for the rest, so that they build while phase 3 runs."""
     from audiojax_torch.ops import _build
 
     def one(name: str) -> float:
@@ -2044,13 +2524,15 @@ def start_builds():
 
     names = [src.stem for src in sorted(_build.CSRC.glob("*.cu"))]
     t0 = time.perf_counter()
-    pool = ThreadPoolExecutor(len(names))
+    pool = ThreadPoolExecutor(len(names) + 1)
     futures = {name: pool.submit(one, name) for name in names}
+    native = pool.submit(build_native)  # g++, beside the nvcc builds
     futures["stft"].result()
 
     def finish() -> None:
         for name, future in futures.items():
             print(f"build: csrc/{name}.cu in {future.result():.2f} s", flush=True)
+        print(f"build: native/audioio.cc (g++) in {native.result():.2f} s", flush=True)
         pool.shutdown()
         print(f"build: {len(names)} sources in {time.perf_counter() - t0:.2f} s into "
               f"{_build.BUILD_DIR}", flush=True)
@@ -2120,6 +2602,11 @@ def main() -> int:
     by_path["mossformer2_sr"] = phase(22, serve_sr, card, dev, latency)
     by_path["h_gtcrn"] = phase(23, serve_windowed, card, "h_gtcrn", HGTCRN_PER_FORWARD,
                                (81, 82, 83), latency, clip=two_mic, energies=h_gtcrn_energies)
+    # the native bridge and FLAC; the other families' bf16 plans beside phases
+    # 15, 21 and 22; the q8 and weight-only bf16 plans through the artifact
+    by_path["gtcrn_flac"] = phase(26, check_native, card)
+    by_path.update(phase(27, serve_bf16_rest, card, dev, latency))
+    by_path.update(phase(28, serve_plans, card))
     by_path.update(phase(11, serve_imported, card, latency))
     by_path.update(phase(13, serve_streams, card))
 

@@ -169,10 +169,52 @@ def test_prepare_compute_params_casts_once():
         mossformer2_ss_forward(params, torch.zeros(1, 4000, dtype=torch.int16), tiny)
 
 
+def test_param_module_takes_its_spec_hook(monkeypatch):
+    """``ParamModule`` casts through the ``prepare_params`` hook of the spec
+    that builds its class, and a class that no spec builds takes the
+    whole-tree cast."""
+    from audiojax_torch.models.base import ParamModule
+
+    class Toy(ParamModule):
+        def forward(self, x):
+            return x
+
+    cfg = registry.get("zipenhancer").make_config(compute_dtype="bfloat16")
+    tree = {"keep": {"w": torch.ones(2)}, "net": {"w": torch.ones(2)}}
+    held = Toy(tree, cfg).params
+    assert (held["keep"]["w"].dtype, held["net"]["w"].dtype) == (torch.bfloat16, torch.bfloat16)
+    seen = []
+
+    def hook(params, c):
+        seen.append(c)
+        return {"keep": params["keep"], "net": tcore.cast_f32_tree(params["net"], torch.bfloat16)}
+
+    spec = dataclasses.replace(registry.get("zipenhancer"), name="toy", make_module=Toy,
+                               prepare_params=hook)
+    monkeypatch.setitem(registry._REGISTRY, "toy", spec)
+    assert registry.spec_for_module(Toy) is spec
+    held = Toy(tree, cfg).params
+    assert seen == [cfg]
+    assert (held["keep"]["w"].dtype, held["net"]["w"].dtype) == (torch.float32, torch.bfloat16)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    assert Toy(tree, f32).params["net"]["w"].dtype == torch.float32 and seen == [cfg]
+
+
 @pytest.mark.parametrize("name", ["mossformer2_se", "melband_roformer", "mossformer2_sr"])
 def test_unported_bf16_plans_refused_by_name(name):
-    with pytest.raises(ValueError, match="ROADMAP A.10"):
-        registry.get(name).make_config(compute_dtype="bfloat16")
+    """The three families that refused the bf16 plan until ROADMAP A.10's
+    rest serve it: the config takes it and the module holds the cast tree
+    (SR's generator float32); a compute dtype the port has no plan for is
+    refused by name."""
+    spec = registry.get(name)
+    cfg = dataclasses.replace(tiny_config(name), compute_dtype="bfloat16")
+    assert registry.has_compute_dtype(cfg)
+    params = spec.make_module(spec.init_params(0, cfg, "cpu"), cfg).params
+    gen = params.pop("gen", None)
+    assert {t.dtype for t in _leaves(params)} == {torch.bfloat16}
+    assert gen is None or {t.dtype for t in _leaves(gen)} == {torch.float32}
+    with pytest.raises(ValueError, match="compute_dtype 'float16'"):
+        spec.make_config(compute_dtype="float16")
 
 
 def test_module_casts_its_tree_once():
@@ -271,17 +313,31 @@ def test_cli_serves_the_recorded_dtype(ss_bf16_artifact, tmp_path):
 
 def test_cli_compute_dtype_flag(tmp_path, capsys):
     """``--compute-dtype bfloat16`` serves a float32 artifact of a bf16-plan
-    family in bf16 (the library's bf16 answer); a family without the knob
-    exits 2, and one whose plan is not ported exits 2 naming ROADMAP A.10."""
+    family in bf16 (the library's bf16 answer; MossFormer2-SS, and
+    MossFormer2-SE whose plan this flag refused until ROADMAP A.10's rest); a
+    family without the knob exits 2."""
     src = tmp_path / "mix.wav"
     _write_wav(src, _noisy(16000, 7))
     dst = tmp_path / "out.wav"
     assert cli.main(["--model", "gtcrn", "--input", str(src), "--output", str(dst),
                      "--device", "cpu", "--compute-dtype", "bfloat16"]) == 2
     assert "no compute_dtype knob" in capsys.readouterr().err
-    assert cli.main(["--model", "mossformer2_se", "--input", str(src), "--device", "cpu",
-                     "--compute-dtype", "bfloat16"]) == 2
-    assert "ROADMAP A.10" in capsys.readouterr().err
+    se_art, se_cfg = tmp_path / "se", tiny_config("mossformer2_se")
+    export_artifact("mossformer2_se", BUILDERS["mossformer2_se"](se_cfg, seed=3), se_art,
+                    cfg=se_cfg, smoke=False)
+    se_dst = tmp_path / "se.wav"
+    assert cli.main(["--model", "mossformer2_se", "--artifact", str(se_art), "--input",
+                     str(src), "--output", str(se_dst), "--device", "cpu", "--compute-dtype",
+                     "bfloat16"]) == 0
+    assert "bfloat16" in capsys.readouterr().out
+    params, manifest = load_artifact(se_art, device="cpu")
+    se_spec = registry.get("mossformer2_se")
+    from audiojax_torch.runtime.audio_io import resample_np
+
+    want = Session(se_spec.make_module(params, dataclasses.replace(se_cfg,
+                                                                  compute_dtype="bfloat16")),
+                   manifest, device="cpu").process(resample_np(_read_wav(src), 16000, 48000))
+    np.testing.assert_array_equal(_read_wav(se_dst), want.audio)
     art = tmp_path / "ss"
     cfg = tiny_config("mossformer2_ss")
     export_artifact("mossformer2_ss", BUILDERS["mossformer2_ss"](cfg, seed=2), art, cfg=cfg,

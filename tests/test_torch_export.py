@@ -6,10 +6,11 @@ defaults, the others at the port's tiny test widths).  Their manifests are
 equal as JSON, and the port's ``params.pt`` holds the arrays the JAX
 package's ``load_artifact`` returns, bit for bit.  ``load_artifact`` serves
 exactly what ``params_from_numpy`` of the import tree serves; the export's
-smoke request runs on the CPU when asked; the CLI serves an artifact, and
-refuses a mismatched model, a bf16 artifact of a family whose bf16 plan is
-not ported (MossFormer2-SE), and (like the export) to run without CUDA unless
-given ``--device cpu``.
+smoke request runs on the CPU when asked; the CLI serves an artifact
+(MossFormer2-SE's bf16 one too, refused until ROADMAP A.10's rest), and
+refuses a mismatched model, a bf16 artifact of a family without the
+compute-dtype knob, and (like the export) to run without CUDA unless given
+``--device cpu``.
 """
 import json
 import os
@@ -204,16 +205,21 @@ def test_cli_refuses_mismatched_or_bf16_artifacts(tmp_path, capsys):
     assert cli.main(["--model", "zipenhancer", *base]) == 2
     assert "exported for model 'gtcrn'" in capsys.readouterr().err
 
-    # a family whose bf16 plan is not ported yet (MossFormer2-SE); the three
-    # bf16-plan families serve such artifacts (tests/test_torch_bf16.py)
+    # a bf16 artifact of MossFormer2-SE, whose plan was refused until ROADMAP
+    # A.10's rest, serves; one of a family without the knob (GTCRN) is refused
     _, _, se_art, _ = _export_port("mossformer2_se", tmp_path, smoke=False)
-    manifest_path = se_art / "manifest.json"
-    data = json.loads(manifest_path.read_text())
-    data["extra"]["activation_compute_dtype"] = "bfloat16"
-    data["extra"]["config"]["compute_dtype"] = "bfloat16"
-    manifest_path.write_text(json.dumps(data))
-    assert cli.main(["--model", "mossformer2_se", *base[:1], str(se_art), *base[2:]]) == 2
-    assert "ROADMAP A.10" in capsys.readouterr().err
+    for path, bf16 in ((se_art, True), (art, False)):
+        manifest_path = path / "manifest.json"
+        data = json.loads(manifest_path.read_text())
+        data["extra"]["activation_compute_dtype"] = "bfloat16"
+        if bf16:
+            data["extra"]["config"]["compute_dtype"] = "bfloat16"
+        manifest_path.write_text(json.dumps(data))
+    assert cli.main(["--model", "mossformer2_se", *base[:1], str(se_art), *base[2:],
+                     "--output", str(tmp_path / "se.wav")]) == 0
+    assert "bfloat16" in capsys.readouterr().out
+    assert cli.main(["--model", "gtcrn", *base]) == 2
+    assert "no compute_dtype knob" in capsys.readouterr().err
 
 
 def test_commands_need_cuda_or_cpu(no_cuda, tmp_path):

@@ -29,7 +29,7 @@ from audiojax.models import melband_roformer as J
 from audiojax.nn import core as jcore
 from audiojax.runtime import registry as jregistry
 from audiojax.runtime.session import Session as JSession
-from test_torch_ckpt_builders import TINY, one_thread  # noqa: F401
+from test_torch_ckpt_builders import TINY, hold_bf16, one_thread  # noqa: F401
 
 from audiojax_torch.frontend import mel as TF
 from audiojax_torch.models import melband_roformer as T
@@ -40,6 +40,10 @@ from audiojax_torch.runtime.session import Session as TSession
 
 TOL = 1e-5
 SR = 44100
+# the bf16 plan: the port's bf16 output against the JAX package's bf16 one on
+# the CPU, int16 SNR, just below what was measured, mono and stereo (ROADMAP
+# §C); against its float32 one: test_torch_ckpt_builders.hold_bf16
+BF16_GATE_DB = 41.0
 
 
 def _cfgs(ch: int, **over):
@@ -167,8 +171,28 @@ def test_config_and_init_keys_and_shapes():
         _keys_shapes(J.init_melband(jax.random.PRNGKey(0), jcfg))
     ported = T.init_melband(0, tcfg, device="cpu")
     assert tuple(ported["me_hidden"][0]["w"].shape) == (8, 32, 64)  # stacked dense, kept
-    with pytest.raises(ValueError, match="A.10"):
-        T.MelBandConfig(compute_dtype="bfloat16")
+    assert T.MelBandConfig(compute_dtype="bfloat16").compute_dtype == "bfloat16"
+    with pytest.raises(ValueError, match="compute_dtype 'float16'"):
+        T.MelBandConfig(compute_dtype="float16")
+
+
+def test_bf16_plan_matches_jax(tiny):
+    """The bf16 plan, mono and stereo: a 0.2 s two-row request (tiny widths)
+    against the JAX package's bf16 and float32 forwards, on the same
+    parameters cast by each package's ``prepare_compute_params``.  Both take
+    float32 scores and softmax here (the JAX package's branch off the TPU)."""
+    jcfg, tcfg, pj, pt = tiny
+    jb, tb = (dataclasses.replace(c, compute_dtype="bfloat16") for c in (jcfg, tcfg))
+    audio = np.stack([_music(8820, 11, tcfg.channels), _music(8820, 12, tcfg.channels)])
+    ref32 = jax.jit(lambda p, a: J.melband_forward(p, a, jcfg))(pj, jnp.asarray(audio))
+    ref16 = jax.jit(lambda p, a: J.melband_forward(p, a, jb))(
+        jregistry.prepare_compute_params(pj, jb), jnp.asarray(audio))
+    model = T.MelBandRoformer(pt, tb)
+    assert {t.dtype for t in model.buffers()} == {torch.bfloat16}
+    with torch.inference_mode():
+        out = model(torch.from_numpy(audio))
+    hold_bf16(np.asarray(ref32), np.asarray(ref16), out.numpy(), BF16_GATE_DB,
+              f"melband_roformer ({tcfg.channels} channel(s))")
 
 
 def test_net_matches_jax(tiny):

@@ -28,7 +28,7 @@ from audiojax.nn import mossformer as JM
 from audiojax.runtime import registry as jregistry
 from audiojax.runtime.session import Session as JSession
 
-from test_torch_ckpt_builders import one_thread  # noqa: F401
+from test_torch_ckpt_builders import hold_bf16, one_thread  # noqa: F401
 
 from audiojax_torch.models import mossformer2_se as T
 from audiojax_torch.nn import mossformer as TM
@@ -37,6 +37,10 @@ from audiojax_torch.runtime import registry as tregistry
 from audiojax_torch.runtime.session import Session as TSession
 
 TOL = 1e-5
+# the bf16 plan: the port's bf16 output against the JAX package's bf16 one on
+# the CPU, int16 SNR, just below what was measured (ROADMAP §C); against its
+# float32 one: test_torch_ckpt_builders.hold_bf16
+BF16_GATE_DB = 40.0
 TINY = dict(dim=64, depth=2, group_size=16, qk_dim=32, vu_dim=96, fsmn_inner=32, dw_kernel=5,
             rot_dim=8, lorder=5)
 
@@ -90,8 +94,26 @@ def test_config_and_init_keys_and_shapes(tiny):
     ported = T.init_mossformer2_se(0, tcfg, device="cpu")
     assert ported["pos_scale"].shape == () and ported["tail_act"]["alpha"].shape == ()
     assert tuple(ported["fsmn0"]["mem_conv"]["w"].shape) == (32, 1, 9)  # (C, 1, 2·lorder − 1)
-    with pytest.raises(ValueError, match="A.10"):
-        T.MossFormer2SeConfig(compute_dtype="bfloat16")
+    assert T.MossFormer2SeConfig(compute_dtype="bfloat16").compute_dtype == "bfloat16"
+    with pytest.raises(ValueError, match="compute_dtype 'float16'"):
+        T.MossFormer2SeConfig(compute_dtype="float16")
+
+
+def test_bf16_plan_matches_jax(tiny):
+    """The bf16 plan: a 0.5 s two-row request (tiny widths) against the JAX
+    package's bf16 and float32 forwards, on the same parameters cast by each
+    package's ``prepare_compute_params``; the fbank stays a float32 island."""
+    jcfg, tcfg, pj, pt = tiny
+    jb, tb = (dataclasses.replace(c, compute_dtype="bfloat16") for c in (jcfg, tcfg))
+    audio = np.stack([_speech(24000, 5), _speech(24000, 6)])
+    ref32 = jax.jit(lambda p, a: J.mossformer2_se_forward(p, a, jcfg))(pj, jnp.asarray(audio))
+    ref16 = jax.jit(lambda p, a: J.mossformer2_se_forward(p, a, jb))(
+        jregistry.prepare_compute_params(pj, jb), jnp.asarray(audio))
+    model = tregistry.get("mossformer2_se").make_module(pt, tb)
+    assert {t.dtype for t in model.buffers()} == {torch.bfloat16}
+    with torch.inference_mode():
+        out = model(torch.from_numpy(audio))
+    hold_bf16(np.asarray(ref32), np.asarray(ref16), out.numpy(), BF16_GATE_DB, "mossformer2_se")
 
 
 def test_gated_fsmn_block_matches_jax(tiny):

@@ -28,7 +28,7 @@ from audiojax.models import mossformer_sr as J
 from audiojax.runtime import registry as jregistry
 from audiojax.runtime.session import Session as JSession
 from reference_loader import snr_db
-from test_torch_ckpt_builders import TINY, one_thread  # noqa: F401
+from test_torch_ckpt_builders import BF16_MARGIN_DB, TINY, one_thread  # noqa: F401
 
 from audiojax_torch.dsp import fir as TFIR
 from audiojax_torch.models import mossformer_sr as T
@@ -41,6 +41,16 @@ from audiojax_torch.runtime.session import Session as TSession
 TOL = 1e-5
 GEN_TOL = 5e-3  # × max|ref|, the generator against JAX (measured 1.24e-3)
 MIN_SNR_DB = 40.0
+# the bf16 plan, measured on the CPU (ROADMAP §C).  The mask net's float
+# output against the JAX package's bf16 one, and against its float32 one at
+# the JAX package's own gate (tests/test_mossformer_sr.py).  The int16
+# forward: the random generator is chaotic (float32 port and JAX part by
+# 1.2e-3 already), so a bf16 mask net's rounding reaches the output far
+# amplified in both packages; held against JAX bf16 at the value measured, and
+# no further from JAX float32 than JAX bf16 is, within BF16_MARGIN_DB.
+BF16_MASKNET_GATE_DB = 42.0
+BF16_MASKNET_VS_F32_DB = 25.0
+BF16_FORWARD_GATE_DB = 13.0
 
 
 @pytest.fixture(scope="module")
@@ -87,8 +97,48 @@ def test_config_and_init_keys_and_shapes(tiny):
                           jax.random.PRNGKey(0))
     assert _keys_shapes(T.init_mossformer_sr_numpy(0, T.MossFormerSrConfig(**narrow))) == \
         _keys_shapes(full)
-    with pytest.raises(ValueError, match="A.10"):
-        T.MossFormerSrConfig(compute_dtype="bfloat16")
+    assert T.MossFormerSrConfig(compute_dtype="bfloat16").compute_dtype == "bfloat16"
+    with pytest.raises(ValueError, match="compute_dtype 'float16'"):
+        T.MossFormerSrConfig(compute_dtype="float16")
+
+
+def test_bf16_plan_matches_jax(tiny):
+    """The bf16 plan: only the mask net is cast (``prepare_params_sr``, the
+    spec's hook, which the module calls), the generator stays float32.  The mask net
+    on a log-mel, and the int16 forward on a 0.25 s two-row request, against
+    the JAX package's bf16 and float32 ones on the same parameters."""
+    jcfg, tcfg, pj, pt = tiny
+    jb, tb = (dataclasses.replace(c, compute_dtype="bfloat16") for c in (jcfg, tcfg))
+    model = tregistry.get("mossformer2_sr").make_module(pt, tb)
+    held = model.params
+    assert {t.dtype for t in jax.tree.leaves(held["gen"])} == {torch.float32}
+    assert held["front"]["w"].dtype == held["flash0"]["in_lin"]["w"].dtype == torch.bfloat16
+
+    mel = np.random.default_rng(6).standard_normal((2, 40, jcfg.n_mels)).astype(np.float32)
+    m32 = np.asarray(jax.jit(lambda p, m: J.sr_masknet(p, m, jcfg))(pj, jnp.asarray(mel)))
+    m16 = np.asarray(jax.jit(lambda p, m: J.sr_masknet(p, m, jb))(
+        J.prepare_params_sr(pj, jb), jnp.asarray(mel)))
+    got = T.sr_masknet(held, torch.from_numpy(mel), tb)
+    assert got.dtype == torch.float32
+    got = got.numpy()
+    s16, s32 = snr_db(m16, got), snr_db(m32, got)
+    print(f"\nmossformer2_sr bf16 mask net: port vs JAX bf16 {s16:.2f} dB, vs JAX float32 "
+          f"{s32:.2f} dB; JAX bf16 vs JAX float32 {snr_db(m32, m16):.2f} dB")
+    assert s16 >= BF16_MASKNET_GATE_DB and s32 >= BF16_MASKNET_VS_F32_DB
+
+    audio = np.stack([_speech16k(4096, 7), _speech16k(4096, 8)])
+    ref32 = np.asarray(jax.jit(lambda p, a: J.mossformer_sr_forward(p, a, jcfg))(
+        pj, jnp.asarray(audio)))
+    ref16 = np.asarray(jax.jit(lambda p, a: J.mossformer_sr_forward(p, a, jb))(
+        jregistry.prepare_compute_params(pj, jb, jregistry.get("mossformer2_sr")),
+        jnp.asarray(audio)))
+    with torch.inference_mode():
+        out = model(torch.from_numpy(audio)).numpy()
+    s16, s32, j32 = snr_db(ref16, out), snr_db(ref32, out), snr_db(ref32, ref16)
+    print(f"mossformer2_sr bf16 forward: port vs JAX bf16 {s16:.2f} dB, vs JAX float32 "
+          f"{s32:.2f} dB; JAX bf16 vs JAX float32 {j32:.2f} dB")
+    assert out.dtype == np.int16 and out.shape == ref16.shape == (2, 3 * 4096) and np.any(out)
+    assert s16 >= BF16_FORWARD_GATE_DB and s32 >= j32 - BF16_MARGIN_DB
 
 
 @pytest.mark.parametrize("taps,left,out_len", [(193, 96, None), (511, 0, 1500), (7, 3, 2100)])
