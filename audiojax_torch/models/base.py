@@ -6,6 +6,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..params import BUFFER_SEP
 from ..runtime.registry import prepare_compute_params, spec_for_module
 
 __all__ = ["ParamModule", "glorot_np", "dense_np", "conv_np"]
@@ -25,7 +26,7 @@ class ParamModule(nn.Module):
     weight-only bf16 tree), maps the view at every forward, so the buffers
     keep their stored dtype on the device.  A subclass defines ``forward``."""
 
-    _SEP = "__"
+    _SEP = BUFFER_SEP
     param_view = None  # tree -> tree at every forward
 
     def __init__(self, params: dict, cfg):

@@ -7,9 +7,22 @@ use: to a per-process temporary path, then renamed into place, so concurrent
 processes never load a half-written file.
 
 A failed build raises.  Nothing falls back to the plain PyTorch versions.
+
+Each routing point (the ``fast_*`` functions of ``stft_cuda``, ``dwconv_cuda``
+and ``attention_cuda``) is also a registered operator,
+``torch.ops.audiojax_torch.<name>`` (``torch.library.custom_op``), which a
+``torch.export`` graph records in place of the launcher: its CUDA tensors
+launch the same ctypes launcher and count the same launch, its CPU tensors
+take the plain version, and its fake implementation gives the output's shape
+and dtype from the arguments alone (no launch plan, which branches on the
+batch size).  Eager calls keep the direct launcher, and pay no dispatcher
+cost: a routing point calls its operator only where :func:`through_ops` says
+so, while ``torch.export`` traces or inside :func:`registered_ops`.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import functools
 import hashlib
@@ -20,12 +33,15 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_DIR", "DTYPES", "count", "load", "load_source"]
+__all__ = ["BUILD_DIR", "DTYPES", "count", "load", "load_source", "through_ops",
+           "registered_ops"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # the kernels' element types: a tensor dtype → the suffix of its C entry points
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+_force_ops = contextvars.ContextVar("audiojax_torch_registered_ops", default=False)
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -86,3 +102,20 @@ def count(launches: dict, name: str, dtype: torch.dtype) -> None:
     """One launch of ``name``'s kernel on ``dtype`` inputs into ``launches``:
     a bf16 instance counts under ``<name>_bf16``."""
     launches[name if dtype == torch.float32 else f"{name}_bf16"] += 1
+
+
+def through_ops() -> bool:
+    """True where a routing point calls its registered operator: while
+    ``torch.export`` traces, or inside :func:`registered_ops`."""
+    return _force_ops.get() or torch.compiler.is_exporting()
+
+
+@contextlib.contextmanager
+def registered_ops():
+    """Eager calls go through the registered operators too (the FLOP count of
+    ``utils.inspect_model``, the operators' host cost in ``chip_smoke.py``)."""
+    token = _force_ops.set(True)
+    try:
+        yield
+    finally:
+        _force_ops.reset(token)

@@ -65,22 +65,27 @@ the softmax in f32.  Each dtype has its own launch counter (``quad_attention_bf1
 
 ``fast_quad_attention`` and ``fast_relpos_scores`` take the plain versions
 (``quad_attention_plain``, ``relpos_scores_plain``) only for a tensor on the
-CPU; a CUDA tensor launches the kernel or raises.
+CPU; a CUDA tensor launches the kernel or raises.  Both are registered
+operators too, ``audiojax_torch::quad_attention`` and
+``audiojax_torch::relpos_scores``, which ``torch.export`` graphs record (see
+``_build``).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
+import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 
 __all__ = ["launches", "reset_launches", "QuadLaunch", "quad_launch", "launch_quad_attention",
            "quad_attention_cuda", "quad_attention_plain", "fast_quad_attention", "pos_stride",
            "RelposLaunch", "relpos_launch", "launch_relpos_scores", "relpos_scores_plain",
-           "relpos_scores_cuda", "fast_relpos_scores"]
+           "relpos_scores_cuda", "fast_relpos_scores", "quad_attention_op", "relpos_scores_op"]
 
 # Kernel launches since the last reset.  The wrapper adds one where it
 # launches its kernel, and nowhere else.
@@ -243,10 +248,38 @@ def quad_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, sc
     return out
 
 
+# an operator's out_dtype argument: "" for the inputs' own dtype
+_OUT_DTYPES = {"": None, "float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@torch.library.custom_op("audiojax_torch::quad_attention", mutates_args=())
+def quad_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                      mask_diag: bool, out_dtype: str) -> torch.Tensor:
+    """B6 as a registered operator: the kernel for a CUDA tensor, the plain
+    version for a CPU one."""
+    fn = quad_attention_plain if q.device.type == "cpu" else quad_attention_cuda
+    return fn(q, k, v, scale=scale, mask_diag=mask_diag, out_dtype=_OUT_DTYPES[out_dtype])
+
+
+@quad_attention_op.register_fake
+def _(q, k, v, scale, mask_diag, out_dtype):
+    return v.new_empty((*q.shape[:2], v.shape[-1]), dtype=_OUT_DTYPES[out_dtype] or v.dtype)
+
+
+@register_flop_formula(torch.ops.audiojax_torch.quad_attention)
+def _(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
+    """The score product and the PV product."""
+    n, s, dk = q_shape
+    return 2 * n * s * s * (dk + v_shape[-1])
+
+
 def fast_quad_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
                         mask_diag: bool = False,
                         out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """relu² attention: the plain version for a CPU tensor, the kernel for a CUDA one."""
+    if _build.through_ops():
+        name = "" if out_dtype is None else str(out_dtype).removeprefix("torch.")
+        return torch.ops.audiojax_torch.quad_attention(q, k, v, float(scale), mask_diag, name)
     if q.device.type == "cpu":
         return quad_attention_plain(q, k, v, scale=scale, mask_diag=mask_diag,
                                     out_dtype=out_dtype)
@@ -441,9 +474,33 @@ def relpos_scores_cuda(q: torch.Tensor, k: torch.Tensor, pp: torch.Tensor, pe: t
     return out
 
 
+@torch.library.custom_op("audiojax_torch::relpos_scores", mutates_args=())
+def relpos_scores_op(q: torch.Tensor, k: torch.Tensor, pp: torch.Tensor, pe: torch.Tensor,
+                     num_heads: int) -> torch.Tensor:
+    """B3 as a registered operator: the kernel for a CUDA tensor, the plain
+    version for a CPU one."""
+    fn = relpos_scores_plain if q.device.type == "cpu" else relpos_scores_cuda
+    return fn(q, k, pp, pe, num_heads=num_heads)
+
+
+@relpos_scores_op.register_fake
+def _(q, k, pp, pe, num_heads):
+    return q.new_empty((q.shape[0], num_heads, q.shape[1], q.shape[1]))
+
+
+@register_flop_formula(torch.ops.audiojax_torch.relpos_scores)
+def _(q_shape, k_shape, pp_shape, pe_shape, num_heads, *args, out_shape=None, **kwargs) -> int:
+    """A probability: the D-term dot product, the P-term bias, max, subtract,
+    exp, sum and divide."""
+    d, n_pos = q_shape[-1] // num_heads, pe_shape[1]
+    return math.prod(out_shape) * (2 * d + 2 * n_pos + 5)
+
+
 def fast_relpos_scores(q: torch.Tensor, k: torch.Tensor, pp: torch.Tensor, pe: torch.Tensor, *,
                        num_heads: int) -> torch.Tensor:
     """Rel-pos attention scores: the plain version for a CPU tensor, the kernel for a CUDA one."""
+    if _build.through_ops():
+        return torch.ops.audiojax_torch.relpos_scores(q, k, pp, pe, num_heads)
     if q.device.type == "cpu":
         return relpos_scores_plain(q, k, pp, pe, num_heads=num_heads)
     return relpos_scores_cuda(q, k, pp, pe, num_heads=num_heads)

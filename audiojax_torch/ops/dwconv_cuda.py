@@ -55,7 +55,10 @@ times of each plan choice.
 
 ``fast_dwconv1d`` and ``fast_dwconv1d_grouped`` take the plain versions
 (``dwconv1d_plain``, ``dwconv1d_grouped_plain``) only for a tensor on the
-CPU; a CUDA tensor launches the kernel or raises.
+CPU; a CUDA tensor launches the kernel or raises.  Both are registered
+operators too, ``audiojax_torch::dwconv1d`` and
+``audiojax_torch::dwconv1d_grouped``, which ``torch.export`` graphs record
+(see ``_build``).
 """
 from __future__ import annotations
 
@@ -66,12 +69,14 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 
 __all__ = ["launches", "reset_launches", "DwconvLaunch", "dwconv_launch", "launch_dwconv1d",
            "launch_dwconv1d_grouped", "dwconv1d_cuda", "dwconv1d_plain", "fast_dwconv1d",
-           "dwconv1d_grouped_cuda", "dwconv1d_grouped_plain", "fast_dwconv1d_grouped"]
+           "dwconv1d_grouped_cuda", "dwconv1d_grouped_plain", "fast_dwconv1d_grouped",
+           "dwconv1d_op", "dwconv1d_grouped_op"]
 
 # Kernel launches since the last reset.  The wrapper adds one where it
 # launches its kernel, and nowhere else.
@@ -353,9 +358,32 @@ def dwconv1d_cuda(x: torch.Tensor, w: torch.Tensor, *, pads=(0, 0),
     return y
 
 
+@torch.library.custom_op("audiojax_torch::dwconv1d", mutates_args=())
+def dwconv1d_op(x: torch.Tensor, w: torch.Tensor, pad_lo: int, pad_hi: int,
+                dilation: int) -> torch.Tensor:
+    """B4 as a registered operator: the kernel for a CUDA tensor, the plain
+    version for a CPU one."""
+    fn = dwconv1d_plain if x.device.type == "cpu" else dwconv1d_cuda
+    return fn(x, w, pads=(pad_lo, pad_hi), dilation=dilation)
+
+
+@dwconv1d_op.register_fake
+def _(x, w, pad_lo, pad_hi, dilation):
+    return x.new_empty((x.shape[0], x.shape[1] + pad_lo + pad_hi - dilation * (w.shape[0] - 1),
+                        x.shape[2]))
+
+
+@register_flop_formula(torch.ops.audiojax_torch.dwconv1d)
+def _(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
+    """A multiply and an add a tap an output."""
+    return 2 * math.prod(out_shape) * w_shape[0]
+
+
 def fast_dwconv1d(x: torch.Tensor, w: torch.Tensor, *, pads=(0, 0),
                   dilation: int = 1) -> torch.Tensor:
     """Depthwise conv1d: the plain version for a CPU tensor, the kernel for a CUDA one."""
+    if _build.through_ops():
+        return torch.ops.audiojax_torch.dwconv1d(x, w, pads[0], pads[1], dilation)
     if x.device.type == "cpu":
         return dwconv1d_plain(x, w, pads=pads, dilation=dilation)
     return dwconv1d_cuda(x, w, pads=pads, dilation=dilation)
@@ -402,10 +430,33 @@ def dwconv1d_grouped_cuda(x: torch.Tensor, w: torch.Tensor, *, pads=(0, 0),
     return y
 
 
+@torch.library.custom_op("audiojax_torch::dwconv1d_grouped", mutates_args=())
+def dwconv1d_grouped_op(x: torch.Tensor, w: torch.Tensor, pad_lo: int, pad_hi: int,
+                        dilation: int) -> torch.Tensor:
+    """B5 as a registered operator: the kernel for a CUDA tensor, the plain
+    version for a CPU one."""
+    fn = dwconv1d_grouped_plain if x.device.type == "cpu" else dwconv1d_grouped_cuda
+    return fn(x, w, pads=(pad_lo, pad_hi), dilation=dilation)
+
+
+@dwconv1d_grouped_op.register_fake
+def _(x, w, pad_lo, pad_hi, dilation):
+    return x.new_empty((x.shape[0], x.shape[1] + pad_lo + pad_hi - dilation * (w.shape[0] - 1),
+                        w.shape[2]))
+
+
+@register_flop_formula(torch.ops.audiojax_torch.dwconv1d_grouped)
+def _(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
+    """A multiply and an add a tap and input lane an output."""
+    return 2 * math.prod(out_shape) * w_shape[0] * w_shape[1]
+
+
 def fast_dwconv1d_grouped(x: torch.Tensor, w: torch.Tensor, *, pads=(0, 0),
                           dilation: int = 1) -> torch.Tensor:
     """Grouped 2-in/1-out conv1d: the plain version for a CPU tensor, the kernel
     for a CUDA one."""
+    if _build.through_ops():
+        return torch.ops.audiojax_torch.dwconv1d_grouped(x, w, pads[0], pads[1], dilation)
     if x.device.type == "cpu":
         return dwconv1d_grouped_plain(x, w, pads=pads, dilation=dilation)
     return dwconv1d_grouped_cuda(x, w, pads=pads, dilation=dilation)

@@ -38,19 +38,24 @@ fewer than two blocks an SM (264), within the block's 227 KB of shared
 memory (B2: all of a tile's frames at once in a third of it where the rows
 allow, for three blocks an SM).
 Each wrapper takes the plain PyTorch version (``dsp.stft``) only for a
-tensor on the CPU.  A CUDA tensor launches the kernel or raises.
+tensor on the CPU.  A CUDA tensor launches the kernel or raises.  Both
+routing points are registered operators too, ``audiojax_torch::stft_packed``
+and ``audiojax_torch::istft_packed`` (``StftConfig`` flattened into their
+arguments), which ``torch.export`` graphs record (see ``_build``).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ..dsp.stft import (StftConfig, _out_end, analysis_window, fft_plan, fft_table,
-                        inv_win_sum, nyquist_imag, synthesis_window)
+                        inv_win_sum, num_frames, nyquist_imag, synthesis_window)
 from ..dsp.stft import istft_packed as plain_istft_packed
 from ..dsp.stft import stft_packed as plain_stft_packed
 from . import _build
@@ -68,6 +73,8 @@ __all__ = [
     "fast_istft_packed",
     "plain_stft_packed",
     "plain_istft_packed",
+    "stft_packed_op",
+    "istft_packed_op",
 ]
 
 # Kernel launches since the last reset, by kernel name.  Each wrapper adds one
@@ -283,8 +290,77 @@ def istft_packed_cuda(spec: torch.Tensor, cfg: StftConfig,
     return out
 
 
+def _cfg_args(cfg: StftConfig) -> tuple:
+    """``cfg`` as an operator's arguments (ints, strings, bools, floats)."""
+    return (cfg.n_fft, cfg.hop, -1 if cfg.win_length is None else cfg.win_length, cfg.window,
+            cfg.center, cfg.pad_mode, float(cfg.input_scale), float(cfg.output_scale))
+
+
+def _cfg(n_fft, hop, win_length, window, center, pad_mode, input_scale, output_scale):
+    return StftConfig(n_fft, hop, None if win_length < 0 else win_length, window, center,
+                      pad_mode, input_scale, output_scale)
+
+
+@torch.library.custom_op("audiojax_torch::stft_packed", mutates_args=())
+def stft_packed_op(x: torch.Tensor, n_fft: int, hop: int, win_length: int, window: str,
+                   center: bool, pad_mode: str, input_scale: float,
+                   output_scale: float) -> torch.Tensor:
+    """B1 as a registered operator: the kernel for a CUDA tensor, the plain
+    version for a CPU one."""
+    cfg = _cfg(n_fft, hop, win_length, window, center, pad_mode, input_scale, output_scale)
+    return plain_stft_packed(x, cfg) if x.device.type == "cpu" else stft_packed_cuda(x, cfg)
+
+
+@stft_packed_op.register_fake
+def _(x, n_fft, hop, win_length, window, center, pad_mode, input_scale, output_scale):
+    cfg = _cfg(n_fft, hop, win_length, window, center, pad_mode, input_scale, output_scale)
+    return x.new_empty((*x.shape[:-1], num_frames(cfg, x.shape[-1]), 2 * cfg.f_bins))
+
+
+@torch.library.custom_op("audiojax_torch::istft_packed", mutates_args=())
+def istft_packed_op(spec: torch.Tensor, n_fft: int, hop: int, win_length: int, window: str,
+                    center: bool, pad_mode: str, input_scale: float, output_scale: float,
+                    out_length: int) -> torch.Tensor:
+    """B2 as a registered operator (``out_length`` < 0: the whole signal)."""
+    cfg = _cfg(n_fft, hop, win_length, window, center, pad_mode, input_scale, output_scale)
+    length = None if out_length < 0 else out_length
+    if spec.device.type == "cpu":
+        return plain_istft_packed(spec, cfg, length)
+    return istft_packed_cuda(spec, cfg, length)
+
+
+@istft_packed_op.register_fake
+def _(spec, n_fft, hop, win_length, window, center, pad_mode, input_scale, output_scale,
+      out_length):
+    cfg = _cfg(n_fft, hop, win_length, window, center, pad_mode, input_scale, output_scale)
+    n_t = spec.shape[-2]
+    end = _out_end(cfg, n_t, cfg.n_fft + cfg.hop * (n_t - 1),
+                   None if out_length < 0 else out_length)
+    return spec.new_empty((*spec.shape[:-2], end - (cfg.half if cfg.center else 0)))
+
+
+def _fft_flops(n: int) -> float:
+    """Operations of one length-``n`` FFT, 5/2·n·log2(n) (``chip_smoke.py``'s count)."""
+    return 2.5 * n * math.log2(n)
+
+
+@register_flop_formula(torch.ops.audiojax_torch.stft_packed)
+def _(x_shape, n_fft, *args, out_shape=None, **kwargs) -> int:
+    """Each frame's FFT and window product."""
+    return int(math.prod(out_shape[:-1]) * (_fft_flops(n_fft) + n_fft))
+
+
+@register_flop_formula(torch.ops.audiojax_torch.istft_packed)
+def _(spec_shape, n_fft, *args, out_shape=None, **kwargs) -> int:
+    """Each frame's FFT, window product and overlap-add, and the COLA scaling."""
+    return int(math.prod(spec_shape[:-1]) * (_fft_flops(n_fft) + 2 * n_fft)
+               + math.prod(out_shape))
+
+
 def fast_stft_packed(x: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
     """STFT: the plain version for a CPU tensor, the kernel for a CUDA one."""
+    if _build.through_ops():
+        return torch.ops.audiojax_torch.stft_packed(x, *_cfg_args(cfg))
     if x.device.type == "cpu":
         return plain_stft_packed(x, cfg)
     return stft_packed_cuda(x, cfg)
@@ -293,6 +369,9 @@ def fast_stft_packed(x: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
 def fast_istft_packed(spec: torch.Tensor, cfg: StftConfig,
                       out_length: int | None = None) -> torch.Tensor:
     """ISTFT: the plain version for a CPU tensor, the kernel for a CUDA one."""
+    if _build.through_ops():
+        return torch.ops.audiojax_torch.istft_packed(
+            spec, *_cfg_args(cfg), -1 if out_length is None else out_length)
     if spec.device.type == "cpu":
         return plain_istft_packed(spec, cfg, out_length)
     return istft_packed_cuda(spec, cfg, out_length)

@@ -41,7 +41,11 @@ import torch
 
 from .device import resolve_device
 
-__all__ = ["params_from_numpy", "STACKED_DENSE"]
+__all__ = ["params_from_numpy", "STACKED_DENSE", "BUFFER_SEP"]
+
+# joins a leaf's path (keys, list indices) into its buffer name in a module
+# (``models.base.ParamModule``, ``runtime.aot.CompiledGraph``)
+BUFFER_SEP = "__"
 
 # top-level keys whose 3-D ``w`` leaves are stacked dense weights (bands, in, out)
 STACKED_DENSE = ("me_hidden",)

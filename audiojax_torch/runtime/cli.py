@@ -18,6 +18,10 @@
     python -m audiojax_torch.runtime.cli --model gtcrn --input noisy.wav --stream [--block-hops 4]
     python -m audiojax_torch.runtime.cli --model nkf_aec --input near.wav far.wav --stream
     python -m audiojax_torch.runtime.cli --model dfsmn_aec --input near.wav far.wav --stream
+    python -m audiojax_torch.runtime.cli --model gtcrn --artifact jax_art/ --input noisy.wav
+        (an artifact the JAX package wrote: params.msgpack)
+    python -m audiojax_torch.runtime.cli --model mossformergan_se --artifact art/ --aot \
+        --input noisy.wav  (the graph that export --aot wrote)
     python -m audiojax_torch.runtime.cli --list
 
 With ``--artifact`` the command serves the weights of an artifact that
@@ -27,7 +31,11 @@ model; an artifact exported with ``--compute-dtype`` is served in the dtype
 it records, and one optimized by ``runtime.optimize`` (or ``export --plan``)
 as its manifest's ``optimize`` record says: q8f32 and weight-only bf16
 weights mapped to float32 at every forward (stream: once, on the host), q8dyn
-as it is.  Without it, parameters are drawn at random from ``--seed``.
+as it is.  The artifact may be the JAX package's (``params.msgpack``, read
+without ``msgpack``).  With ``--aot`` the artifact's ``torch.export`` graph
+(``graph.pt2``, written by ``export --aot`` on the same device type) serves
+the windows instead of the model code; an artifact without a graph exits 2.
+Without it, parameters are drawn at random from ``--seed``.
 ``--compute-dtype bfloat16`` serves the bf16 plan (bf16 network, float32 DSP
 islands) of the families whose config has the knob (zipenhancer,
 mossformergan_se, mossformer2_ss, mossformer2_se, melband_roformer,
@@ -67,7 +75,8 @@ def main(argv=None) -> int:
     ap.add_argument("--input", nargs="*", default=[],
                     help="input audio path(s), WAV or FLAC: near then far for the echo cancellers")
     ap.add_argument("--output", help="output wav path (multi-source models append _0, _1, …)")
-    ap.add_argument("--artifact", help="artifact dir with params.pt + manifest.json")
+    ap.add_argument("--artifact", help="artifact dir with params.pt (or the JAX package's "
+                    "params.msgpack) + manifest.json")
     ap.add_argument("--seed", type=int, default=0, help="random-parameter seed when no artifact")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--stream", action="store_true",
@@ -78,6 +87,9 @@ def main(argv=None) -> int:
                          "islands, of zipenhancer, mossformergan_se, mossformer2_ss, "
                          "mossformer2_se, melband_roformer[_stereo] and mossformer2_sr); an "
                          "artifact's recorded dtype unless given")
+    ap.add_argument("--aot", action="store_true",
+                    help="serve from the artifact's torch.export graph (graph.pt2, written by "
+                         "export --aot) instead of the model code")
     ap.add_argument("--list", action="store_true", help="list registered models")
     args = ap.parse_args(argv)
 
@@ -96,6 +108,15 @@ def main(argv=None) -> int:
               f"streaming models: {streaming}", file=sys.stderr)
         return 2
 
+    if args.aot:
+        from . import aot
+
+        if args.stream or not args.artifact or not aot.has_graph(args.artifact):
+            print("--aot needs an --artifact containing a serialized graph (export with "
+                  "`python -m audiojax_torch.runtime.export … --aot`), and serves windows, "
+                  "not --stream", file=sys.stderr)
+            return 2
+
     from ..device import resolve_device
     from .audio_io import read_audio, resample_np, to_mono, write_wav
     from .checkpoint import load_artifact
@@ -111,15 +132,9 @@ def main(argv=None) -> int:
             print(f"artifact was exported for model {manifest.model_name!r} but --model is "
                   f"{spec.name!r}; refusing to serve with mixed geometry", file=sys.stderr)
             return 2
-        stored = manifest.extra.get("config")
         recorded = manifest.extra.get("activation_compute_dtype")
         try:
-            if stored is not None:
-                # the exported config exactly (JSON turned tuples into lists)
-                def _detuple(v):
-                    return tuple(_detuple(x) for x in v) if isinstance(v, list) else v
-
-                cfg = type(cfg)(**{k: _detuple(v) for k, v in stored.items()})
+            cfg = registry.config_from_manifest(spec, manifest)  # the exported config exactly
             if recorded and not args.compute_dtype:  # the dtype the artifact was exported for
                 if not registry.has_compute_dtype(cfg):
                     print(f"artifact records activation_compute_dtype={recorded!r} but "
@@ -170,7 +185,10 @@ def main(argv=None) -> int:
         # a stream builds its step from the spec: an optimized tree is mapped once
         return _stream(spec, materialize_params(params, manifest), cfg, manifest, audios, inputs,
                        args, device)
-    model = wrap_forward(spec.make_module(params, cfg), manifest)
+    if args.aot:  # the plan's view is inside the graph
+        model = aot.load_compiled(args.artifact, aot.prepare_for_graph(params, args.artifact))
+    else:
+        model = wrap_forward(spec.make_module(params, cfg), manifest)
     result = Session(model, manifest, device=device).process(*audios)
 
     out_base = Path(args.output) if args.output else inputs[0].with_name(

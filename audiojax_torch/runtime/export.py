@@ -24,7 +24,17 @@ stored config), so that the CLI serves the artifact with it; the parameters
 are stored float32 and cast once where they are served.  ``plan`` (a name in
 ``runtime.optimize.PLANS``: q8f32, q8dyn, bf16 …) optimizes the written
 artifact in place before the smoke request, which then serves what the plan
-wrote.  The JAX package's ``aot`` option is queued (ROADMAP A.10).
+wrote.
+
+``aot`` (``--aot``) also exports the served forward as a ``torch.export``
+graph into the artifact (``graph.pt2`` + ``graph.json``, ``runtime/aot.py``),
+traced on the smoke request's device over the parameters as they are served
+(the plan's tree, cast to the compute dtype); ``cli --aot`` then serves the
+graph, and a host can serve it without the model code.  A graph holds its
+device: export on the card for the card.
+
+    python -m audiojax_torch.runtime.export --model mossformergan_se \
+        --checkpoint ckpt.pt --out artifact_dir/ --aot
 """
 from __future__ import annotations
 
@@ -37,12 +47,13 @@ __all__ = ["export_artifact"]
 
 def export_artifact(model_name: str, ckpt, out_dir, *, cfg=None, smoke: bool = True,
                     import_kwargs=None, device=None, compute_dtype: str | None = None,
-                    plan=None) -> dict:
+                    plan=None, aot: bool = False) -> dict:
     """checkpoint (path or state dict) → artifact directory; returns a report
-    dict (``artifact``, ``model`` and, with ``smoke``, the request's
-    ``smoke`` summary).  ``compute_dtype`` replaces the config's and is
-    recorded in the manifest; ``plan`` (a ``runtime.optimize.Plan``)
-    optimizes the artifact in place."""
+    dict (``artifact``, ``model``, with ``aot`` the graph's ``aot``,
+    ``aot_batch_mode`` and ``aot_admissible_batches``, and with ``smoke``
+    the request's ``smoke`` summary).  ``compute_dtype`` replaces the
+    config's and is recorded in the manifest; ``plan`` (a
+    ``runtime.optimize.Plan``) optimizes the artifact in place."""
     import numpy as np
     import torch
 
@@ -54,7 +65,7 @@ def export_artifact(model_name: str, ckpt, out_dir, *, cfg=None, smoke: bool = T
     from .session import Session
 
     spec = registry.get(model_name)
-    dev = resolve_device(device) if smoke else None
+    dev = resolve_device(device) if smoke or aot else None
     cfg = cfg if cfg is not None else spec.make_config()
     if compute_dtype is not None:
         if not registry.has_compute_dtype(cfg):
@@ -83,15 +94,26 @@ def export_artifact(model_name: str, ckpt, out_dir, *, cfg=None, smoke: bool = T
     if plan is not None:
         optimize_artifact(out_dir, out_dir, plan)
 
-    if smoke:
-        # synthetic int16 inputs through the Session, on what is on disk
+    if smoke or aot:  # what is on disk, as it is served
         served, manifest = load_artifact(out_dir, dev)
+        model = wrap_forward(spec.make_module(served, cfg), manifest)
+    if aot:
+        import json
+
+        from . import aot as graph
+
+        meta_path = graph.attach_graph(out_dir, model, manifest)
+        meta = json.loads(meta_path.read_text())
+        # the serving bound, visible at export time
+        report.update(aot=str(meta_path), aot_batch_mode=meta["batch_mode"],
+                      aot_admissible_batches=meta["admissible_batches"])
+    if smoke:
+        # synthetic int16 inputs through the Session
         rng = np.random.default_rng(0)
         length = min(manifest.input_audio_length, manifest.in_sample_rate)
         # (channels, n): a two-channel model (stereo Mel-Band, H-GTCRN) takes two
         audios = [(rng.standard_normal((manifest.input_channels, length)) * 6000)
                   .astype(np.int16) for _ in range(manifest.num_audio_inputs)]
-        model = wrap_forward(spec.make_module(served, cfg), manifest)
         result = Session(model, manifest, device=dev).process(*audios)
         if not all(np.isfinite(o.astype(np.float64)).all() for o in result.outputs):
             raise RuntimeError("export smoke test produced non-finite output")
@@ -123,6 +145,9 @@ def main(argv=None) -> int:
     ap.add_argument("--compute-dtype", choices=["float32", "bfloat16"], default=None,
                     help="activation compute dtype, recorded in the manifest (bfloat16: the "
                          "bf16 serving plan of the families with the knob)")
+    ap.add_argument("--aot", action="store_true",
+                    help="export the served forward as a torch.export graph into the artifact "
+                         "(graph.pt2 + graph.json), on --device; cli --aot serves it")
     args = ap.parse_args(argv)
     from .optimize import PLANS
 
@@ -130,7 +155,7 @@ def main(argv=None) -> int:
         ap.error(f"unknown plan {args.plan!r}; available: {sorted(PLANS)}")
     report = export_artifact(args.model, args.checkpoint, args.out,
                              smoke=not args.no_smoke, device=args.device,
-                             compute_dtype=args.compute_dtype,
+                             compute_dtype=args.compute_dtype, aot=args.aot,
                              plan=PLANS[args.plan] if args.plan else None)
     print(json.dumps(report))
     return 0

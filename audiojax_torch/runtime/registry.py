@@ -10,7 +10,7 @@ from torch import nn
 from .manifest import Manifest
 
 __all__ = ["ModelSpec", "register", "get", "names", "spec_for_module", "has_compute_dtype",
-           "prepare_compute_params"]
+           "prepare_compute_params", "config_from_manifest"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +66,19 @@ def has_compute_dtype(cfg) -> bool:
     """True when a model config has the activation ``compute_dtype`` knob."""
     return dataclasses.is_dataclass(cfg) and any(
         f.name == "compute_dtype" for f in dataclasses.fields(cfg))
+
+
+def config_from_manifest(spec: ModelSpec, manifest: Manifest):
+    """The config an artifact records (``manifest.extra["config"]``, written
+    by export; JSON turned its tuples into lists), else the spec's default."""
+    stored = (manifest.extra or {}).get("config")
+    if stored is None:
+        return spec.make_config()
+
+    def detuple(v):
+        return tuple(detuple(x) for x in v) if isinstance(v, list) else v
+
+    return type(spec.make_config())(**{k: detuple(v) for k, v in stored.items()})
 
 
 def _holds_q8(tree) -> bool:

@@ -91,8 +91,8 @@ Phases, each of which raises (non-zero exit) on failure:
    loaded onto the card must equal ``params_from_numpy`` of the in-memory
    import tree bit for bit; then ``Session`` serves a 7 s (GTCRN, UL-UNAS) or
    6 s request on it once after a warm-up, its forward launching what phases
-   5, 6, 8, 10, 12 and 15–23 launch, and one fold or window on the card must
-   be within the family's gate (40 dB; H-GTCRN 20 dB) of the same artifact on
+   5, 6, 8, 10, 12 and 15–23 launch, and one fold (or a window's first
+   second) on the card must be within the family's gate (40 dB; H-GTCRN 20 dB) of the same artifact on
    the CPU, each source (ZipEnhancer's fold starts with 201 silent samples).
    Prints import, export and load
    seconds and the request's latency beside the random-weight latency of
@@ -111,10 +111,9 @@ Phases, each of which raises (non-zero exit) on failure:
    echo cancellers' lanes push (near, far) pairs) go through ``push_many`` in
    irregular chunks, then each lane is flushed.  Each lane's output must be
    as long as its input, within 1 LSB of the eager server's and ≥ 40 dB
-   against a CPU ``StreamingSession`` on the same clip (GTCRN, UL-UNAS,
-   SDAEC, Deep-Echo and the cascade: the eager server and the CPU sessions on
-   2 of the lanes and the clips' first 2 s (the echo cancellers' one lane's
-   first 1 s),
+   against a CPU ``StreamingSession`` on the same clip (the eager server
+   and the CPU sessions on 2 of the lanes and the clips' first 2 s (SDAEC's,
+   Deep-Echo's and the cascade's first 1 s),
    held against a second graphed drive of the same, to 0 LSB); the captured
    step must launch B1 once (GTCRN, UL-UNAS, NKF,
    SDAEC, Deep-Echo), B4 9 times (DFSMN) or both (the cascade), the
@@ -142,9 +141,10 @@ Phases, each of which raises (non-zero exit) on failure:
    B5 never; one 6 s request is profiled, and one 2 s window must be within
    40 dB SNR of the same port on the CPU.
 16. Serving UL-UNAS: the same for ``ul_unas`` (16 kHz, 2 s windows) on a 7 s
-   and a 30 s request; every forward must launch B1 once and B2 once.
+   request (its 30 s one launches the same work and is left out for time);
+   every forward must launch B1 once and B2 once.
 17. Serving NKF-AEC: the same for ``nkf_aec`` (16 kHz, 2 s windows, two
-   inputs) on a 6 s and a 30 s (near, far) pair through
+   inputs) on a 6 s (near, far) pair (no 30 s one, for time) through
    ``Session.process(near, far)``, near being speech plus a delayed,
    filtered copy of the far end; every forward must launch B1 once (far‖near
    stacked) and B2 once; the echo-return-loss gain on an echo-only pair is
@@ -152,7 +152,7 @@ Phases, each of which raises (non-zero exit) on failure:
 18–20. Serving SDAEC, Deep-Echo and the DFSMN-AEC cascade (SDAEC backend):
    the same for ``sdaec`` and ``deep_echo`` (10 s windows of (near, far)) on
    a 6 s pair (their 30 s requests launch the same work and are left out for
-   time) and ``dfsmn_aec`` (2 s windows) on a 6 s and a 30 s pair; every
+   time) and ``dfsmn_aec`` (2 s windows) on a 6 s pair too; every
    forward must launch B1 once (near‖far) and B2 once (SDAEC, Deep-Echo), or
    B1 once, B2 twice and B4 9 times (the cascade); each also prints the
    module's RTF on one window from
@@ -172,7 +172,7 @@ Phases, each of which raises (non-zero exit) on failure:
    request; every forward must launch B4 96 times and B6 24 times.
 23. Serving H-GTCRN: ``h_gtcrn`` (two microphones of a voice through a
    reverberant tail and a noise source, 16 kHz, 2 s windows, mono out) on a
-   6 s and a 30 s request; every forward must launch B1 once (both
+   6 s request (no 30 s one, for time); every forward must launch B1 once (both
    microphones) and B2 once; card against CPU at its 20 dB gate, with the
    two source energies' relative gap on the card and on the CPU.
 24. Kernels in bf16: B3, B4, B5 and B6 in bfloat16 (the bf16 plans' kernel
@@ -211,10 +211,34 @@ Phases, each of which raises (non-zero exit) on failure:
    ``PLAN_VS_F32_GATE_DB``) and against the CPU on the same artifact; then a GTCRN artifact under q8dyn
    with its GRU and dense leaves int8 (``min_size`` 256) streamed on 4 lanes,
    the captured CUDA graph equal to the eager server.
+29. A JAX artifact: ``tests/data/jax_gtcrn_artifact`` (``params.msgpack``
+   as the JAX package's ``save_artifact`` writes it, GTCRN at full width)
+   read by the port's own decoder, served on the card and on the CPU on a
+   6 s request, card against CPU at 40 dB; B1 and B2 must launch.
+30. Graphs: ``export --aot``'s ``attach_graph`` on the card for
+   ``mossformergan_se`` (float32), ``zipenhancer`` (bf16 plan) and
+   ``mossformer2_ss`` (float32) at full width from random weights (GTCRN's
+   graph, ~20k nodes of unrolled GRU steps, takes minutes to export: see
+   ``aot_export_times.py``), each in a child process, the three in
+   parallel; then a child process a graph that never imports
+   ``audiojax_torch.models`` (asserted) loads it (the three in parallel) and
+   serves a 6 s request through ``Session`` (one at a time), held against
+   the eager module's answer at ≤ 1 LSB, and counts the kernels that the
+   graph replays launched: B1, B2, B3 bf16, B4, B4 bf16, B5 and B6 must
+   each be > 0.
+   Prints export and load seconds, ``graph.pt2`` bytes and graph against
+   eager latency; and the registered operators' host cost: B4's operator
+   against its direct launcher a call, and the GAN's eager request with
+   every routing point through the operators against the direct launchers.
+31. The tools: ``utils.smoke`` over every registered model on the card
+   (exit code 0) and ``utils.inspect_model --all`` (each of its fifteen
+   lines parses, its ``gflops_per_chunk`` > 0), both while phase 30's
+   exports run in other processes (nothing is timed then); after phase 30,
+   ``utils.bench_streams`` for GTCRN at 8, 64 and 256 lanes.
 
 Phases 6, 8, 10, 12, 15–23, 25, 27 and 28 print the launches of one forward,
 all of them and the ported kernels'.  They run in the order 1–10, 24, 25,
-12, 14–23, 26–28, 11, 13 (phase 11 compares against the random-weight
+12, 14–23, 26–28, 11, 13, 29–31 (phase 11 compares against the random-weight
 latencies).  The last line is ``{"ok": true, "device": {...}}``; the line
 before it lists every kernel as JSON, the bf16 instances as their own
 entries (``dwconv1d_bf16`` …; its launches summed over the served paths,
@@ -227,10 +251,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1181,8 +1207,9 @@ def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latenc
     clip for a two-channel one), and puts the first request's median latency
     (ms) into ``latency``.  Every output source is checked against the shape
     the manifest gives: the input's length times its scale (SR's 3), with
-    its output channels.  The clip held card against CPU (one fold window, or
-    one window where the model does not fold) starts with ``lead_silence``
+    its output channels.  The clip held card against CPU (one fold window;
+    where the model does not fold, one window in a bf16 plan or with
+    ``energies``, else a window's first second) starts with ``lead_silence``
     zero samples, and must reach the family's gate (``GATE_DB``, else 40 dB).
     An echo canceller also prints its echo-return-loss gain; with ``rtf`` the
     module's real-time factor on one window comes from
@@ -1293,8 +1320,12 @@ def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latenc
               f"{sum(e.self_device_time_total for e in mine) / 1e3:.3f} ms device time over "
               f"{sum(e.count for e in mine)} launches (same trace)", flush=True)
 
-    # card vs CPU on one fold window (or one window), through the module
-    length = fold or window
+    # card vs CPU through the module on one fold window, or on a window's
+    # first second where the float32 plan's gate has the room (40 dB against
+    # readings of 70 dB and more): the CPU forward of a whole window took up
+    # to 20 s (SS); the bf16 gates and H-GTCRN's stand at their readings and
+    # keep their whole window
+    length = fold or (window if bf16 or energies else min(window, sr))
     clips = _inputs(clip(length, seeds[2], sr=sr))
     for c in clips:
         c[..., :lead_silence] = 0
@@ -1621,11 +1652,17 @@ def check_ss_kernels(dev) -> dict:
 # ── phases 24 and 25 ───────────────────────────────────────────────────────
 
 
+def six_s(cases: list) -> list:
+    """The cases of a 6 s request (and the off-request ones): the bf16 plans
+    serve no 30 s request."""
+    return [c for c in cases if "30 s" not in c[0]]
+
+
 def check_bf16_kernels(dev) -> dict:
     """Phase 24: B3, B4, B5 and B6 in bfloat16 at every shape of the bf16
     serving paths (ZipEnhancer, MossFormerGAN-SE and MossFormer2-SS: their
-    float32 shapes, B3_CASES, B4_CASES, B5_SS_CASES, B4_SS_CASES, B6_CASES,
-    B6_SS_CASES; B4's off-path routes too), each within one bf16 ulp of its
+    float32 shapes of a 6 s request, B3_CASES, B4_CASES, B5_SS_CASES,
+    B4_SS_CASES, B6_CASES, B6_SS_CASES; B4's off-path routes too), each within one bf16 ulp of its
     plain version (B6 as the layers take it, float32 out: within TOL_B4_B6)
     and within 2× its float64 error; timed at the serving shapes (cuDNN's
     bf16 conv beside B4 and B5), the off-path ones held only; returns each
@@ -1633,35 +1670,36 @@ def check_bf16_kernels(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(24)
     bf, f32 = torch.bfloat16, torch.float32
     serving = {}
-    for label, shape, k, pads, dil in B4_CASES:
+    for label, shape, k, pads, dil in six_s(B4_CASES):
         serving.setdefault("dwconv1d_bf16", hold_b4(gen, dev, label, shape, k, pads, dil,
                                                     dtype=bf))
-    for label, shape, k, pads, dil in B4_SS_CASES:
+    for label, shape, k, pads, dil in six_s(B4_SS_CASES):
         hold_b4(gen, dev, label, shape, k, pads, dil, f64_rows=SS_F64_ROWS, dtype=bf)
     for label, shape, k, pads, dil, offset in B4_OFFPATH_CASES:  # C % 8 != 0 in bf16 too
         hold_b4(gen, dev, label, shape, k, pads, dil, offset=offset, dtype=bf, timed=False)
-    for label, shape, k, pads, dil in B5_SS_CASES:
+    for label, shape, k, pads, dil in six_s(B5_SS_CASES):
         serving.setdefault("dwconv1d_tiled_bf16", hold_b5(gen, dev, label, shape, k, pads, dil,
                                                           dtype=bf))
     # B6 as the bf16 layers take it, its f32 sums out in f32; the Pallas
     # contract's bf16 output (one rounding of the same sums) at one shape
-    for label, n, s, mask in B6_CASES:
+    for label, n, s, mask in six_s(B6_CASES):
         serving.setdefault("quad_attention_bf16", hold_b6(gen, dev, label, n, s, mask, dtype=bf,
                                                           out_dtype=f32))
-    for label, n, s in B6_SS_CASES:
+    for label, n, s in six_s(B6_SS_CASES):
         hold_b6(gen, dev, label, n, s, False, dk=128, dv=2048, f64_rows=SS_F64_ROWS, dtype=bf,
                 out_dtype=f32)
     hold_b6(gen, dev, B6_CASES[0][0], *B6_CASES[0][1:], dtype=bf, timed=False)
-    for label, n, s in B3_CASES:
+    for label, n, s in six_s(B3_CASES):
         serving.setdefault("relpos_scores_bf16", hold_b3(gen, dev, label, n, s, dtype=bf))
     return serving
 
 
 def serve_bf16(card: str, latency: dict) -> dict:
     """Phase 25: the bf16 plans of MossFormerGAN-SE, ZipEnhancer and
-    MossFormer2-SS, on the requests of phases 6, 8 and 10 (their seeds)."""
+    MossFormer2-SS, on the 6 s requests of phases 6, 8 and 10 (their seeds;
+    their 30 s ones launch what the 6 s ones do, and are left out for time)."""
     return {f"{name}_bf16": serve_windowed(card, name, bf16_plan(per_forward), seeds, latency,
-                                          dtype="bfloat16", **kw)
+                                          dtype="bfloat16", seconds=(6,), **kw)
             for name, per_forward, seeds, kw in (
                 ("mossformergan_se", GAN_PER_FORWARD, (11, 12, 13), {}),
                 ("zipenhancer", ZIP_PER_FORWARD, (21, 22, 23), {"lead_silence": 201}),
@@ -1795,8 +1833,11 @@ def serve_imported(card: str, random_ms: dict) -> dict:
               f"size, this run: {random_ms[name]:.3f}; launches a forward "
               f"{ {k: n for k, n in per_forward.items() if n} }  [{card}]", flush=True)
 
-        # card vs CPU on one fold window (or one window), through the module
-        length = getattr(cfg, "fold_window", 0) or manifest.input_audio_length
+        # card vs CPU through the module on one fold window, or on the first
+        # second of one window: the CPU forward of a whole window of the
+        # larger families took seconds each (each family's own phase holds
+        # a whole one)
+        length = getattr(cfg, "fold_window", 0) or min(manifest.input_audio_length, sr)
         clips = _inputs(clip(length, seed + 100, sr=sr))
         for c in clips:
             c[..., :lead_silence] = 0
@@ -1838,12 +1879,14 @@ NO_LAUNCHES = {"stft_packed": 0, "istft_packed": 0, "dwconv1d": 0, "dwconv1d_til
 # this phase).  The graph must equal the eager server to the LSB (within 1
 # LSB with no short check).  The echo cancellers' checks cover the clips'
 # first second: their eager steps (~120 ms each) and CPU sessions took most of
-# their 45–52 s at 2 s, and 3 s clips instead saved nothing measurable.
+# their 45–52 s at 2 s, and 3 s clips instead saved nothing measurable (nor
+# did 3 s lanes in place of 6–7 s ones: 28.4 against 29.5 s for SDAEC).
+# DFSMN's and NKF-AEC's checks cover 2 lanes × 2 s as GTCRN's do, for time.
 STREAMS = [
     ("gtcrn", 7, {**NO_LAUNCHES, "stft_packed": 1}, 60, (2, 2)),
-    ("dfsmn", 6, {**NO_LAUNCHES, "dwconv1d": 9}, 70, None),
+    ("dfsmn", 6, {**NO_LAUNCHES, "dwconv1d": 9}, 70, (2, 2)),
     ("ul_unas", 7, {**NO_LAUNCHES, "stft_packed": 1}, 80, (2, 2)),
-    ("nkf_aec", 6, {**NO_LAUNCHES, "stft_packed": 1}, 90, None),
+    ("nkf_aec", 6, {**NO_LAUNCHES, "stft_packed": 1}, 90, (2, 2)),
     ("sdaec", 6, {**NO_LAUNCHES, "stft_packed": 1}, 100, (2, 1)),
     ("deep_echo", 6, {**NO_LAUNCHES, "stft_packed": 1}, 110, (2, 1)),
     ("dfsmn_aec", 6, {**NO_LAUNCHES, "stft_packed": 1, "dwconv1d": 9}, 120, (2, 1)),
@@ -2303,11 +2346,12 @@ def sr_masknet_card_vs_cpu(model, cpu_model, x: torch.Tensor) -> None:
 
 def serve_bf16_rest(card: str, dev, latency: dict) -> dict:
     """Phase 27: the bf16 plans of MossFormer2-SE, Mel-Band Roformer (mono and
-    stereo) and MossFormer2-SR on the requests of phases 15, 21 and 22 (their
-    seeds), after their bf16 kernels at those shapes."""
+    stereo) and MossFormer2-SR on the 6 s requests of phases 15, 21 and 22
+    (their seeds; no 30 s ones, for time), after their bf16 kernels at those
+    shapes."""
     check_bf16_se_sr_kernels(dev)
     return {f"{name}_bf16": serve_windowed(card, name, bf16_plan(per_forward), seeds, latency,
-                                          dtype="bfloat16", **kw)
+                                          dtype="bfloat16", seconds=(6,), **kw)
             for name, per_forward, seeds, kw in (
                 ("mossformer2_se", SE_PER_FORWARD, (54, 55, 56), {}),
                 ("melband_roformer", MELBAND_PER_FORWARD, (91, 92, 93), {"clip": music_mix}),
@@ -2506,6 +2550,297 @@ def serve_plans(card: str) -> dict:
     return by_path
 
 
+# ── phases 29, 30 and 31 ───────────────────────────────────────────────────
+
+JAX_ARTIFACT = "tests/data/jax_gtcrn_artifact"
+# the three graphed families: (path, name, compute dtype, clip, the numpy init
+# of their random weights in the JAX package's layout, which an artifact holds)
+GRAPHS = (("graph_mossformergan_se", "mossformergan_se", "float32", "noisy_speech",
+           "mossformergan_se:init_mossformergan_numpy"),
+          ("graph_zipenhancer_bf16", "zipenhancer", "bfloat16", "noisy_speech",
+           "zipenhancer:init_zipenhancer_numpy"),
+          ("graph_mossformer2_ss", "mossformer2_ss", "float32", "speech_mix",
+           "mossformer2_ss:init_mossformer2_ss_numpy"))
+# the kernels that the three graphs, between them, must launch through a graph
+GRAPH_KERNELS = ("stft_packed", "istft_packed", "relpos_scores_bf16", "dwconv1d",
+                 "dwconv1d_bf16", "dwconv1d_tiled", "quad_attention")
+
+
+def serve_jax_artifact(card: str) -> dict:
+    """Phase 29: the JAX package's GTCRN artifact served on the card and the
+    CPU; returns the card's launch counts."""
+    from audiojax_torch.runtime import registry
+    from audiojax_torch.runtime.checkpoint import load_artifact
+    from audiojax_torch.runtime.session import Session
+
+    art = Path(__file__).resolve().parent / JAX_ARTIFACT
+    if not (art / "params.msgpack").is_file():
+        fail(f"{art} holds no params.msgpack")
+    t0 = time.perf_counter()
+    params, manifest = load_artifact(art, "cuda")
+    load_s = time.perf_counter() - t0
+    spec = registry.get(manifest.model_name)
+    cfg = registry.config_from_manifest(spec, manifest)
+    audio = noisy_speech(6 * SR, 91)
+    session = Session(spec.make_module(params, cfg), manifest, device="cuda")
+    session.process(audio)  # warm-up
+    for mod in kernel_modules():
+        mod.reset_launches()
+    card_out = session.process(audio)
+    counts = {k: n for mod in kernel_modules() for k, n in mod.launches.items()}
+    if counts["stft_packed"] <= 0 or counts["istft_packed"] <= 0:
+        fail(f"the JAX artifact's request launched {counts}")
+    cpu_params, _ = load_artifact(art, "cpu")
+    cpu_out = Session(spec.make_module(cpu_params, cfg), manifest, device="cpu").process(audio)
+    snr = snr_db(cpu_out.audio, card_out.audio)
+    print(f"jax artifact {JAX_ARTIFACT} ({manifest.model_name}, params.msgpack "
+          f"{(art / 'params.msgpack').stat().st_size} bytes, read in {load_s:.3f} s): 6 s request "
+          f"{card_out.elapsed_s * 1e3:.3f} ms on the card, card vs CPU SNR {snr:.2f} dB, "
+          f"launches {counts}  [{card}]", flush=True)
+    if card_out.audio.shape != audio.shape or not snr >= MIN_SNR_DB:
+        fail(f"jax artifact: shape {card_out.audio.shape}, card vs CPU SNR {snr:.2f} dB")
+    return counts
+
+
+def _median_ms(session, ins, n: int = 3) -> tuple:
+    """(median ms of ``n`` requests after one warm-up, the last result)."""
+    session.process(*ins)
+    runs = [session.process(*ins) for _ in range(n)]
+    return float(np.median([r.elapsed_s * 1e3 for r in runs])), runs[-1]
+
+
+def op_host_cost(card: str) -> None:
+    """Phase 30's host cost of a registered operator: B4 a call through
+    ``torch.ops.audiojax_torch.dwconv1d`` against its direct launcher, at a
+    shape whose kernel takes far less than the host's call."""
+    from audiojax_torch.ops import dwconv_cuda as D
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((4, 64, 64), generator=gen, device="cuda")
+    w = torch.randn((7, 64), generator=gen, device="cuda")
+    calls = {"direct": lambda: D.dwconv1d_cuda(x, w, pads=(3, 3)),
+             "operator": lambda: torch.ops.audiojax_torch.dwconv1d(x, w, 3, 3, 1)}
+    us = {}
+    for name, fn in list(calls.items()) * 2:  # interleaved, the second pass kept
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            fn()
+        us[name] = (time.perf_counter() - t0) / 500 * 1e6
+        torch.cuda.synchronize()
+    print(f"op host cost: B4 at (4, 64, 64) k7, host µs a call: direct launcher "
+          f"{us['direct']:.2f}, registered operator {us['operator']:.2f} (+"
+          f"{us['operator'] - us['direct']:.2f})  [{card}]", flush=True)
+
+
+def _spawn(log: str, *args: str) -> subprocess.Popen:
+    """This script again in a child process (phase 30's stages), its stderr
+    into the file ``log``."""
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+    with open(log, "w") as err:
+        return subprocess.Popen([sys.executable, __file__, *args], stdin=subprocess.PIPE,
+                                stdout=subprocess.PIPE, stderr=err, text=True, env=env)
+
+
+def _last_json(proc: subprocess.Popen, what: str, log: str) -> dict:
+    """The child's last stdout line as JSON, once it has exited 0."""
+    out, _ = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        fail(f"{what} failed ({proc.returncode}):\n{Path(log).read_text()[-4000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def serve_graphs(card: str, beside=None) -> dict:
+    """Phase 30; returns the launch counts of each graphed path.
+
+    Three stages, each family's work in a process of its own within a stage:
+    the eager answers here, one after another (timed, nothing else running);
+    the exports on the card, in parallel, while ``beside()`` runs here
+    (untimed work: phase 31's tools); then the graph hosts, which load in
+    parallel and, once all have loaded, serve one at a time, so that no
+    request is timed beside another process's work.  The children run torch
+    on one intra-op thread: their work is Python, and the stages share the
+    host's cores."""
+    import importlib
+    import shutil
+    import tempfile
+
+    from audiojax_torch.ops._build import registered_ops
+    from audiojax_torch.runtime import aot, registry
+    from audiojax_torch.runtime.checkpoint import load_artifact, save_artifact
+    from audiojax_torch.runtime.session import Session
+
+    op_host_cost(card)
+    root = tempfile.mkdtemp(prefix="chip_smoke_graphs_")
+    arts, eager_ms = {}, {}
+    try:
+        for path, name, dtype, clip, init in GRAPHS:
+            spec = registry.get(name)
+            cfg = spec.make_config(compute_dtype=dtype)
+            manifest = spec.make_manifest(cfg)
+            extra = {"config": dataclasses.asdict(cfg)}
+            if dtype != "float32":
+                extra["activation_compute_dtype"] = dtype
+            manifest = dataclasses.replace(manifest, extra={**manifest.extra, **extra})
+            art = arts[path] = f"{root}/{path}"
+            module, fn = init.split(":")
+            init_np = getattr(importlib.import_module(f"audiojax_torch.models.{module}"), fn)
+            save_artifact(art, init_np(0, cfg), manifest)
+            params, manifest = load_artifact(art, "cuda")
+            session = Session(spec.make_module(params, cfg), manifest, device="cuda")
+            sr = manifest.in_sample_rate
+            ins = _inputs(globals()[clip](6 * sr, 95, sr=sr))
+            eager_ms[path], ref = _median_ms(session, ins)
+            if name == "mossformergan_se":  # every routing point through its operator
+                with registered_ops():
+                    op_ms, op_ref = _median_ms(session, ins)
+                eager_again, _ = _median_ms(session, ins)
+                same = all(np.array_equal(a, b) for a, b in zip(ref.outputs, op_ref.outputs))
+                print(f"op host cost: {path} eager 6 s request median {eager_ms[path]:.3f} ms "
+                      f"with the direct launchers ({eager_again:.3f} ms again after), "
+                      f"{op_ms:.3f} ms with every routing point through its registered "
+                      f"operator; answers equal: {same}  [{card}]", flush=True)
+                if not same:
+                    fail(f"{path}: the operators' answer differs from the direct launchers'")
+            np.savez(f"{art}/request.npz", *ins)
+            np.savez(f"{art}/eager.npz", *ref.outputs)
+            del session, params
+            torch.cuda.empty_cache()
+        exports = {path: _spawn(f"{art}.export.log", "--graph-export", art)
+                   for path, art in arts.items()}
+        if beside is not None:
+            beside()
+        exported = {path: _last_json(p, f"the {path} export", f"{arts[path]}.export.log")
+                    for path, p in exports.items()}
+        hosts = {path: _spawn(f"{art}.host.log", "--graph-child", art)
+                 for path, art in arts.items()}
+        loaded = {path: p.stdout.readline() for path, p in hosts.items()}  # all loaded
+        result = {}
+        for path, p in hosts.items():  # then one serves at a time
+            if not loaded[path].startswith("loaded"):
+                p.kill()
+                fail(f"the {path} graph host did not load:\n"
+                     f"{Path(arts[path] + '.host.log').read_text()[-4000:]}")
+            p.stdin.write("go\n")
+            p.stdin.flush()
+            result[path] = _last_json(p, f"the {path} graph host", f"{arts[path]}.host.log")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    by_path = {}
+    for path in arts:
+        r, e = result[path], exported[path]
+        if e["batch_mode"] != "poly":
+            fail(f"{path}: the symbolic batch fell back: {e['symbolic_fallback_error']}")
+        print(f"graph {path}: export {e['export_s']:.2f} s, load {r['load_s']:.2f} s, "
+              f"{aot.GRAPH_FILE} {e['graph_bytes']} bytes ({r['nodes']} nodes); 6 s request "
+              f"median graph {r['ms']:.3f} ms vs eager {eager_ms[path]:.3f} ms; graph vs eager "
+              f"max {r['max_lsb']} LSB; launches "
+              f"{ {k: n for k, n in r['launches'].items() if n} }  [{card}]", flush=True)
+        if r["max_lsb"] > 1:
+            fail(f"{path}: graph vs eager {r['max_lsb']} LSB")
+        by_path[path] = r["launches"]
+    missing = [k for k in GRAPH_KERNELS if not any(c[k] for c in by_path.values())]
+    if missing:
+        fail(f"no graph launched {missing}")
+    return by_path
+
+
+def graph_export(art: str) -> int:
+    """Phase 30's export stage: the artifact's module, as the CLI builds it,
+    exported into it on the card; prints one JSON line."""
+    from audiojax_torch.runtime import aot, registry
+    from audiojax_torch.runtime.checkpoint import load_artifact
+
+    params, manifest = load_artifact(art, "cuda")
+    spec = registry.get(manifest.model_name)
+    model = spec.make_module(params, registry.config_from_manifest(spec, manifest))
+    t0 = time.perf_counter()
+    aot.attach_graph(art, model, manifest)
+    export_s = time.perf_counter() - t0
+    meta = json.loads((Path(art) / aot.GRAPH_META).read_text())
+    print(json.dumps({"export_s": export_s, "graph_bytes": (Path(art) / aot.GRAPH_FILE).stat().st_size,
+                      "batch_mode": meta["batch_mode"],
+                      "symbolic_fallback_error": meta["symbolic_fallback_error"]}))
+    return 0
+
+
+def graph_child(art: str) -> int:
+    """Phase 30's graph host: load the graph artifact with ``runtime`` and
+    ``ops`` alone, say so, and when told to on stdin (one host serves at a
+    time), serve its request; prints one JSON line."""
+    from audiojax_torch.runtime import aot
+    from audiojax_torch.runtime.checkpoint import load_artifact
+    from audiojax_torch.runtime.session import Session
+
+    t0 = time.perf_counter()
+    params, manifest = load_artifact(art, "cuda")
+    model = aot.load_compiled(art, aot.prepare_for_graph(params, art))
+    load_s = time.perf_counter() - t0
+    with np.load(f"{art}/request.npz") as z:
+        ins = [z[k] for k in sorted(z.files)]
+    with np.load(f"{art}/eager.npz") as z:
+        ref = [z[k] for k in sorted(z.files)]
+    session = Session(model, manifest, device="cuda")
+    print("loaded", flush=True)
+    if sys.stdin.readline().strip() != "go":
+        return 1
+    session.process(*ins)  # warm-up
+    for mod in kernel_modules():
+        mod.reset_launches()
+    runs = [session.process(*ins) for _ in range(SERVE_REPEATS)]
+    launches = {k: n for mod in kernel_modules() for k, n in mod.launches.items()}
+    worst = max(int(np.max(np.abs(a.astype(np.int32) - b.astype(np.int32))))
+                for r in runs for a, b in zip(r.outputs, ref))
+    loaded = sorted(m for m in sys.modules if m.startswith("audiojax_torch.models"))
+    if loaded:
+        raise AssertionError(f"the graph host imported {loaded}")
+    print(json.dumps({"load_s": load_s, "launches": launches, "max_lsb": worst,
+                      "nodes": sum(len(g.graph.nodes) for g in model.graphs.values()),
+                      "ms": float(np.median([r.elapsed_s * 1e3 for r in runs]))}))
+    return 0
+
+
+def run_tools(card: str):
+    """Phase 31's untimed part, run beside phase 30's exports (in other
+    processes): ``utils.smoke`` over every registered model and
+    ``utils.inspect_model --all``, on the card; fails unless smoke exits 0
+    and each of inspect_model's fifteen lines parses with its
+    ``gflops_per_chunk`` > 0.  Returns nothing to wait for."""
+    import contextlib
+    import io
+
+    from audiojax_torch.utils import inspect_model, smoke
+
+    t0 = time.perf_counter()
+    rc = smoke.main([])
+    print(f"tools: utils.smoke over every registered model: exit {rc} in "
+          f"{time.perf_counter() - t0:.1f} s (beside phase 30's exports)  [{card}]", flush=True)
+    if rc != 0:
+        fail(f"utils.smoke exited {rc}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = inspect_model.main(["--all"])
+    lines = [json.loads(line) for line in buf.getvalue().splitlines()]
+    for r in lines:
+        print(f"tools: inspect_model {json.dumps(r)}", flush=True)
+    print(f"tools: inspect_model --all: exit {rc}, {len(lines)} lines in "
+          f"{time.perf_counter() - t0:.1f} s (beside phase 30's exports)  [{card}]", flush=True)
+    if rc != 0 or len(lines) != 15 or not all(r.get("gflops_per_chunk", 0) > 0 for r in lines):
+        fail("inspect_model --all: a model failed or counted no operation")
+
+
+def bench_stream_lanes(card: str) -> None:
+    """Phase 31's timed part: ``utils.bench_streams`` for GTCRN at 8, 64 and
+    256 lanes, the card to itself."""
+    from audiojax_torch.utils import bench_streams
+
+    for lanes in (8, 64, 256):
+        print(f"tools: bench_streams {json.dumps(bench_streams.bench_streams('gtcrn', lanes))}  "
+              f"[{card}]", flush=True)
+
+
 def build_all() -> None:
     """Every kernel source built, one nvcc each, all started together."""
     start_builds()()
@@ -2541,6 +2876,10 @@ def start_builds():
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--graph-export"]:  # phase 30's stages
+        return graph_export(*sys.argv[2:])
+    if sys.argv[1:2] == ["--graph-child"]:
+        return graph_child(*sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -2586,22 +2925,23 @@ def main() -> int:
     phase(14, check_se_kernels, dev)
     by_path["mossformer2_se"] = phase(15, serve_windowed, card, "mossformer2_se",
                                       SE_PER_FORWARD, (54, 55, 56), latency)
+    # the host-bound families' 30 s requests (UL-UNAS, NKF-AEC, SDAEC, Deep-Echo,
+    # the cascade, H-GTCRN) launch what their 6 s ones do, and are left out for time
     by_path["ul_unas"] = phase(16, serve_windowed, card, "ul_unas", UL_PER_FORWARD,
-                               (57, 58, 59), latency, seconds=(7, 30))
+                               (57, 58, 59), latency, seconds=(7,))
     by_path["nkf_aec"] = phase(17, serve_windowed, card, "nkf_aec", NKF_PER_FORWARD,
-                               (61, 62, 63), latency, clip=echo_pair)
-    # SDAEC's and Deep-Echo's 30 s requests launch what the 6 s ones do
-    # (host-bound), and are left out for time
+                               (61, 62, 63), latency, clip=echo_pair, seconds=(6,))
     by_path["sdaec"] = phase(18, serve_windowed, card, "sdaec", AEC319_PER_FORWARD,
                              (64, 65, 66), latency, clip=echo_pair, rtf=True, seconds=(6,))
     by_path["deep_echo"] = phase(19, serve_windowed, card, "deep_echo", AEC319_PER_FORWARD,
                                  (67, 68, 69), latency, clip=echo_pair, rtf=True, seconds=(6,))
     by_path["dfsmn_aec"] = phase(20, serve_windowed, card, "dfsmn_aec", CASCADE_PER_FORWARD,
-                                 (71, 72, 73), latency, clip=echo_pair, rtf=True)
+                                 (71, 72, 73), latency, clip=echo_pair, rtf=True, seconds=(6,))
     by_path.update(phase(21, serve_melband, card, latency))
     by_path["mossformer2_sr"] = phase(22, serve_sr, card, dev, latency)
     by_path["h_gtcrn"] = phase(23, serve_windowed, card, "h_gtcrn", HGTCRN_PER_FORWARD,
-                               (81, 82, 83), latency, clip=two_mic, energies=h_gtcrn_energies)
+                               (81, 82, 83), latency, clip=two_mic, energies=h_gtcrn_energies,
+                               seconds=(6,))
     # the native bridge and FLAC; the other families' bf16 plans beside phases
     # 15, 21 and 22; the q8 and weight-only bf16 plans through the artifact
     by_path["gtcrn_flac"] = phase(26, check_native, card)
@@ -2609,6 +2949,12 @@ def main() -> int:
     by_path.update(phase(28, serve_plans, card))
     by_path.update(phase(11, serve_imported, card, latency))
     by_path.update(phase(13, serve_streams, card))
+    # a JAX artifact, the graph artifacts, the tools
+    by_path["gtcrn_jax_artifact"] = phase(29, serve_jax_artifact, card)
+    # phase 31's smoke and inspect_model run beside phase 30's exports
+    by_path.update(phase("30 (and 31's smoke and inspect_model)", serve_graphs, card,
+                         beside=lambda: run_tools(card)))
+    phase(31, bench_stream_lanes, card)
 
     sources = {
         "stft_packed": ("audiojax_torch/csrc/stft.cu", "audiojax/ops/stft_pallas.py:207"),
