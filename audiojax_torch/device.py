@@ -15,9 +15,18 @@ JAX contract accumulates in float32.
 """
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "card_line", "peak_flops"]
+
+# published dense peaks (NVIDIA data sheets), FLOP/s by the card's name:
+# float32 outside the tensor cores (TF32 is off, above) and bf16 on them
+PEAK_FLOPS = {
+    "H100 80GB HBM3": {"float32": 67e12, "bfloat16": 989e12},  # SXM5
+    "H100 SXM": {"float32": 67e12, "bfloat16": 989e12},
+}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -33,3 +42,27 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use \"cuda\" or \"cpu\"")
     return dev
+
+
+def card_line(device=None) -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them (its line for the
+    device's index); ``"cpu"`` for the CPU."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return "cpu"
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    out = subprocess.run(["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def peak_flops(device, dtype: str) -> float:
+    """The card's peak FLOP/s for ``dtype`` ("float32" or "bfloat16"), from
+    its name; an unknown card raises rather than assuming one."""
+    name = torch.cuda.get_device_name(torch.device(device))
+    for key, peaks in PEAK_FLOPS.items():
+        if key in name:
+            return peaks[dtype]
+    raise ValueError(f"no peak FLOP/s known for {name!r}; known cards: {sorted(PEAK_FLOPS)}")

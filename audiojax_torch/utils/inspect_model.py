@@ -50,11 +50,23 @@ class _BytesMode(TorchDispatchMode):
         return out
 
 
-def inspect_model(name: str, compute_dtype: str | None = None, device=None) -> dict:
+def forward_cost(model, inputs) -> tuple[float, float]:
+    """(operations, bytes accessed) of one forward ``model(*inputs)``: the
+    ``FlopCounterMode`` count with the kernels' routing points called as
+    their registered operators, and every operator's input and output bytes.
+    A count that fails raises."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    from ..device import resolve_device
     from ..ops._build import registered_ops
+
+    counter, moved = FlopCounterMode(display=False), _BytesMode()
+    with torch.inference_mode(), registered_ops(), counter, moved:
+        model(*inputs)
+    return float(counter.get_total_flops()), float(moved.total)
+
+
+def inspect_model(name: str, compute_dtype: str | None = None, device=None) -> dict:
+    from ..device import resolve_device
     from ..runtime import registry
     from ..runtime.aot import flat_params
 
@@ -77,10 +89,7 @@ def inspect_model(name: str, compute_dtype: str | None = None, device=None) -> d
 
     model = spec.make_module(params, cfg).to(dev).eval()
     inputs = [torch.zeros(shape, dtype=torch.int16, device=dev) for _ in range(k)]
-    counter, moved = FlopCounterMode(display=False), _BytesMode()
-    with torch.inference_mode(), registered_ops(), counter, moved:
-        model(*inputs)
-    flops, bytes_acc = float(counter.get_total_flops()), float(moved.total)
+    flops, bytes_acc = forward_cost(model, inputs)
     chunk_s = w / rc["IN_SAMPLE_RATE"]
 
     report = {

@@ -33,7 +33,8 @@ def measure_rtf(fn, params, audio: torch.Tensor, *, sample_rate: int, iters: int
 
     Returns ``latency_s`` (seconds a pass, from the fastest of ``repeats``
     loops), ``audio_s`` (the input's duration at ``sample_rate``) and
-    ``rtf`` (their ratio)."""
+    ``rtf`` (their ratio); with ``repeats`` > 1 also ``spread_s``, the
+    slowest loop's seconds a pass less the fastest's."""
     cuda = audio.device.type == "cuda"
     with torch.inference_mode():
         if warmup:
@@ -41,7 +42,7 @@ def measure_rtf(fn, params, audio: torch.Tensor, *, sample_rate: int, iters: int
             x = audio
             for _ in range(settle):
                 x = _chain(fn(params, x))
-        best = float("inf")
+        loops = []
         x = audio
         for _ in range(max(repeats, 1)):
             if cuda:
@@ -59,7 +60,10 @@ def measure_rtf(fn, params, audio: torch.Tensor, *, sample_rate: int, iters: int
                 for _ in range(iters):
                     x = _chain(fn(params, x))
                 elapsed = time.perf_counter() - t0
-            best = min(best, elapsed)
-    latency = best / iters
+            loops.append(elapsed)
+    latency = min(loops) / iters
     duration = audio.shape[-1] / sample_rate
-    return {"latency_s": latency, "audio_s": duration, "rtf": latency / duration}
+    out = {"latency_s": latency, "audio_s": duration, "rtf": latency / duration}
+    if len(loops) > 1:
+        out["spread_s"] = (max(loops) - min(loops)) / iters
+    return out

@@ -235,10 +235,25 @@ Phases, each of which raises (non-zero exit) on failure:
    lines parses, its ``gflops_per_chunk`` > 0), both while phase 30's
    exports run in other processes (nothing is timed then); after phase 30,
    ``utils.bench_streams`` for GTCRN at 8, 64 and 256 lanes.
+32. The measurement and parity tools, each timing tool in a process of its
+   own (started, to import torch and take the card, beside phase 30's
+   exports; run one at a time after phase 31): ``utils.bench_all`` over
+   DFSMN, MossFormerGAN-SE and Mel-Band
+   Roformer with ``--quant q8f32 --iters 3`` (eight rows: three float32, two
+   bf16, three q8f32; none an error, each with its RTF, GFLOP and MFU in
+   [0, 100), the q8f32 rows with their SNR against float32), its rows
+   rendered into a copy of README.md by ``utils.readme_tables`` (the port's
+   ``torch-zoo-table`` headed by the card line); ``utils.gan_profile --iters
+   3 --json`` (the ten stages, each stub run and the function it replaced
+   never called; its table printed); ``utils.parity_suite`` on a GTCRN kit
+   built here (a synthetic checkpoint, a 6 s input, the port's CPU answer as
+   the ref) on the card at ≥ 40 dB, launching B1 and B2 (untimed: beside
+   phase 30's exports).  Each one's launches join the kernels line as paths
+   of their own.
 
 Phases 6, 8, 10, 12, 15–23, 25, 27 and 28 print the launches of one forward,
 all of them and the ported kernels'.  They run in the order 1–10, 24, 25,
-12, 14–23, 26–28, 11, 13, 29–31 (phase 11 compares against the random-weight
+12, 14–23, 26–28, 11, 13, 29–32 (phase 11 compares against the random-weight
 latencies).  The last line is ``{"ok": true, "device": {...}}``; the line
 before it lists every kernel as JSON, the bf16 instances as their own
 entries (``dwconv1d_bf16`` …; its launches summed over the served paths,
@@ -382,9 +397,10 @@ def fail(msg: str):
 
 
 def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+    """The card's name and power limit, as nvidia-smi gives them."""
+    from audiojax_torch.device import card_line as line
+
+    return line("cuda")
 
 
 def spin_guard() -> None:
@@ -2311,15 +2327,16 @@ def check_native(card: str) -> dict:
 
 def check_bf16_se_sr_kernels(dev) -> None:
     """Phase 27's kernels: B4 and B6 in bfloat16 at the MossFormer2-SE and
-    MossFormer2-SR serving shapes (phase 14's shapes), B4 within one bf16 ulp
+    MossFormer2-SR 6 s serving shapes (phase 14's; the bf16 plans serve no
+    30 s request), B4 within one bf16 ulp
     of its plain version, B6 as the layers take it (float32 out, within
     TOL_B4_B6), each within 2× the plain version's float64 error; timed
     beside cuDNN's bf16 conv (B4), the bound from bf16 bytes and operations."""
     gen = torch.Generator(device=dev).manual_seed(27)
-    for label, shape, k, pads, dil in B4_SE_CASES + B4_SR_CASES:
+    for label, shape, k, pads, dil in six_s(B4_SE_CASES + B4_SR_CASES):
         hold_b4(gen, dev, label, shape, k, pads, dil, f64_rows=SS_F64_ROWS,
                 dtype=torch.bfloat16)
-    for label, n, s in B6_SE_CASES + B6_SR_CASES:
+    for label, n, s in six_s(B6_SE_CASES + B6_SR_CASES):
         hold_b6(gen, dev, label, n, s, False, dk=128, dv=2048, f64_rows=SS_F64_ROWS,
                 dtype=torch.bfloat16, out_dtype=torch.float32)
 
@@ -2841,6 +2858,204 @@ def bench_stream_lanes(card: str) -> None:
               f"[{card}]", flush=True)
 
 
+# ── phase 32 ───────────────────────────────────────────────────────────────
+
+# utils.bench_all over three families, each with its bf16 variant where it
+# has one and the q8f32 plan: DFSMN (no bf16 knob; GTCRN, whose leaves all
+# lie under the q8 plan's 4,096-element floor, would make an error row),
+# MossFormerGAN-SE and Mel-Band Roformer
+BENCH_ARGS = ("--models", "dfsmn,mossformergan_se,melband_roformer", "--quant", "q8f32",
+              "--iters", "3")
+BENCH_ROWS = ["dfsmn", "dfsmn+q8f32", "mossformergan_se", "mossformergan_se+bfloat16",
+              "mossformergan_se+q8f32", "melband_roformer", "melband_roformer+bfloat16",
+              "melband_roformer+q8f32"]
+GAN_STAGES = ["stft", "istft", "sync_paths", "mossformer_gau", "triple_attention", "se_layer",
+              "uni_fsmn", "ffconvm", "dense_fsmn", "decoders"]
+KIT_SECONDS = 6
+
+
+def tool_child(name: str, *args: str) -> int:
+    """Phase 32's child: imports ``audiojax_torch.utils.<name>``, takes the
+    card and loads the kernels, says ``ready``; when told ``go`` on stdin,
+    runs the tool's ``main`` (its output as it prints it), then prints one
+    JSON line of the launches its run made."""
+    import importlib
+
+    from audiojax_torch.device import resolve_device
+    from audiojax_torch.ops import _build
+
+    tool = importlib.import_module(f"audiojax_torch.utils.{name}")
+    torch.zeros(1, device=resolve_device("cuda"))
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        _build.load(src.stem)
+    print("ready", flush=True)
+    if sys.stdin.readline().strip() != "go":
+        return 1
+    rc = tool.main(list(args))
+    print(json.dumps({"launches": {k: n for mod in kernel_modules()
+                                   for k, n in mod.launches.items()}}), flush=True)
+    return rc
+
+
+def start_tool(name: str, *args: str) -> tuple:
+    """``tool_child`` started in a process of its own, to get ready beside
+    untimed work (phase 30's exports) and run later, the card to itself."""
+    import tempfile
+
+    log = tempfile.mktemp(prefix=f"chip_smoke_{name}_", suffix=".log")
+    return name, args, _spawn(log, "--tool", name, *args), log
+
+
+def _tool(started: tuple) -> tuple:
+    """Runs a started tool; returns (its output lines before the launches
+    line, the launches)."""
+    name, args, proc, log = started
+    if proc.stdout.readline().strip() != "ready":
+        proc.kill()
+        fail(f"utils.{name} did not get ready:\n{Path(log).read_text()[-4000:]}")
+    proc.stdin.write("go\n")
+    proc.stdin.flush()
+    out, _ = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        fail(f"utils.{name} {' '.join(args)} exited {proc.returncode}:\n"
+             f"{Path(log).read_text()[-4000:]}")
+    Path(log).unlink(missing_ok=True)
+    lines = out.strip().splitlines()
+    return lines[:-1], json.loads(lines[-1])["launches"]
+
+
+def check_bench_all(card: str, started: tuple) -> dict:
+    """Phase 32's ``utils.bench_all``: eight rows without an error, each with
+    its RTF, operation count and MFU, the q8f32 rows with their SNR against
+    float32; its rows rendered into a copy of README.md by
+    ``utils.readme_tables``."""
+    import shutil
+    import tempfile
+
+    from audiojax_torch.utils import readme_tables
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+    try:
+        rows_file = started[1][-1]
+        lines, launches = _tool(started)
+        for line in lines:
+            print(f"tools: bench_all {line}", flush=True)
+        file_card, rows = readme_tables.read_rows(rows_file)
+        if file_card != card:
+            fail(f"bench_all recorded the card as {file_card!r}, not {card!r}")
+        if [r["model"] for r in rows] != BENCH_ROWS:
+            fail(f"bench_all rows {[r['model'] for r in rows]}, not {BENCH_ROWS}")
+        for r in rows:
+            bad = ("error" in r or not r["rtf"] > 0 or not r.get("gflops", 0) > 0
+                   or not 0 <= r.get("mfu_pct", -1) < 100
+                   or ("+q8" in r["model"]) != ("snr_vs_f32_db" in r))
+            if bad:
+                fail(f"bench_all row {r}")
+        readme = f"{root}/README.md"
+        shutil.copy(Path(__file__).resolve().parent / "README.md", readme)
+        readme_tables.main(["--readme", readme, "--zoo", rows_file])
+        text = Path(readme).read_text()
+        zoo = text[text.index(f"<!-- {readme_tables.ZOO_TAG}:begin -->"):
+                   text.index(f"<!-- {readme_tables.ZOO_TAG}:end -->")]
+        quant = text[text.index(f"<!-- {readme_tables.QUANT_TAG}:begin -->"):
+                     text.index(f"<!-- {readme_tables.QUANT_TAG}:end -->")]
+        if (f"Card: {card}" not in zoo or zoo.count("\n| ") != 1 + 3
+                or "| MossFormerGAN-SE (f32 / bf16) |" not in zoo or quant.count("| q8f32 |") != 3):
+            fail(f"readme_tables rendered:\n{zoo}\n{quant}")
+        print(f"tools: readme_tables {readme_tables.ZOO_TAG}:{zoo.split('-->', 1)[1]}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def check_gan_profile(card: str, started: tuple) -> dict:
+    """Phase 32's ``utils.gan_profile --iters 3 --json``: the ten stages, each
+    stub run and the function it replaced never called."""
+    lines, launches = _tool(started)
+    report = json.loads(lines[-1])
+    names = [r["name"] for r in report["stages"]]
+    if names != GAN_STAGES or report["config"]["chip"] != card:
+        fail(f"gan_profile stages {names}, chip {report['config']['chip']!r}")
+    for r in report["stages"]:
+        if r["stub_calls"] <= 0 or r["original_calls"] != 0:
+            fail(f"gan_profile stage {r}")
+    from audiojax_torch.utils.zip_profile import to_markdown
+
+    for line in to_markdown(report).splitlines():
+        print(f"tools: gan_profile {line}", flush=True)
+    return launches
+
+
+def check_parity_kit(card: str) -> dict:
+    """Phase 32's ``utils.parity_suite``: a GTCRN kit built here (a synthetic
+    checkpoint from ``tests/test_torch_ckpt_builders.py``, a 6 s input, the
+    port's own CPU answer as its ref) run on the card, at ≥ 40 dB; returns
+    the card run's launches, where B1 and B2 must show."""
+    import shutil
+    import tempfile
+
+    from audiojax_torch.runtime.audio_io import write_wav
+    from audiojax_torch.runtime.export import export_artifact
+    from audiojax_torch.utils import parity, parity_suite
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_kit_"))
+    try:
+        mdir = root / "kit" / "gtcrn"
+        (mdir / "inputs").mkdir(parents=True)
+        (mdir / "ref").mkdir()
+        torch.save(load_builders().build_gtcrn_state_dict(seed=7), mdir / "checkpoint.pt")
+        write_wav(mdir / "inputs" / "case0.wav", noisy_speech(KIT_SECONDS * SR, 97), SR)
+        export_artifact("gtcrn", mdir / "checkpoint.pt", root / "cpu_art", smoke=False)
+        session = parity.load_session("gtcrn", root / "cpu_art", device="cpu")
+        ref = session.process(*parity.read_inputs([mdir / "inputs" / "case0.wav"],
+                                                  session.manifest))
+        write_wav(mdir / "ref" / "case0.wav", ref.audio, SR)
+        for mod in kernel_modules():
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        report = parity_suite.run_kit(root / "kit", workdir=root / "work")
+        elapsed = time.perf_counter() - t0
+        launches = {k: n for mod in kernel_modules() for k, n in mod.launches.items()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    (m,) = report["models"]
+    print(f"tools: parity_suite on a GTCRN kit ({KIT_SECONDS} s input, ref the port's CPU "
+          f"answer): {json.dumps(m)} in {elapsed:.1f} s, launches "
+          f"{ {k: n for k, n in launches.items() if n} }  [{card}]", flush=True)
+    if not report["passed"] or m["min_snr_db"] < MIN_SNR_DB:
+        fail(f"parity_suite on the card: {report}")
+    if launches["stft_packed"] <= 0 or launches["istft_packed"] <= 0:
+        fail(f"parity_suite's card request launched {launches}")
+    return launches
+
+
+def start_measure_tools(card: str, kit: dict) -> dict:
+    """Phase 32's untimed part, beside phase 30's exports: its two timing
+    tools started (each gets ready in a process of its own, then waits), and
+    the parity kit run on the card (its launches into ``kit``).  Returns the
+    started tools."""
+    import tempfile
+
+    rows_file = tempfile.mktemp(prefix="chip_smoke_bench_", suffix=".jsonl")
+    started = {"bench_all": start_tool("bench_all", *BENCH_ARGS, "--json-out", rows_file),
+               "gan_profile": start_tool("gan_profile", "--iters", "3", "--json")}
+    kit["tools_parity_kit"] = check_parity_kit(card)
+    return started
+
+
+def check_measure_tools(card: str, started: dict) -> dict:
+    """Phase 32's timed part: bench_all with readme_tables, then gan_profile,
+    one at a time; returns each one's launches by path."""
+    try:
+        return {"tools_bench_all": check_bench_all(card, started["bench_all"]),
+                "tools_gan_profile": check_gan_profile(card, started["gan_profile"])}
+    finally:
+        Path(started["bench_all"][1][-1]).unlink(missing_ok=True)
+        for _, _, proc, _ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+
+
 def build_all() -> None:
     """Every kernel source built, one nvcc each, all started together."""
     start_builds()()
@@ -2880,6 +3095,8 @@ def main() -> int:
         return graph_export(*sys.argv[2:])
     if sys.argv[1:2] == ["--graph-child"]:
         return graph_child(*sys.argv[2:])
+    if sys.argv[1:2] == ["--tool"]:  # phase 32's children
+        return tool_child(*sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -2952,9 +3169,19 @@ def main() -> int:
     # a JAX artifact, the graph artifacts, the tools
     by_path["gtcrn_jax_artifact"] = phase(29, serve_jax_artifact, card)
     # phase 31's smoke and inspect_model run beside phase 30's exports
-    by_path.update(phase("30 (and 31's smoke and inspect_model)", serve_graphs, card,
-                         beside=lambda: run_tools(card)))
+    # phase 31's smoke and inspect_model, and phase 32's parity kit and its
+    # tools' start, run beside phase 30's exports
+    beside = {}
+
+    def untimed() -> None:
+        run_tools(card)
+        beside["tools"] = start_measure_tools(card, by_path)
+
+    by_path.update(phase("30 (and 31's smoke and inspect_model, 32's kit)", serve_graphs, card,
+                         beside=untimed))
     phase(31, bench_stream_lanes, card)
+    # the measurement tools, one at a time
+    by_path.update(phase(32, check_measure_tools, card, beside["tools"]))
 
     sources = {
         "stft_packed": ("audiojax_torch/csrc/stft.cu", "audiojax/ops/stft_pallas.py:207"),

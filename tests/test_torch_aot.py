@@ -33,6 +33,7 @@ from audiojax.runtime import aot as jaot
 from audiojax.runtime import registry as jregistry
 from audiojax.runtime.checkpoint import save_artifact as jsave
 from test_torch_ckpt_builders import BUILDERS, one_thread  # noqa: F401
+from torch_isolation import hide_module_stubs  # noqa: F401
 
 from audiojax_torch.dsp.stft import StftConfig
 from audiojax_torch.models.base import ParamModule

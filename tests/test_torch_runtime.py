@@ -55,7 +55,11 @@ def test_import_pulls_in_no_jax():
         "        'audiojax_torch.models.sdaec', 'audiojax_torch.models.deep_echo',\n"
         "        'audiojax_torch.models.dfsmn_aec', 'audiojax_torch.importers.sdaec',\n"
         "        'audiojax_torch.importers.deep_echo', 'audiojax_torch.importers.dfsmn_aec',\n"
-        "        'audiojax_torch.runtime.vad', 'audiojax_torch.utils.profiling'} <= set(mods)\n"
+        "        'audiojax_torch.runtime.vad', 'audiojax_torch.utils.profiling',\n"
+        "        'audiojax_torch.utils.bench_all', 'audiojax_torch.utils.readme_tables',\n"
+        "        'audiojax_torch.utils.ablation', 'audiojax_torch.utils.zip_profile',\n"
+        "        'audiojax_torch.utils.gan_profile', 'audiojax_torch.utils.ss_profile',\n"
+        "        'audiojax_torch.utils.parity', 'audiojax_torch.utils.parity_suite'} <= set(mods)\n"
         "assert len(mods) > 15, mods\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'audiojax', 'flax', 'msgpack'))\n"

@@ -10,6 +10,7 @@ import torch
 from audiojax.runtime import registry as jregistry
 from audiojax.utils.inspect_model import inspect_model as jinspect
 from test_torch_ckpt_builders import one_thread  # noqa: F401
+from torch_isolation import hide_module_stubs  # noqa: F401
 
 from audiojax_torch.dsp.stft import StftConfig
 from audiojax_torch.ops import _build, attention_cuda, dwconv_cuda, stft_cuda
