@@ -11,8 +11,11 @@ through ``Session`` by the eager module, 3 times after a warm-up; then
 its eager warm-up forward included), the size of ``graph.pt2`` and its node
 count, ``load_compiled`` (timed), and the same request served by the graph:
 the medians and the largest difference (LSB).  One JSON line a model, after the card's
-name and power limit.  The models whose Python time loops unroll in the
-trace (GTCRN's GRUs over 126 frames a window: ~20k nodes) are the slow ones.
+name and power limit.  ``graph_nodes`` counts the loaded graph's top-level
+nodes; ``nodes_with_steps`` adds the nodes of the scan operators' traced
+steps (``graph.json``'s ``nodes``).  The time loops trace as scan operators
+(``runtime/aot.py``); before that they unrolled (GTCRN's GRUs over 126
+frames a window: ~20k nodes).
 
 Without CUDA it exits 1.
 """
@@ -71,7 +74,8 @@ def measure(name: str, compute_dtype: str | None) -> dict:
                 for a, b in zip(r.outputs, e.outputs))
     med = {k: float(np.median([r.elapsed_s * 1e3 for r in v])) for k, v in runs.items()}
     return {"model": name, "compute_dtype": compute_dtype or "float32",
-            "batch_mode": meta["batch_mode"], "export_s": round(export_s, 2),
+            "batch_mode": meta["batch_mode"], "loops": meta.get("loops"),
+            "nodes_with_steps": sum(meta.get("nodes", {}).values()), "export_s": round(export_s, 2),
             "load_s": round(load_s, 2), "graph_bytes": nbytes, "graph_nodes": nodes,
             "graph_ms": round(med["graph"], 3), "eager_ms": round(med["eager"], 3),
             "graph_vs_eager_max_lsb": worst}

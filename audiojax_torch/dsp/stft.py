@@ -7,7 +7,9 @@ one (…·T, n_fft) × (n_fft, 2F) product for the STFT, and one
 centre trim for the ISTFT.
 
 Layouts: audio is ``(..., L)``; spectra are time-major packed
-``(..., T, 2F)`` with [real | imag] on the last axis.
+``(..., T, 2F)`` with [real | imag] on the last axis.  ``stft`` / ``istft``
+/ ``istft_polar`` take the rectangular and polar forms and route through
+the kernels' wrappers; ``stft_real`` is the cosine projection alone.
 
 ``stream_istft`` is the ISTFT of one streaming chunk with the overlap-add
 tail carried between chunks and the steady-state COLA reciprocal
@@ -20,6 +22,8 @@ config; their torch copies are cached per (config, device).
 from __future__ import annotations
 
 import dataclasses
+import sys
+import types
 from functools import lru_cache
 
 import numpy as np
@@ -31,11 +35,16 @@ from .windows import padded_window
 __all__ = [
     "StftConfig",
     "num_frames",
+    "istft_length",
     "pad_center",
     "frame_signal",
     "overlap_add",
+    "stft",
     "stft_packed",
+    "stft_real",
+    "istft",
     "istft_packed",
+    "istft_polar",
     "stream_istft",
     "steady_cola_np",
 ]
@@ -74,6 +83,12 @@ def num_frames(cfg: StftConfig, length: int) -> int:
     """Number of full analysis frames for an input of ``length`` samples."""
     padded = length + 2 * cfg.half if cfg.center else length
     return (padded - cfg.n_fft) // cfg.hop + 1
+
+
+def istft_length(cfg: StftConfig, n_frames: int) -> int:
+    """Length of the ISTFT output for ``n_frames`` frames (after centre trim)."""
+    raw = cfg.n_fft + cfg.hop * (n_frames - 1)
+    return raw - 2 * cfg.half if cfg.center else raw
 
 
 # ─────────────────────────────────────────────────────────────────────────────
@@ -355,6 +370,45 @@ def istft_packed(spec: torch.Tensor, cfg: StftConfig, out_length: int | None = N
 
 
 # ─────────────────────────────────────────────────────────────────────────────
+# Rectangular and polar views over the packed transforms.  These route to
+# the kernels on a CUDA tensor, as the models' calls do (``ops.stft_cuda``:
+# B1 and B2 take (B, L) and (B, T, 2F), so the leading axes fold into B).
+# ─────────────────────────────────────────────────────────────────────────────
+
+
+def stft(x: torch.Tensor, cfg: StftConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """STFT of ``(..., L)`` → (real, imag), each ``(..., T, F)``."""
+    from ..ops.stft_cuda import fast_stft_packed
+
+    packed = fast_stft_packed(x.reshape(-1, x.shape[-1]).contiguous(), cfg)
+    packed = packed.reshape(*x.shape[:-1], *packed.shape[1:])
+    return packed[..., : cfg.f_bins], packed[..., cfg.f_bins :]
+
+
+def stft_real(x: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
+    """The real (cosine) projection alone, ``(..., T, F)``: the frames times
+    the basis's real columns (no kernel, as in the JAX package)."""
+    return torch.matmul(frame_signal(x, cfg), stft_basis(cfg, x.device)[:, : cfg.f_bins])
+
+
+def istft(real: torch.Tensor, imag: torch.Tensor, cfg: StftConfig,
+          out_length: int | None = None) -> torch.Tensor:
+    """ISTFT from rectangular form, ``(..., T, F)`` each → ``(..., L_out)``."""
+    from ..ops.stft_cuda import fast_istft_packed
+
+    packed = torch.cat([real, imag], dim=-1)
+    lead = packed.shape[:-2]
+    y = fast_istft_packed(packed.reshape(-1, *packed.shape[-2:]).contiguous(), cfg, out_length)
+    return y.reshape(*lead, y.shape[-1])
+
+
+def istft_polar(magnitude: torch.Tensor, phase: torch.Tensor, cfg: StftConfig,
+                out_length: int | None = None) -> torch.Tensor:
+    """ISTFT from polar form."""
+    return istft(magnitude * torch.cos(phase), magnitude * torch.sin(phase), cfg, out_length)
+
+
+# ─────────────────────────────────────────────────────────────────────────────
 # Streaming ISTFT (state-carry serving)
 # ─────────────────────────────────────────────────────────────────────────────
 
@@ -392,3 +446,17 @@ def stream_istft(packed: torch.Tensor, cfg: StftConfig, ola_tail: torch.Tensor,
     raw = torch.cat([raw[:, :carry] + ola_tail, raw[:, carry:]], dim=-1)
     divisor = _on_device(_steady_cola_tile_np, packed.device, cfg, emit_len)
     return raw[:, :emit_len] * divisor, raw[:, emit_len:]
+
+
+class _CallableModule(types.ModuleType):
+    """This module, callable as its :func:`stft`.  ``audiojax_torch.dsp``
+    exports the function ``stft`` as the JAX package's ``dsp`` does, and its
+    attribute ``stft`` stays this module, which callers import through the
+    package (``from audiojax_torch.dsp import stft as D``): the one name
+    serves both."""
+
+    def __call__(self, x: torch.Tensor, cfg: StftConfig) -> tuple[torch.Tensor, torch.Tensor]:
+        return stft(x, cfg)
+
+
+sys.modules[__name__].__class__ = _CallableModule

@@ -15,7 +15,8 @@ order-L complex Kalman filter tracks the echo path:
 independent real affines to the two parts; ComplexGRU combines four real GRU
 passes as (h_rr − h_ii, h_ri + h_ir), run as two ``gru_cell`` calls on the
 stacked parts; ComplexPReLU is one shared slope.  The recurrence is a Python
-loop over frames carrying (h_prior, h_post, the four GRU states).
+loop over frames carrying (h_prior, h_post, the four GRU states), and the
+scan operator while ``torch.export`` traces.
 
 On the card the offline forward stacks far‖near into one B1 call and
 synthesises on B2 (1024/256 hann, constant pad, centred); the stream step
@@ -39,7 +40,8 @@ from ..device import resolve_device
 from ..dsp.pcm import fold_windows, pcm_in, pcm_out, resample_linear, unfold_windows
 from ..dsp.stft import StftConfig, stream_istft
 from ..nn import core
-from ..nn.rnn import gru_cell
+from ..nn.rnn import gru_cell, time_scan
+from ..ops import _build
 from ..ops.stft_cuda import fast_istft_packed, fast_stft_packed
 from ..params import params_from_numpy
 from .base import ParamModule, dense_np
@@ -126,6 +128,21 @@ def kg_net(p, x: torch.Tensor, grus):
     return _cdense(p["fc_out"], y), (h_rr, h_ir, h_ri, h_ii)
 
 
+def _kalman_step(params, carry, xt: torch.Tensor, mic_t: torch.Tensor):
+    """One frame of the recurrence: ``xt`` (B, F, L, 2), ``mic_t`` (B, F, 2)
+    → (new carry, echo (B, F, 2)).  The new h_prior is the old h_post
+    itself, and the GRU states are views of one cell output each."""
+    h_prior, h_post, grus = carry
+    b, f_bins, filter_l, _ = xt.shape
+    dh = h_post - h_prior
+    h_prior, h_post = h_post, h_prior
+    e = mic_t - _cdot(xt, h_prior)  # (B, F, 2)
+    feat = torch.cat([xt, e[..., None, :], dh], dim=-2)  # (B, F, 2L+1, 2)
+    kg, grus = kg_net(params, feat.reshape(b * f_bins, 2 * filter_l + 1, 2), grus)
+    h_post = h_prior + _cmul(kg.reshape(b, f_bins, filter_l, 2), e[..., None, :])
+    return (h_prior, h_post, grus), _cdot(xt, h_post)
+
+
 def nkf_scan(params, ref_spec: torch.Tensor, mic_spec: torch.Tensor, cfg: NkfConfig,
              state=None):
     """Kalman recurrence over frames: specs (B, T, F, 2) → echo (B, T, F, 2).
@@ -133,7 +150,8 @@ def nkf_scan(params, ref_spec: torch.Tensor, mic_spec: torch.Tensor, cfg: NkfCon
     ``state`` = (carry (h_prior, h_post, (h_rr, h_ir, h_ri, h_ii)), the
     reference delay line's history (B, L − 1, F, 2)); with it the recurrence
     continues exactly across streaming chunks and ``(echo, new_state)``
-    comes back."""
+    comes back.  Without ``state``, while ``torch.export`` traces, the
+    frames run as the scan operator (``nn.rnn.time_scan``)."""
     b, t_frames, f_bins, _ = ref_spec.shape
     filter_l = cfg.filter_order
     if state is None:
@@ -143,23 +161,30 @@ def nkf_scan(params, ref_spec: torch.Tensor, mic_spec: torch.Tensor, cfg: NkfCon
     # xt[t] = ref[t − L + 1 … t]: (B, T, F, L, 2)
     xt_all = torch.stack([padded[:, k:k + t_frames] for k in range(filter_l)], dim=-2)
 
-    n = b * f_bins
+    if state is None and _build.loops_as_scan():
+        # the scan's carries are tensors of their own, and so are its outputs
+        zeros_h = ref_spec.new_zeros((b, f_bins, filter_l, 2))
+        grus = tuple(ref_spec.new_zeros((b * f_bins, cfg.rnn_dim)) for _ in range(4))
+
+        def step(carry, xs):
+            carry, echo_t = _kalman_step(params, carry, *xs)
+            h_prior, h_post, grus = carry
+            return (h_prior.clone(), h_post, tuple(g.clone() for g in grus)), echo_t
+
+        _, echo = time_scan(step, (zeros_h, torch.zeros_like(zeros_h), grus),
+                            (xt_all, mic_spec), dim=1)
+        return echo
     if state is None:
         zeros_h = ref_spec.new_zeros((b, f_bins, filter_l, 2))
-        zeros_g = ref_spec.new_zeros((n, cfg.rnn_dim))
-        h_prior, h_post, grus = zeros_h, zeros_h, (zeros_g,) * 4
+        zeros_g = ref_spec.new_zeros((b * f_bins, cfg.rnn_dim))
+        carry = (zeros_h, zeros_h, (zeros_g,) * 4)
     else:
-        h_prior, h_post, grus = state[0]
+        carry = state[0]
     echoes = []
     for t in range(t_frames):
-        xt = xt_all[:, t]  # (B, F, L, 2)
-        dh = h_post - h_prior
-        h_prior, h_post = h_post, h_prior
-        e = mic_spec[:, t] - _cdot(xt, h_prior)  # (B, F, 2)
-        feat = torch.cat([xt, e[..., None, :], dh], dim=-2)  # (B, F, 2L+1, 2)
-        kg, grus = kg_net(params, feat.reshape(n, 2 * filter_l + 1, 2), grus)
-        h_post = h_prior + _cmul(kg.reshape(b, f_bins, filter_l, 2), e[..., None, :])
-        echoes.append(_cdot(xt, h_post))
+        carry, echo_t = _kalman_step(params, carry, xt_all[:, t], mic_spec[:, t])
+        echoes.append(echo_t)
+    h_prior, h_post, grus = carry
     echo = torch.stack(echoes, dim=1)  # (B, T, F, 2)
     if state is None:
         return echo

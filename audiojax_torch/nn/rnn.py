@@ -15,16 +15,45 @@ q8 plans) is read through ``core.as_weight``, as in the JAX package.
 
 On the card the time loop is a Python loop of small launches; that cost is
 recorded in PERF.md and is left to a later CUDA graph or fused recurrence.
+
+While ``torch.export`` traces (``ops._build.loops_as_scan``), each time loop
+runs instead as torch's scan operator (:func:`time_scan`), which the graph
+records as one node over a traced step, where the Python loop would unroll
+into a copy of the step a frame.  Two rules hold for every scanned step:
+each initial carry is a tensor of its own (a graph started from one zeros
+tensor used as both h and c returned wrong answers), and no step output is
+the carry object itself (the export refuses it).  Eager forwards never
+enter the operator.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..ops import _build
 from .core import as_weight
 
 __all__ = ["gru_cell", "gru", "gru_bidir", "grouped_gru", "grouped_gru_bidir", "lstm",
-           "lstm_bidir", "init_lstm_numpy"]
+           "lstm_bidir", "init_lstm_numpy", "time_scan"]
+
+
+def time_scan(step, init, xs, *, dim: int = 0, reverse: bool = False):
+    """``step(carry, x_t) -> (carry, y_t)`` over axis ``dim`` of ``xs`` (a
+    tensor or a tuple of them) as ``torch._higher_order_ops.scan.scan``;
+    returns ``(last carry, ys)``, the tensor ``ys`` stacked on ``dim`` in
+    input order, with ``reverse`` too.  The operator scans axis 0 forwards
+    here: where it stacks the ys of another ``dim``, and how it orders a
+    reversed scan's, differs between torch releases (2.11 and 2.13).
+    Called only while exporting: see the module note."""
+    from torch._higher_order_ops.scan import scan
+
+    def time_major(x):
+        x = x.movedim(dim, 0)
+        return torch.flip(x, dims=(0,)) if reverse else x
+
+    xs = tuple(map(time_major, xs)) if isinstance(xs, tuple) else time_major(xs)
+    carry, ys = scan(step, init, xs)
+    return carry, (torch.flip(ys, dims=(0,)) if reverse else ys).movedim(0, dim)
 
 
 def _float(p) -> dict:
@@ -51,6 +80,13 @@ def gru_cell(p, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 def _scan(xp: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor, h: torch.Tensor,
           reverse: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """Recurrence over axis -2 of ``xp (..., T, 3H)``; ``h (..., H)``."""
+    if _build.loops_as_scan():
+        def step(h, xt):
+            h = _cell(xt, torch.matmul(h, w_h) + b_h, h)
+            return h, h.clone()
+
+        h, ys = time_scan(step, h, xp, dim=xp.ndim - 2, reverse=reverse)
+        return ys, h
     n_t = xp.shape[-2]
     ys = []
     for t in (range(n_t - 1, -1, -1) if reverse else range(n_t)):
@@ -146,17 +182,31 @@ def _lstm_loop(xp: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor, h: torch.
     ``addmm`` / ``baddbmm``), its sum with the step's input projection, the
     gates, and the cell and hidden updates, in the JAX package's order of
     operations."""
-    hidden = h.shape[-1]
-    batched = w_h.ndim == 3
     ys = []
     for xt in xp:
-        gh = torch.baddbmm(b_h, h, w_h) if batched else torch.addmm(b_h, h, w_h)
-        z = xt + gh
-        s = torch.sigmoid(z)  # the g lanes are taken from tanh below
-        c = torch.addcmul(s[..., hidden:2 * hidden] * c, s[..., :hidden],
-                          torch.tanh(z[..., 2 * hidden:3 * hidden]))
-        h = s[..., 3 * hidden:] * torch.tanh(c)
+        h, c = _lstm_step(xt, w_h, b_h, h, c)
         ys.append(h)
+    return ys, h, c
+
+
+def _lstm_step(xt, w_h, b_h, h, c):
+    hidden = h.shape[-1]
+    gh = torch.baddbmm(b_h, h, w_h) if w_h.ndim == 3 else torch.addmm(b_h, h, w_h)
+    z = xt + gh
+    s = torch.sigmoid(z)  # the g lanes are taken from tanh below
+    c = torch.addcmul(s[..., hidden:2 * hidden] * c, s[..., :hidden],
+                      torch.tanh(z[..., 2 * hidden:3 * hidden]))
+    return s[..., 3 * hidden:] * torch.tanh(c), c
+
+
+def _lstm_scan(xp, w_h, b_h, h, c, reverse=False):
+    """:func:`_lstm_loop` as the scan operator: ``(ys (T, ..., N, H), h, c)``,
+    the ys in input order."""
+    def step(carry, xt):
+        h, c = _lstm_step(xt, w_h, b_h, *carry)
+        return (h, c), h.clone()
+
+    (h, c), ys = time_scan(step, (h, c), xp, reverse=reverse)
     return ys, h, c
 
 
@@ -167,6 +217,12 @@ def lstm(p, x: torch.Tensor, state=None, *, reverse: bool = False, return_state:
     hidden = p["w_h"].shape[0]
     # time-major, so that each step's slice is contiguous
     xp = torch.matmul(x.transpose(0, 1), p["w_i"]) + p["b_i"]
+    if _build.loops_as_scan():
+        if state is None:  # two tensors: a scan started from one aliased pair goes wrong
+            state = (x.new_zeros((x.shape[0], hidden)), x.new_zeros((x.shape[0], hidden)))
+        y, h, c = _lstm_scan(xp, p["w_h"], p["b_h"], *state, reverse=reverse)
+        y = y.transpose(0, 1)
+        return (y, (h, c)) if return_state else y
     if state is None:
         z = x.new_zeros((x.shape[0], hidden))
         state = (z, z)
@@ -190,8 +246,11 @@ def lstm_bidir(p_fwd, p_bwd, x: torch.Tensor) -> torch.Tensor:
     xs = torch.stack([xt, torch.flip(xt, dims=(0,))], dim=1)  # (T, 2, B, in)
     xp = torch.matmul(xs, both["w_i"]) + both["b_i"][:, None]  # (T, 2, B, 4H)
     z = x.new_zeros((2, x.shape[0], hidden))
-    ys, _, _ = _lstm_loop(xp, both["w_h"], both["b_h"][:, None], z, z)
-    y = torch.stack(ys)  # (T, 2, B, H)
+    if _build.loops_as_scan():
+        y, _, _ = _lstm_scan(xp, both["w_h"], both["b_h"][:, None], z, torch.zeros_like(z))
+    else:
+        ys, _, _ = _lstm_loop(xp, both["w_h"], both["b_h"][:, None], z, z)
+        y = torch.stack(ys)  # (T, 2, B, H)
     return torch.cat([y[:, 0], torch.flip(y[:, 1], dims=(0,))], dim=-1).transpose(0, 1)
 
 

@@ -34,7 +34,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["BUILD_DIR", "DTYPES", "count", "load", "load_source", "through_ops",
-           "registered_ops"]
+           "registered_ops", "loops_as_scan"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -108,6 +108,14 @@ def through_ops() -> bool:
     """True where a routing point calls its registered operator: while
     ``torch.export`` traces, or inside :func:`registered_ops`."""
     return _force_ops.get() or torch.compiler.is_exporting()
+
+
+def loops_as_scan() -> bool:
+    """True where the model code's time loops (``nn.rnn``, NKF-AEC's Kalman
+    recurrence) run as torch's scan operator: while ``torch.export`` traces,
+    and only then.  Eager forwards, :func:`registered_ops` among them, keep
+    the Python loops."""
+    return torch.compiler.is_exporting()
 
 
 @contextlib.contextmanager

@@ -35,8 +35,13 @@ model code's cached constants (windows, filterbanks, bases, keyed by
 device) are then real tensors, which the graph stores, and not the tracer's
 fake ones, which would stay in the caches after the export.
 
-Python loops of the model code (the GRU and scan time loops, the CG steps)
-unroll in the trace: such graphs are large and slow to export (PERF.md).
+The time loops (the GRUs and LSTMs of ``nn.rnn``, NKF-AEC's Kalman
+recurrence) are traced as torch's scan operator (``nn.rnn.time_scan``, on
+while exporting: ``ops._build.loops_as_scan``): one node over a traced step
+each, whatever the frame count, and ``graph.json`` records ``"loops":
+"scan"`` and the graph's node count.  A scan that fails to export raises;
+nothing falls back to an unrolled trace.  What still unrolls is a fixed
+count of iterations: H-GTCRN's CG and WPE steps (``nn/spatial.py``).
 """
 from __future__ import annotations
 
@@ -55,7 +60,7 @@ from ..params import BUFFER_SEP
 from .registry import _holds_q8
 
 __all__ = ["attach_graph", "export_graph", "load_compiled", "has_graph", "prepare_for_graph",
-           "GRAPH_FILE", "GRAPH_META", "FORMAT"]
+           "node_count", "GRAPH_FILE", "GRAPH_META", "FORMAT"]
 
 GRAPH_FILE = "graph.pt2"
 GRAPH_META = "graph.json"
@@ -111,6 +116,13 @@ class _Served(nn.Module):
 
     def forward(self, params: dict, *audios):
         return torch.func.functional_call(self.served, params, audios)
+
+
+def node_count(program) -> int:
+    """Nodes of an exported program's graph and of the graphs it calls (the
+    scan operators' steps)."""
+    return sum(len(m.graph.nodes) for m in program.graph_module.modules()
+               if isinstance(m, torch.fx.GraphModule))
 
 
 def _example_audios(manifest, batch: int, device) -> tuple:
@@ -175,6 +187,8 @@ def export_graph(module: nn.Module, manifest, *, static_batches=None, max_batch:
         "admissible_batches": (f"1..{int(max_batch)}" if poly
                                else sorted(int(t[1:]) for t in programs)),
         "symbolic_fallback_error": symbolic_error,
+        "loops": "scan",
+        "nodes": {tag: node_count(program) for tag, program in sorted(programs.items())},
         "params_fingerprint": _params_fingerprint(flat),
         "params_compute_dtype": _compute_dtype(module, manifest),
         "torch_version": torch.__version__,

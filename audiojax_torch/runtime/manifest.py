@@ -2,7 +2,8 @@
 
 A copy of ``audiojax.runtime.manifest`` (the port imports nothing of the JAX
 package): the same required keys, fields and derived runtime configuration,
-so a manifest drives both packages' sessions identically.
+so a manifest drives both packages' sessions identically.  Run as a
+module it is the manifest inspector (:func:`main`).
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import json
 from pathlib import Path
 from typing import Any
 
-__all__ = ["Manifest", "REQUIRED_KEYS", "TASKS", "validate_manifest_dict"]
+__all__ = ["Manifest", "REQUIRED_KEYS", "TASKS", "validate_manifest_dict", "main"]
 
 REQUIRED_KEYS = (
     "manifest_version",
@@ -136,3 +137,33 @@ def validate_manifest_dict(data: dict) -> None:
     missing = [k for k in REQUIRED_KEYS if k not in data or data[k] in (None, "")]
     if missing:
         raise KeyError(f"manifest is missing required keys: {missing}")
+
+
+def main(argv=None) -> int:
+    """Manifest inspector: print every key, exit 1 when a required key is missing.
+
+        python -m audiojax_torch.runtime.manifest <artifact_dir_or_manifest.json>
+    """
+    import argparse
+    import sys
+
+    ap = argparse.ArgumentParser(description="audiojax_torch manifest inspector")
+    ap.add_argument("path", help="manifest.json or artifact directory")
+    args = ap.parse_args(argv)
+    path = Path(args.path)
+    if path.is_dir():
+        path = path / "manifest.json"
+    data = json.loads(path.read_text())
+    for k in sorted(data):
+        print(f"{k} = {data[k]!r}")
+    try:
+        validate_manifest_dict(data)
+    except KeyError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    print(f"OK: all {len(REQUIRED_KEYS)} required keys present")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -6,10 +6,15 @@ per-source output trimming, butt-join or Hann-taper overlap-add stitching,
 and an RTF report.  All windows of a request are stacked on the batch axis
 and go through the model in one call; the window count is rounded up to a
 power of two (all-zero pad windows, dropped before stitching), as in the JAX
-package.  Windows are sliced and stitched in numpy, where the JAX package
-takes its native bridge for mono int16: on the card's host the bridge's
-slicing is slower than numpy's strided copies and its Hann-taper stitch no
-faster (``chip_smoke.py`` phase 26 times both), so one route serves.
+package, unless ``bucket_windows=False``.  With a ``mesh``
+(``audiojax_torch.parallel.make_mesh``) the model is replicated on each
+distinct device, the window batch is padded to a whole number a ``dp`` row
+and then bucketed, each row's windows run on its device, and the outputs
+are gathered before the stitch.  Windows are sliced and stitched in numpy,
+where the JAX package takes its native bridge for mono int16: on the card's
+host the bridge's slicing is slower than numpy's strided copies and its
+Hann-taper stitch no faster (``chip_smoke.py`` phase 26 times both), so one
+route serves.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..parallel import replicate, shard_batch, sharded_model_fn
 from .audio_io import normalise_rms
 from .manifest import Manifest
 
@@ -41,13 +47,29 @@ class SessionResult:
 
 class Session:
     """Runs ``model(*audio_batches) -> out | (outs…)`` per manifest on ``device``
-    (default: the card; the model is moved there)."""
+    (default: the card; the model is moved there), or over the ``dp`` rows of
+    ``mesh`` (the outputs gathered on its first device).  ``device`` and
+    ``mesh`` together are an error."""
 
-    def __init__(self, model: nn.Module, manifest: Manifest, *, device=None):
-        self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+    def __init__(self, model: nn.Module, manifest: Manifest, *, device=None, mesh=None,
+                 bucket_windows: bool = True):
         self.manifest = manifest
         self.cfg = manifest.runtime_config()
+        self.mesh = mesh
+        self.bucket_windows = bucket_windows
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.model = model.to(self.device).eval()
+            self._dp = 1
+            return
+        if device is not None:
+            raise ValueError("Session takes device= or mesh=, not both: a mesh names its "
+                             "devices (make_mesh(devices=...))")
+        self._dp = mesh.shape["dp"]
+        self.device = mesh.devices.reshape(-1)[0]
+        self._replicas = replicate(mesh, model.eval())
+        self.model = self._replicas[self.device]
+        self._sharded = sharded_model_fn(mesh, lambda m, *audios: m(*audios))
 
     # ── host-side conditioning ───────────────────────────────────────────
 
@@ -75,7 +97,10 @@ class Session:
                 f"INPUT_AUDIO_LENGTH ({w}) — window stride would be {w - overlap}")
         stride = w - overlap if overlap else w
         num = 1 if n <= w else int(np.ceil((n - w) / stride)) + 1
-        num_padded = 1 << (num - 1).bit_length()
+        # a whole number of windows a dp row, then a power of two of them
+        num_padded = -(-num // self._dp) * self._dp
+        if self.bucket_windows and num_padded > 1:
+            num_padded = self._dp * (1 << (num_padded // self._dp - 1).bit_length())
         return w, stride, num, num_padded
 
     # ── main entry ───────────────────────────────────────────────────────
@@ -102,12 +127,17 @@ class Session:
 
         start = time.perf_counter()
         with torch.inference_mode():
-            out = self.model(*[torch.from_numpy(np.ascontiguousarray(b)).to(self.device)
-                               for b in batches])
+            if self.mesh is None:
+                out = self.model(*[torch.from_numpy(np.ascontiguousarray(b)).to(self.device)
+                                   for b in batches])
+            else:
+                out = self._sharded(self._replicas,
+                                    *(shard_batch(self.mesh, b) for b in batches))
             outs = tuple(out) if isinstance(out, (tuple, list)) else (out,)
             outs = tuple(o[:num].cpu().numpy() for o in outs)  # drop the pad windows
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in ([self.device] if self.mesh is None else self.mesh.distinct()):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         elapsed = time.perf_counter() - start
 
         scale = self.cfg["INPUT_TO_OUTPUT_SCALE"]

@@ -49,7 +49,7 @@ Phases, each of which raises (non-zero exit) on failure:
    launch counters must show B1 and B2 on that path, and the 7 s answer must
    be within 40 dB SNR of the same port on the CPU.
 6. Serving MossFormerGAN-SE: ``Session`` for ``mossformergan_se`` at full
-   width and depth (random parameters from seed 0) answers a 6 s and a 30 s
+   width and depth (random parameters from seed 0) answers a 6 s
    request; every forward must launch B1 and B2 once, B4 48 times and B6 24
    times; one 6 s request is profiled (top kernels, and each ported kernel's
    device time in that trace), and one 1.5 s fold through the module
@@ -60,7 +60,7 @@ Phases, each of which raises (non-zero exit) on failure:
    two largest and one long row (S = 601) for its two-pass route, with kernel
    / plain timings and the card's bound.
 8. Serving ZipEnhancer: ``Session`` for ``zipenhancer`` at full width and
-   depth (random parameters from seed 0) answers a 6 s and a 30 s request;
+   depth (random parameters from seed 0) answers a 6 s request;
    every forward must launch B1 and B2 once, B4 16 times, B3 8 times and B6
    never; one 6 s request is profiled (top kernels, idle share, and each
    ported kernel's device time in that trace), and one 1.5 s fold through the
@@ -77,8 +77,7 @@ Phases, each of which raises (non-zero exit) on failure:
    library (cuDNN's grouped or depthwise conv) timings and the card's bound.
 10. Serving MossFormer2-SS: ``Session`` for ``mossformer2_ss`` at full width
    and depth (random parameters from seed 0; 2 s windows after an 8,000-sample
-   head, two int16 sources out) answers a 6 s and a 30 s request (4 and 16
-   windows); every forward must launch B4 96 times, B5 24 times, B6 24 times
+   head, two int16 sources out) answers a 6 s request (4 windows); every forward must launch B4 96 times, B5 24 times, B6 24 times
    and B1/B2/B3 never; one 6 s request is profiled, and one 2 s window through
    the module must be within 40 dB SNR of the same port on the CPU, each
    source.
@@ -93,27 +92,30 @@ Phases, each of which raises (non-zero exit) on failure:
    6 s request on it once after a warm-up, its forward launching what phases
    5, 6, 8, 10, 12 and 15–23 launch, and one fold (or a window's first
    second) on the card must be within the family's gate (40 dB; H-GTCRN 20 dB) of the same artifact on
-   the CPU, each source (ZipEnhancer's fold starts with 201 silent samples).
+   the CPU, each source (ZipEnhancer's fold starts with 201 silent samples;
+   MossFormerGAN-SE, MossFormer2-SS and MossFormer2-SR, whose CPU forwards
+   take seconds, are held card against CPU in phases 6, 10 and 22 only).
    Prints import, export and load
    seconds and the request's latency beside the random-weight latency of
    the same family and request size from this run, then one JSON line.
 12. Serving DFSMN (run before phase 11, which compares against its
    latency): ``Session`` for ``dfsmn`` at full width and depth (hidden 256,
    depth 9, lorder 20, 120 mels, 48 kHz; random parameters from seed 0)
-   answers a 6 s and a 30 s request; every forward must launch B2 once, B4
+   answers a 6 s request; every forward must launch B2 once, B4
    9 times and B1, B3, B5, B6 never; one 6 s request is profiled, and one
    2 s window must be within 40 dB SNR of the same port on the CPU.
 13. Streaming: ``StreamingServer`` for ``gtcrn``, ``dfsmn``, ``ul_unas``,
    ``nkf_aec``, ``sdaec``, ``deep_echo`` and ``dfsmn_aec`` (8 lanes, 4-hop
    blocks) on the card with ``jit=True`` (one
    captured CUDA graph of the step, replayed every tick) and with
-   ``jit=False``.  Eight clips (7 s GTCRN and UL-UNAS, 6 s the others; the
+   ``jit=False``.  Eight clips (7 s GTCRN and UL-UNAS, 6 s DFSMN and NKF, 3 s the others; the
    echo cancellers' lanes push (near, far) pairs) go through ``push_many`` in
    irregular chunks, then each lane is flushed.  Each lane's output must be
    as long as its input, within 1 LSB of the eager server's and ≥ 40 dB
    against a CPU ``StreamingSession`` on the same clip (the eager server
    and the CPU sessions on 2 of the lanes and the clips' first 2 s (SDAEC's,
-   Deep-Echo's and the cascade's first 1 s),
+   Deep-Echo's and the cascade's 3 s clips: their first 0.5 s, one eager
+   step profiled and one replay traced),
    held against a second graphed drive of the same, to 0 LSB); the captured
    step must launch B1 once (GTCRN, UL-UNAS, NKF,
    SDAEC, Deep-Echo), B4 9 times (DFSMN) or both (the cascade), the
@@ -136,7 +138,7 @@ Phases, each of which raises (non-zero exit) on failure:
    phase 9.
 15. Serving MossFormer2-SE: ``Session`` for ``mossformer2_se`` at full width
    and depth (dim 512, 24 layers, 961 bins, 48 kHz; random parameters from
-   seed 0; 2 s windows) answers a 6 s and a 30 s request (4 and 16 windows);
+   seed 0; 2 s windows) answers a 6 s request (4 windows);
    every forward must launch B2 once, B4 96 times, B6 24 times and B1, B3,
    B5 never; one 6 s request is profiled, and one 2 s window must be within
    40 dB SNR of the same port on the CPU.
@@ -159,7 +161,7 @@ Phases, each of which raises (non-zero exit) on failure:
    ``audiojax_torch.utils.profiling.measure_rtf``.
 21. Serving Mel-Band Roformer: the same for ``melband_roformer`` and
    ``melband_roformer_stereo`` (dim 384, 6 axial layers, 60 mel bands,
-   2048/441, 44.1 kHz; 2 s windows) on a 6 s and a 30 s request of a voice
+   2048/441, 44.1 kHz; 2 s windows) on a 6 s request of a voice
    over a harmonic accompaniment (stereo: left and right differ), mono
    (n,) and stereo (2, n) out; every forward must launch B1 once (every
    window and channel) and B2 once.
@@ -168,8 +170,7 @@ Phases, each of which raises (non-zero exit) on failure:
    (``F.conv_transpose1d``) and as zeros stuffed into a forward conv, held
    against each other and timed; then ``mossformer2_sr`` (dim 512, 24
    layers, HiFi-GAN 1024 channels; 2 s windows of 16 kHz every 1.25 s,
-   Hann-taper overlap-add, 48 kHz out, 3× the samples) on a 6 s and a 30 s
-   request; every forward must launch B4 96 times and B6 24 times.
+   Hann-taper overlap-add, 48 kHz out, 3× the samples) on a 6 s request; every forward must launch B4 96 times and B6 24 times.
 23. Serving H-GTCRN: ``h_gtcrn`` (two microphones of a voice through a
    reverberant tail and a noise source, 16 kHz, 2 s windows, mono out) on a
    6 s request (no 30 s one, for time); every forward must launch B1 once (both
@@ -217,16 +218,17 @@ Phases, each of which raises (non-zero exit) on failure:
    6 s request, card against CPU at 40 dB; B1 and B2 must launch.
 30. Graphs: ``export --aot``'s ``attach_graph`` on the card for
    ``mossformergan_se`` (float32), ``zipenhancer`` (bf16 plan) and
-   ``mossformer2_ss`` (float32) at full width from random weights (GTCRN's
-   graph, ~20k nodes of unrolled GRU steps, takes minutes to export: see
-   ``aot_export_times.py``), each in a child process, the three in
-   parallel; then a child process a graph that never imports
-   ``audiojax_torch.models`` (asserted) loads it (the three in parallel) and
-   serves a 6 s request through ``Session`` (one at a time), held against
-   the eager module's answer at ≤ 1 LSB, and counts the kernels that the
-   graph replays launched: B1, B2, B3 bf16, B4, B4 bf16, B5 and B6 must
-   each be > 0.
-   Prints export and load seconds, ``graph.pt2`` bytes and graph against
+   ``mossformer2_ss`` (float32), and phase 33's ``gtcrn`` and ``sdaec``
+   (their time loops traced as scan operators; ``graph.json`` must record
+   ``"loops": "scan"``), at full width from random weights, each in a child
+   process, the five in parallel; then a child process a graph that never
+   imports ``audiojax_torch.models`` (asserted) loads it (the five in
+   parallel) and serves a 6 s request through ``Session`` (one at a time),
+   held against the eager module's answer at ≤ 1 LSB, and counts the
+   kernels that the graph replays launched: B1, B2, B3 bf16, B4, B4 bf16,
+   B5 and B6 must each be > 0.
+   Prints export and load seconds, ``graph.pt2`` bytes and nodes (with the
+   scan steps' own) and graph against
    eager latency; and the registered operators' host cost: B4's operator
    against its direct launcher a call, and the GAN's eager request with
    every routing point through the operators against the direct launchers.
@@ -250,10 +252,22 @@ Phases, each of which raises (non-zero exit) on failure:
    the ref) on the card at ≥ 40 dB, launching B1 and B2 (untimed: beside
    phase 30's exports).  Each one's launches join the kernels line as paths
    of their own.
+33. Parallel serving: MossFormerGAN-SE (float32, full width) on a 6 s
+   request through ``Session(mesh=make_mesh())`` (every card) and through a
+   dp mesh of ``cuda:0`` twice, each within 1 LSB of the plain ``Session``
+   and each dp row's forward launching phase 6's kernels; ``pp_stack_fn``
+   over MossFormer2-SS's 24 full-width FLASH layers (B4 and B6 inside) in 2
+   stages over the card's device list, 2 microbatches of the 6 s request's
+   (4, 3999, 512), against the layers run in order within 1e-5 × max|ref|,
+   each microbatch launching 2 B4 and 1 B6 a layer.  Its GTCRN and SDAEC
+   graphs are served in phase 30's stages (above).
 
+The windowed families serve no 30 s request, for time: the kernel phases
+(3, 4, 7, 9, 14) still hold the kernels at the 30 s requests' shapes, and
+GTCRN's phase 5 serves one.
 Phases 6, 8, 10, 12, 15–23, 25, 27 and 28 print the launches of one forward,
 all of them and the ported kernels'.  They run in the order 1–10, 24, 25,
-12, 14–23, 26–28, 11, 13, 29–32 (phase 11 compares against the random-weight
+12, 14–23, 26–28, 11, 13, 29–33 (phase 11 compares against the random-weight
 latencies).  The last line is ``{"ok": true, "device": {...}}``; the line
 before it lists every kernel as JSON, the bf16 instances as their own
 entries (``dwconv1d_bf16`` …; its launches summed over the served paths,
@@ -1211,7 +1225,7 @@ def serve(card: str, latency: dict) -> dict:
 
 
 def serve_windowed(card: str, name: str, per_forward: dict, seeds: tuple, latency: dict,
-                   lead_silence: int = 0, clip=noisy_speech, seconds: tuple = (6, 30),
+                   lead_silence: int = 0, clip=noisy_speech, seconds: tuple = (6,),
                    rtf: bool = False, energies=None, dtype: str = "float32",
                    inner=None) -> dict:
     """Phases 6, 8, 10, 12 and 15–23: serve ``name`` at full width and depth
@@ -1769,6 +1783,12 @@ def _leaves(tree, path=""):
     return [(path, tree)]
 
 
+# the families whose CPU forward of a fold or window takes seconds, and whose
+# own phase (6, 10, 22) holds the same code card against CPU at the same
+# gate: phase 11 checks their artifact (bit for bit), launches and latency
+CPU_HELD_IN_OWN_PHASE = ("mossformergan_se", "mossformer2_ss", "mossformer2_sr")
+
+
 def serve_imported(card: str, random_ms: dict) -> dict:
     """Phase 11; returns each family's kernel launch counts over its measured
     request, by path name."""
@@ -1858,13 +1878,17 @@ def serve_imported(card: str, random_ms: dict) -> dict:
         for c in clips:
             c[..., :lead_silence] = 0
         xs = [torch.from_numpy(c[None]) for c in clips]
-        with torch.inference_mode():
-            card_out = model(*[x.cuda() for x in xs])
-            t0 = time.perf_counter()
-            cpu_out = spec.make_module(cpu_params, cfg)(*xs)
-        cpu_s = time.perf_counter() - t0
-        snrs = hold_card_vs_cpu(f"imported {name} {length / sr:g} s", name, card_out, cpu_out,
-                                f"(CPU forward {cpu_s:.1f} s)")
+        if name in CPU_HELD_IN_OWN_PHASE:
+            snrs = []
+            print(f"imported {name}: card vs CPU left to its own phase, for time", flush=True)
+        else:
+            with torch.inference_mode():
+                card_out = model(*[x.cuda() for x in xs])
+                t0 = time.perf_counter()
+                cpu_out = spec.make_module(cpu_params, cfg)(*xs)
+            cpu_s = time.perf_counter() - t0
+            snrs = hold_card_vs_cpu(f"imported {name} {length / sr:g} s", name, card_out,
+                                    cpu_out, f"(CPU forward {cpu_s:.1f} s)")
         summary.append({"model": name, "import_s": round(import_s, 3),
                         "export_s": round(export_s, 3), "load_s": round(load_s, 3),
                         "latency_ms": round(med, 3), "random_latency_ms": round(random_ms[name], 3),
@@ -1903,9 +1927,9 @@ STREAMS = [
     ("dfsmn", 6, {**NO_LAUNCHES, "dwconv1d": 9}, 70, (2, 2)),
     ("ul_unas", 7, {**NO_LAUNCHES, "stft_packed": 1}, 80, (2, 2)),
     ("nkf_aec", 6, {**NO_LAUNCHES, "stft_packed": 1}, 90, (2, 2)),
-    ("sdaec", 6, {**NO_LAUNCHES, "stft_packed": 1}, 100, (2, 1)),
-    ("deep_echo", 6, {**NO_LAUNCHES, "stft_packed": 1}, 110, (2, 1)),
-    ("dfsmn_aec", 6, {**NO_LAUNCHES, "stft_packed": 1, "dwconv1d": 9}, 120, (2, 1)),
+    ("sdaec", 3, {**NO_LAUNCHES, "stft_packed": 1}, 100, (2, 0.5)),
+    ("deep_echo", 3, {**NO_LAUNCHES, "stft_packed": 1}, 110, (2, 0.5)),
+    ("dfsmn_aec", 3, {**NO_LAUNCHES, "stft_packed": 1, "dwconv1d": 9}, 120, (2, 0.5)),
 ]
 TIMED_STEPS = 50  # steps timed apart from the drive, each way (eager: 10 with a short check)
 TRACED_REPLAYS = 5
@@ -2004,7 +2028,7 @@ def serve_streams(card: str) -> dict:
                      for i in range(STREAM_LANES)]
         # the clips held graph against eager and against the CPU
         held = (clips if check is None
-                else [tuple(c[:check[1] * sr] for c in clip) for clip in clips[:check[0]]])
+                else [tuple(c[:int(check[1] * sr)] for c in clip) for clip in clips[:check[0]]])
         servers, build_s = {}, {}
         for jit in (True, False):
             t0 = time.perf_counter()
@@ -2045,6 +2069,8 @@ def serve_streams(card: str) -> dict:
 
         cpu_params = spec.init_params(0, cfg, "cpu")
         worst_lsb, snrs = 0, []
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)  # the CPU steps are loops of small ops: faster on one
         for i, clip in enumerate(held):
             g, e = outs_g[i], outs_e[i]
             if e.shape != clip[0].shape or g.shape != e.shape:
@@ -2053,6 +2079,7 @@ def serve_streams(card: str) -> dict:
             cpu = StreamingSession(spec, cpu_params, cfg, block_hops=STREAM_BLOCK_HOPS,
                                    jit=False, device="cpu")
             snrs.append(snr_db(np.concatenate([cpu.push(*clip), cpu.flush()]), g))
+        torch.set_num_threads(threads)
         held_s = held[0][0].size / sr
         print(f"stream {name} {STREAM_LANES} lanes × {seconds} s (block {graph.block} samples, "
               f"irregular pushes): out length == in length; on {len(held)} lanes × "
@@ -2075,7 +2102,7 @@ def serve_streams(card: str) -> dict:
         for static, b in zip(graph._blocks, blocks):
             static.copy_(b)
         graph_ms = device_ms(graph._graph.replay, iters=TIMED_STEPS)
-        calls = 10 if check is None else 2
+        calls = 10 if check is None else 1
         rows = cuda_rows(lambda: [eager._masked_step(active, *blocks) for _ in range(calls)],
                          {}, calls=calls)
         step_launches = sum(e.count for e in rows) / calls
@@ -2090,7 +2117,7 @@ def serve_streams(card: str) -> dict:
                 torch.cuda.synchronize()
                 t.append(time.perf_counter() - t0)
             walls[jit] = float(np.median(t)) * 1e3
-        graph_trace(card, name, graph, per_step, TRACED_REPLAYS if check is None else 2)
+        graph_trace(card, name, graph, per_step, TRACED_REPLAYS if check is None else 1)
         print(f"stream {name} eager step, top kernels (device ms a step, launches a step):",
               flush=True)
         for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
@@ -2578,7 +2605,12 @@ GRAPHS = (("graph_mossformergan_se", "mossformergan_se", "float32", "noisy_speec
            "zipenhancer:init_zipenhancer_numpy"),
           ("graph_mossformer2_ss", "mossformer2_ss", "float32", "speech_mix",
            "mossformer2_ss:init_mossformer2_ss_numpy"))
-# the kernels that the three graphs, between them, must launch through a graph
+# phase 33's graphs of the loop families (their time loops traced as scan
+# operators), exported, loaded and served in phase 30's stages beside those
+# (families without a compute-dtype knob: dtype None)
+LOOP_GRAPHS = (("graph_gtcrn", "gtcrn", None, "noisy_speech", "gtcrn:init_gtcrn_numpy"),
+               ("graph_sdaec", "sdaec", None, "echo_pair", "sdaec:init_sdaec_numpy"))
+# the kernels that the graphs, between them, must launch through a graph
 GRAPH_KERNELS = ("stft_packed", "istft_packed", "relpos_scores_bf16", "dwconv1d",
                  "dwconv1d_bf16", "dwconv1d_tiled", "quad_attention")
 
@@ -2668,8 +2700,9 @@ def _last_json(proc: subprocess.Popen, what: str, log: str) -> dict:
     return json.loads(out.strip().splitlines()[-1])
 
 
-def serve_graphs(card: str, beside=None) -> dict:
-    """Phase 30; returns the launch counts of each graphed path.
+def serve_graphs(card: str, beside=None, graphs=GRAPHS + LOOP_GRAPHS) -> dict:
+    """Phase 30, with phase 33's loop graphs; returns the launch counts of
+    each graphed path.
 
     Three stages, each family's work in a process of its own within a stage:
     the eager answers here, one after another (timed, nothing else running);
@@ -2692,12 +2725,12 @@ def serve_graphs(card: str, beside=None) -> dict:
     root = tempfile.mkdtemp(prefix="chip_smoke_graphs_")
     arts, eager_ms = {}, {}
     try:
-        for path, name, dtype, clip, init in GRAPHS:
+        for path, name, dtype, clip, init in graphs:
             spec = registry.get(name)
-            cfg = spec.make_config(compute_dtype=dtype)
+            cfg = spec.make_config(**({} if dtype is None else {"compute_dtype": dtype}))
             manifest = spec.make_manifest(cfg)
             extra = {"config": dataclasses.asdict(cfg)}
-            if dtype != "float32":
+            if dtype not in (None, "float32"):
                 extra["activation_compute_dtype"] = dtype
             manifest = dataclasses.replace(manifest, extra={**manifest.extra, **extra})
             art = arts[path] = f"{root}/{path}"
@@ -2745,12 +2778,17 @@ def serve_graphs(card: str, beside=None) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     by_path = {}
+    loop_paths = [g[0] for g in LOOP_GRAPHS]
     for path in arts:
         r, e = result[path], exported[path]
         if e["batch_mode"] != "poly":
             fail(f"{path}: the symbolic batch fell back: {e['symbolic_fallback_error']}")
-        print(f"graph {path}: export {e['export_s']:.2f} s, load {r['load_s']:.2f} s, "
-              f"{aot.GRAPH_FILE} {e['graph_bytes']} bytes ({r['nodes']} nodes); 6 s request "
+        if e["loops"] != "scan":
+            fail(f"{path}: graph.json records loops {e['loops']!r}")
+        print(f"graph {path}{' (phase 33)' if path in loop_paths else ''}: export "
+              f"{e['export_s']:.2f} s (beside the other exports), load {r['load_s']:.2f} s, "
+              f"{aot.GRAPH_FILE} {e['graph_bytes']} bytes ({r['nodes']} nodes, "
+              f"{sum(e['nodes'].values())} with the scan steps' own); 6 s request "
               f"median graph {r['ms']:.3f} ms vs eager {eager_ms[path]:.3f} ms; graph vs eager "
               f"max {r['max_lsb']} LSB; launches "
               f"{ {k: n for k, n in r['launches'].items() if n} }  [{card}]", flush=True)
@@ -2777,7 +2815,8 @@ def graph_export(art: str) -> int:
     export_s = time.perf_counter() - t0
     meta = json.loads((Path(art) / aot.GRAPH_META).read_text())
     print(json.dumps({"export_s": export_s, "graph_bytes": (Path(art) / aot.GRAPH_FILE).stat().st_size,
-                      "batch_mode": meta["batch_mode"],
+                      "batch_mode": meta["batch_mode"], "loops": meta["loops"],
+                      "nodes": meta["nodes"],
                       "symbolic_fallback_error": meta["symbolic_fallback_error"]}))
     return 0
 
@@ -2856,6 +2895,115 @@ def bench_stream_lanes(card: str) -> None:
     for lanes in (8, 64, 256):
         print(f"tools: bench_streams {json.dumps(bench_streams.bench_streams('gtcrn', lanes))}  "
               f"[{card}]", flush=True)
+
+
+# ── phase 33 ───────────────────────────────────────────────────────────────
+
+# × max|ref|: the pipelined FLASH stack against the same layers run in order
+# (float32 sums of the same terms; only cuBLAS's choice of GEMM kernel for
+# the microbatch's rows against the whole batch's may differ)
+PP_RTOL = 1e-5
+
+
+def serve_mesh(card: str) -> dict:
+    """Phase 33's mesh: MossFormerGAN-SE (float32, full width) on a 6 s
+    request through ``Session(mesh=make_mesh())`` (every card) and through a
+    dp mesh of ``["cuda:0", "cuda:0"]`` (two rows on one card), each within
+    1 LSB of the plain ``Session``, each forward (one a dp row) launching
+    what phase 6's does; returns each mesh path's launch counts."""
+    from audiojax_torch.parallel import make_mesh
+    from audiojax_torch.runtime import registry
+    from audiojax_torch.runtime.session import Session
+
+    spec = registry.get("mossformergan_se")
+    cfg = spec.make_config()
+    manifest = spec.make_manifest(cfg)
+    model = spec.make_module(spec.init_params(0, cfg, "cuda"), cfg)
+    ins = _inputs(noisy_speech(6 * SR, 96))
+    plain_ms, ref = _median_ms(Session(model, manifest, device="cuda"), ins)
+    by_path = {}
+    for path, mesh in (("gan_mesh_all_cards", make_mesh()),
+                       ("gan_mesh_dp2_one_card", make_mesh(devices=["cuda:0"] * 2))):
+        session = Session(model, manifest, mesh=mesh)
+        session.process(*ins)  # warm-up
+        for mod in kernel_modules():
+            mod.reset_launches()
+        ms, out = _median_ms(session, ins)
+        counts = {k: n for mod in kernel_modules() for k, n in mod.launches.items()}
+        forwards = 4 * mesh.shape["dp"]  # _median_ms: a warm-up and 3 requests
+        want = {k: n * forwards for k, n in GAN_PER_FORWARD.items()}
+        got = {k: counts[k] for k in want}
+        lsb = max(int(np.max(np.abs(a.astype(np.int32) - b.astype(np.int32))))
+                  for a, b in zip(out.outputs, ref.outputs))
+        print(f"mesh {path}: {mesh!r}, 6 s request median {ms:.3f} ms vs the plain Session "
+              f"{plain_ms:.3f} ms; vs plain max {lsb} LSB; launches {got} over 4 requests "
+              f"of {mesh.shape['dp']} dp rows  [{card}]", flush=True)
+        if lsb > 1 or got != want:
+            fail(f"{path}: {lsb} LSB from the plain Session, launches {got} (want {want})")
+        by_path[path] = counts
+    return by_path
+
+
+def check_pp_stack(card: str) -> dict:
+    """Phase 33's pipeline: ``pp_stack_fn`` over MossFormer2-SS's 24
+    full-width FLASH layers (B4 and B6 inside), 2 stages over the card's
+    device list (``cuda:0`` twice on one card), 2 microbatches of the 6 s
+    request's 4 windows of 3999 frames, against the layers run in order on
+    the whole batch: within ``PP_RTOL`` × max|ref|; returns its launches."""
+    from functools import partial
+
+    from audiojax_torch.models.mossformer2_ss import MossFormer2SsConfig, init_mossformer2_ss
+    from audiojax_torch.nn.mossformer import flash_layer
+    from audiojax_torch.parallel import pp_stack_fn, stack_layer_params
+    from audiojax_torch.parallel.sharding import Mesh
+
+    cfg = MossFormer2SsConfig()
+    params = init_mossformer2_ss(0, cfg, "cuda")
+    per_layer = [params[f"flash{i}"] for i in range(cfg.depth)]
+    layer = partial(flash_layer, group_size=cfg.group_size, qk_dim=cfg.qk_dim,
+                    rot_dim=cfg.rot_dim)
+    cards = torch.cuda.device_count()
+    mesh = Mesh(np.array([f"cuda:{i % cards}" for i in range(2)], dtype=object), ("pp",))
+    staged = stack_layer_params(per_layer, 2)
+    run = pp_stack_fn(layer, mesh)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((4, 3999, cfg.dim), generator=gen, device="cuda")
+    with torch.inference_mode():
+        ref = x
+        for p in per_layer:
+            ref = layer(p, ref)
+        run(staged, x)  # warm-up
+        for mod in kernel_modules():
+            mod.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(staged, x)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: n for mod in kernel_modules() for k, n in mod.launches.items()}
+        t0 = time.perf_counter()
+        seq = x
+        for p in per_layer:
+            seq = layer(p, seq)
+        torch.cuda.synchronize()
+        seq_ms = (time.perf_counter() - t0) * 1e3
+    err = float((out - ref).abs().max() / ref.abs().max())
+    want = {"quad_attention": 2 * cfg.depth, "dwconv1d": 4 * cfg.depth}
+    got = {k: counts[k] for k in want}
+    print(f"pp_stack: MossFormer2-SS's {cfg.depth} FLASH layers (dim {cfg.dim}) over {mesh!r}, "
+          f"2 microbatches of {(x.shape[0] // 2, *x.shape[1:])}: {ms:.3f} ms vs {seq_ms:.3f} ms in order on "
+          f"the batch; max |Δ| / max|ref| {err:.3g} (gate {PP_RTOL}); launches {got}  [{card}]",
+          flush=True)
+    if not err <= PP_RTOL or got != want:
+        fail(f"pp_stack: error {err:.3g} × max|ref|, launches {got} (want {want})")
+    return {"pp_stack_ss_flash": counts}
+
+
+def check_parallel(card: str) -> dict:
+    """Phase 33's mesh and pipeline; its loop graphs are phase 30's."""
+    by_path = serve_mesh(card)
+    by_path.update(check_pp_stack(card))
+    return by_path
 
 
 # ── phase 32 ───────────────────────────────────────────────────────────────
@@ -3182,6 +3330,8 @@ def main() -> int:
     phase(31, bench_stream_lanes, card)
     # the measurement tools, one at a time
     by_path.update(phase(32, check_measure_tools, card, beside["tools"]))
+    # the mesh and the pipeline (its loop graphs ran in phase 30's stages)
+    by_path.update(phase(33, check_parallel, card))
 
     sources = {
         "stft_packed": ("audiojax_torch/csrc/stft.cu", "audiojax/ops/stft_pallas.py:207"),
