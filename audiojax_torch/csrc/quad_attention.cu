@@ -1,5 +1,5 @@
 // Fused relu^2 quadratic attention for Hopper (sm_90a), float32 FMA (B6), on
-// float32 or bfloat16 tensors.
+// float32 tensors.
 //
 // Replaces quad_attention_pallas (audiojax/ops/attention_pallas.py:61, its
 // kernel _kernel :44):
@@ -65,19 +65,9 @@
 // per (block, value tile): at SS 4 row tiles read each v row 4 times, 0.54
 // GB, against 18.25 GFLOP.
 //
-// bfloat16 (the bf16 serving plan): q, k and v are bf16, with the
-// contract of quad_attention_pallas's kernel (attention_pallas.py:44-58):
-// the bf16 products of the scores are exact in f32 and summed in f32, scale
-// and relu^2 are f32, the score tile stays f32 for the PV product with v
-// widened to f32 (a bf16 product there would round attn to bf16, another
-// function), and each output is rounded once to bf16, to nearest even, or
-// written in f32 (out float32: the served layers add the linear attention to
-// it in f32 and round once, as the JAX models' einsums do).  The
-// staged q/k chunks and v pieces are bf16 in shared memory, 4 elements an
-// 8-byte cp.async in the same thread layout, and are widened to f32 as they
-// are read (one 8-byte shared read for 4 elements); the float32 buffers'
-// bytes are kept, so the plan is the same.  The sums are the same f32 chains
-// in the same order, so only the final rounding separates the two dtypes.
+// The kernel is written for an element type E, but only its float32
+// instance is built: the bf16 serving plan's B6 runs on the tensor cores
+// (quad_attention_bf16.cu), which replaced this design's bf16 instances.
 //
 // The launcher takes the geometry from the host (WM, WN, row tiles, value
 // splits, key segment, shared-memory bytes), checks it, and returns
@@ -420,9 +410,8 @@ extern "C" {
 
 const char* ajt_quad_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// q, k (n, s, dk), v and out (n, s, dv), all float32 (_f32), all bfloat16
-// (_bf16), or q, k, v bfloat16 and out float32 (_bf16_f32); dk and dv
-// multiples of 4, every pointer 16-byte aligned.  Geometry from the host:
+// q, k (n, s, dk), v and out (n, s, dv), all float32; dk and dv multiples
+// of 4, every pointer 16-byte aligned.  Geometry from the host:
 // wm x wn warps (a layout of dispatch), row_tiles = ceil(s / (32 wm)),
 // vsplit value-tile ranges a row tile, seg keys of score tile held (a
 // multiple of 8; below round_up(s, 8) only with one value tile a block),
@@ -435,8 +424,6 @@ const char* ajt_quad_error_string(int code) { return cudaGetErrorString((cudaErr
                                 row_tiles, vsplit, seg, smem, stream);                          \
   }
 AJT_QUAD_ENTRY(ajt_quad_attention_f32, float, float)
-AJT_QUAD_ENTRY(ajt_quad_attention_bf16, bf16, bf16)
-AJT_QUAD_ENTRY(ajt_quad_attention_bf16_f32, bf16, float)
 #undef AJT_QUAD_ENTRY
 
 }  // extern "C"

@@ -54,10 +54,15 @@ keep the first design's two-pass kernel.  The notes at the top of the
 sources give the counts of every chosen point.
 
 Both kernels also take bfloat16 tensors (the bf16 serving plan), with the
-Pallas kernels' own bf16 contracts: B6's scores and PV product stay f32 (v
-widened, attn never rounded) and the output is rounded once to bf16, or
-kept in f32 with ``out_dtype=torch.float32``, as the bf16 layers that add
-a linear attention to it take it (the JAX models' f32 einsums); B3
+Pallas kernels' own bf16 contracts: B6's scores and PV product stay f32
+(attn never rounded) and the output is rounded once to bf16, or kept in f32
+with ``out_dtype=torch.float32``, as the bf16 layers that add a linear
+attention to it take it (the JAX models' f32 einsums).  B6 bf16 runs on the
+tensor cores (``csrc/quad_attention_bf16.cu``, ``quad_bf16_launch``;
+:func:`quad_plan` routes by dtype): the scores by ``mma.sync.m16n8k16``
+(bf16 products, f32 sums), whose accumulators become the PV product's A
+fragments, each f32 score split into three bf16 terms (hi, mid, lo: exactly
+the score) so that the PV product's bf16 products stay exact; B3
 takes a bf16 ``pe`` (the Pallas kernel rounds its table to bf16) and writes
 bf16 probabilities (the Pallas kernel's default ``out_dtype``, q's dtype),
 the softmax in f32.  Each dtype has its own launch counter (``quad_attention_bf16``,
@@ -82,7 +87,8 @@ from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 
-__all__ = ["launches", "reset_launches", "QuadLaunch", "quad_launch", "launch_quad_attention",
+__all__ = ["launches", "reset_launches", "QuadLaunch", "quad_launch", "QuadBf16Launch",
+           "quad_bf16_smem", "quad_bf16_launch", "quad_plan", "launch_quad_attention",
            "quad_attention_cuda", "quad_attention_plain", "fast_quad_attention", "pos_stride",
            "RelposLaunch", "relpos_launch", "launch_relpos_scores", "relpos_scores_plain",
            "relpos_scores_cuda", "fast_relpos_scores", "quad_attention_op", "relpos_scores_op"]
@@ -171,17 +177,121 @@ def quad_launch(n: int, s: int, dk: int, dv: int, *, warps: tuple[int, int] = (2
                       quad_smem(wm, wn, seg))
 
 
+# ── B6 bf16: launch plan (the tensor-core kernel) ──────────────────────────
+
+QUAD_BF16_VT = 128  # value columns a tile
+QUAD_BF16_MAX_WARPS = 7  # warps a block, 16 query rows each (two blocks an SM)
+QUAD_BF16_KB = (32, 64)  # keys a piece the kernel takes
+
+
+@dataclasses.dataclass(frozen=True)
+class QuadBf16Launch:
+    warps: int  # warps of 16 query rows: 16·warps rows a block
+    row_tiles: int  # ceil(S / (16·warps))
+    vsplit: int  # ranges of value tiles (128 columns) a row tile is split into, a block each
+    kb: int  # keys a piece (32 or 64)
+    keep: bool  # the split scores kept in shared memory across the block's value tiles
+    threads: int
+    blocks: int  # N · row_tiles · vsplit
+    smem: int  # bytes
+
+
+def quad_bf16_smem(warps: int, s: int, dk: int, kb: int, keep: bool) -> int:
+    """Shared-memory bytes of B6 bf16 (``smem_bytes`` in
+    ``csrc/quad_attention_bf16.cu``): the q rows and two pieces' k rows at
+    row stride K rounded up to 16 plus 8, two pieces' v rows at 128 + 8, and
+    with ``keep`` 1,536 bytes a warp and k16 step of the pieces' keys (S
+    rounded up to ``kb``)."""
+    kpad = _cdiv(dk, 16) * 16
+    return (2 * (16 * warps + 2 * kb) * (kpad + 8) + 4 * kb * (QUAD_BF16_VT + 8)
+            + (warps * _cdiv(s, kb) * kb // 16 * 3 * 512 if keep else 0))
+
+
+def quad_bf16_launch(n: int, s: int, dk: int, dv: int, *, warps: int | None = None,
+                     vsplit: int | None = None, kb: int | None = None,
+                     keep: bool | None = None) -> QuadBf16Launch:
+    """B6 bf16's geometry for q, k (n, s, dk), v (n, s, dv).
+
+    The picks, from ``attention_geometry_sweep.py``'s tables: one warp a 16
+    query rows, all of a row's at most 112 (S = 101: 7 warps, one row tile),
+    else 4 warps (64 rows).  One value tile (V ≤ 128): pieces of 32 keys, no
+    split.  Several: the split scores kept (``keep``) with pieces of 64 keys,
+    and the value tiles split over the largest power of two of blocks that
+    still fit one wave of one block an SM (the kept scores take most of an
+    SM's shared memory); without keep, split until there are two blocks an
+    SM.  Where a large K leaves no room, fewer warps, smaller pieces, no
+    keep; the q rows of one warp and two pieces of 32 keys must fit in
+    shared memory (K up to 1,328); a larger K raises."""
+    tiles = _cdiv(dv, QUAD_BF16_VT)
+
+    def fits(w: int, b: int, kp: bool) -> bool:
+        return quad_bf16_smem(w, s, dk, b, kp) <= SMEM_MAX
+
+    if warps is None:
+        groups = _cdiv(s, 16)
+        warps = groups if groups <= QUAD_BF16_MAX_WARPS else 4
+        while warps > 1 and not fits(warps, kb or QUAD_BF16_KB[-1], bool(keep)):
+            warps -= 1
+    if not 1 <= warps <= QUAD_BF16_MAX_WARPS:
+        raise ValueError(f"B6 bf16 takes 1 to {QUAD_BF16_MAX_WARPS} warps, got {warps}")
+    if keep is None:
+        keep = tiles > 1 and fits(warps, kb or 64, True)
+    if kb is None:
+        kb = 64 if keep else 32
+    if kb not in QUAD_BF16_KB:
+        raise ValueError(f"B6 bf16 takes pieces of {QUAD_BF16_KB} keys, got {kb}")
+    smem = quad_bf16_smem(warps, s, dk, kb, keep)
+    if smem > SMEM_MAX:
+        raise ValueError(f"B6 bf16 at S = {s}, K = {dk}, {warps} warps, {kb} keys a piece"
+                         f"{', scores kept' if keep else ''} needs {smem} bytes of shared "
+                         f"memory (> {SMEM_MAX})")
+    row_tiles = _cdiv(s, 16 * warps)
+    if vsplit is None:
+        vsplit = 1
+        if keep:
+            while 2 * vsplit <= tiles and n * row_tiles * 2 * vsplit <= SM_COUNT:
+                vsplit *= 2
+        else:
+            while vsplit < tiles and n * row_tiles * vsplit < 2 * SM_COUNT:
+                vsplit *= 2
+            vsplit = min(vsplit, tiles)
+    if not 1 <= vsplit <= tiles:
+        raise ValueError(f"vsplit {vsplit} outside 1..{tiles}")
+    return QuadBf16Launch(warps, row_tiles, vsplit, kb, bool(keep), 32 * warps,
+                          n * row_tiles * vsplit, smem)
+
+
+def quad_plan(n: int, s: int, dk: int, dv: int,
+              dtype: torch.dtype) -> QuadLaunch | QuadBf16Launch:
+    """The route rule: float32 inputs take the float32 kernel at
+    :func:`quad_launch`'s geometry, bfloat16 ones the tensor-core kernel at
+    :func:`quad_bf16_launch`'s."""
+    return quad_launch(n, s, dk, dv) if dtype == torch.float32 else quad_bf16_launch(n, s, dk, dv)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("quad_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
-    for dt in (*_build.DTYPES.values(), "bf16_f32"):
-        fn = getattr(lib, f"ajt_quad_attention_{dt}")
+    lib.ajt_quad_attention_f32.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i, i, i, i,
+                                           i, i, ctypes.c_longlong, p]
+    lib.ajt_quad_attention_f32.restype = i
+    lib.ajt_quad_error_string.argtypes = [i]
+    lib.ajt_quad_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _bf16_lib() -> ctypes.CDLL:
+    lib = _build.load("quad_attention_bf16")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for out in ("f32", "bf16"):
+        fn = getattr(lib, f"ajt_quad_attention_bf16_{out}")
         fn.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i, i, i, i, i, i,
                        ctypes.c_longlong, p]
         fn.restype = i
-    lib.ajt_quad_error_string.argtypes = [i]
-    lib.ajt_quad_error_string.restype = ctypes.c_char_p
+    lib.ajt_quad_bf16_error_string.argtypes = [i]
+    lib.ajt_quad_bf16_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -200,21 +310,29 @@ def quad_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, s
 
 
 def launch_quad_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-                          scale: float, mask_diag: bool, plan: QuadLaunch) -> None:
-    """Launch B6 on checked tensors into ``out`` at ``plan``'s geometry;
-    counts nothing (``quad_attention_cuda`` counts its launch)."""
-    lib = _lib()
+                          scale: float, mask_diag: bool,
+                          plan: QuadLaunch | QuadBf16Launch) -> None:
+    """Launch B6 on checked tensors into ``out`` at ``plan``'s geometry: the
+    float32 kernel at a ``QuadLaunch``, the bf16 tensor-core kernel at a
+    ``QuadBf16Launch``; counts nothing (``quad_attention_cuda`` counts its
+    launch)."""
     n, s, dk = q.shape
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n, s, dk, v.shape[-1],
+            float(scale), int(mask_diag))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        dt = _build.DTYPES[q.dtype] + ("_f32" if out.dtype != q.dtype else "")
-        fn = getattr(lib, f"ajt_quad_attention_{dt}")
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n, s, dk, v.shape[-1],
-                float(scale), int(mask_diag), plan.wm, plan.wn, plan.row_tiles, plan.vsplit,
-                plan.seg, plan.smem, stream)
+        if isinstance(plan, QuadBf16Launch):
+            lib, err = _bf16_lib(), "ajt_quad_bf16_error_string"
+            fn = getattr(lib, f"ajt_quad_attention_bf16_{_build.DTYPES[out.dtype]}")
+            rc = fn(*args, plan.warps, plan.row_tiles, plan.vsplit, plan.kb, int(plan.keep),
+                    plan.smem, stream)
+        else:
+            lib, err = _lib(), "ajt_quad_error_string"
+            rc = lib.ajt_quad_attention_f32(*args, plan.wm, plan.wn, plan.row_tiles, plan.vsplit,
+                                            plan.seg, plan.smem, stream)
     if rc != 0:
         raise RuntimeError(f"quad_attention launch failed: "
-                           f"{lib.ajt_quad_error_string(rc).decode()} ({rc})")
+                           f"{getattr(lib, err)(rc).decode()} ({rc})")
 
 
 def quad_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
@@ -241,7 +359,7 @@ def quad_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, sc
     out_dtype = out_dtype or q.dtype
     if out_dtype not in (q.dtype, torch.float32):
         raise TypeError(f"out_dtype must be {q.dtype} or float32, got {out_dtype}")
-    plan = quad_launch(n, s, dk, dv)  # raises before any launch
+    plan = quad_plan(n, s, dk, dv, q.dtype)  # raises before any launch
     out = torch.empty((n, s, dv), dtype=out_dtype, device=q.device)
     launch_quad_attention(q, k, v, out, scale, mask_diag, plan)
     _build.count(launches, "quad_attention", q.dtype)

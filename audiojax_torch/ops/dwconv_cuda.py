@@ -28,7 +28,19 @@ memory, which the TPU deinterleaves into two tiled depthwise calls
 The lanes of group g are interleaved, [2g, 2g+1], as torch's ``groups=``
 reads them.
 
-Both kernels take float32 or bfloat16 (the bf16 serving plan; the dtype
+B4 bf16 on the tensor cores (``csrc/dwconv_bf16.cu``, ``dwconv_mma_launch``)
+— the bf16 serving plan's depthwise convs: where :func:`mma_route` says so
+(bf16, C % 8 == 0 and x 16-byte aligned, k ≤ 49: every served shape), a
+channel's 16 consecutive outputs are a Toeplitz matrix of its taps times a
+column of its input, one ``mma.sync.m16n8k16`` a 16-position step of the
+window, 8 output tiles of 16 its 8 columns; the window is staged
+channel-last by cp.async and turned time-contiguous by ldmatrix.trans and
+stmatrix.  Same contract, same launch counter (``dwconv1d_bf16``); the other
+bf16 calls (C % 8 != 0, an unaligned x, longer kernels) keep the FFMA
+kernel's bf16 instance.  :func:`dwconv_plan` is the wrappers' plan, by that
+rule.
+
+Both FFMA kernels take float32 or bfloat16 (the bf16 serving plan; the dtype
 ``dwconv1d_pallas_tiled`` is only ever called with), x and w of one dtype
 (the Pallas kernels raise on a mismatch, ``dwconv_pallas.py:67-68,144-145``,
 and so do these); in bf16 the products and sums are the same f32 chain and
@@ -73,7 +85,8 @@ from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 
-__all__ = ["launches", "reset_launches", "DwconvLaunch", "dwconv_launch", "launch_dwconv1d",
+__all__ = ["launches", "reset_launches", "DwconvLaunch", "dwconv_launch", "DwconvMmaLaunch",
+           "mma_route", "mma_smem", "dwconv_mma_launch", "dwconv_plan", "launch_dwconv1d",
            "launch_dwconv1d_grouped", "dwconv1d_cuda", "dwconv1d_plain", "fast_dwconv1d",
            "dwconv1d_grouped_cuda", "dwconv1d_grouped_plain", "fast_dwconv1d_grouped",
            "dwconv1d_op", "dwconv1d_grouped_op"]
@@ -229,12 +242,107 @@ def dwconv_launch(b: int, t: int, c: int, k: int, lo: int, hi: int, dil: int, m:
                         ring, (grid_x, grid_y), lanes * ntt, smem, esize)
 
 
+# ── the bf16 tensor-core route of B4 ───────────────────────────────────────
+
+MMA_CT = 16  # channels a block (32-byte rows): 4 warps, 4 channels each
+MMA_TO = 128  # outputs a work item: 8 tiles of 16
+MMA_THREADS = 128
+MMA_BLOCKS_SM = 5  # blocks an SM (the kernel's __launch_bounds__)
+MMA_DEPTHS = (2, 3, 4)  # items in the ring: depth - 1 in flight while one computes
+MMA_MAX_KS = 4  # k16 steps of the Toeplitz product the kernel is built for: k ≤ 49
+
+
+@dataclasses.dataclass(frozen=True)
+class DwconvMmaLaunch:
+    ks: int  # k16 steps: 16·ks ≥ 15 + k
+    ipr: int  # work items of 128 outputs a residue mod the dilation
+    items: int  # batch · dilation · ipr
+    ipb: int  # work items a block
+    depth: int  # item slots in the ring: depth - 1 in flight while one computes
+    window: int  # decimated input rows an item stages: 112 + 16·ks
+    grid: tuple[int, int]  # (item groups, channel tiles): block i is tile i % n of group i // n
+    threads: int
+    smem: int  # bytes: each warp's ring, its transposed window and its outputs
+
+
+def mma_route(m: int, esize: int, vector: bool, k: int) -> bool:
+    """The route rule: a bf16 depthwise conv (m = 1) on the vector path (C %
+    8 == 0, x 16-byte aligned) with k ≤ 49 goes to the tensor-core kernel
+    (``csrc/dwconv_bf16.cu``); every other call to the FFMA kernels
+    (``csrc/dwconv.cu``): float32, B5, C % 8 != 0, an unaligned x, longer
+    kernels."""
+    return m == 1 and esize == 2 and vector and 15 + k <= 16 * MMA_MAX_KS
+
+
+def mma_smem(ks: int, depth: int) -> int:
+    """``smem_bytes`` of ``csrc/dwconv_bf16.cu``: ``depth`` windows of W =
+    112 + 16·ks rows channel-last, the window time-contiguous (W + 8 a
+    channel) and the 128 outputs channel-last, rows padded by 16 bytes, all
+    bf16."""
+    w = 112 + 16 * ks
+    return 2 * (depth * w * (MMA_CT + 8) + MMA_CT * (w + 8) + MMA_TO * (MMA_CT + 8))
+
+
+@functools.lru_cache(maxsize=1024)
+def dwconv_mma_launch(b: int, t: int, c: int, k: int, lo: int, hi: int, dil: int, *,
+                      ipb: int | None = None, depth: int | None = None) -> DwconvMmaLaunch:
+    """The tensor-core kernel's plan for a bf16 x (b, t, c), k taps, pads (lo,
+    hi), dilation ``dil``.  Work items of 128 outputs of one residue mod the
+    dilation; one wave of blocks (five an SM: the kernel's registers and
+    shared memory allow five), each channel tile's items split evenly over
+    its share of them; three ring slots where a block has three items or
+    more, else two.  Memoised."""
+    t_out = t + lo + hi - dil * (k - 1)
+    if min(b, t, c, k, dil) < 1 or min(lo, hi) < 0 or t_out < 1 or c % 8:
+        raise ValueError(f"no B4 tensor-core plan for x ({b}, {t}, {c}), k {k}, pads ({lo}, "
+                         f"{hi}), dilation {dil}")
+    ks = _cdiv(15 + k, 16)
+    if ks > MMA_MAX_KS:
+        raise ValueError(f"the tensor-core kernel takes k ≤ {16 * MMA_MAX_KS - 15}, got {k}")
+    ipr = _cdiv(_cdiv(t_out, dil), MMA_TO)
+    items = b * dil * ipr
+    grid_y = _cdiv(c, MMA_CT)
+    if ipb is None:  # one wave: each channel tile's items split over its share of the slots
+        ipb = _cdiv(items, max(1, MMA_BLOCKS_SM * SM_COUNT // grid_y))
+    if ipb < 1:
+        raise ValueError(f"items a block must be >= 1, got {ipb}")
+    ipb = min(ipb, items)
+    depth = (3 if ipb >= 3 else 2) if depth is None else depth
+    if depth not in MMA_DEPTHS:
+        raise ValueError(f"the ring holds {MMA_DEPTHS} items, got {depth}")
+    grid_x = _cdiv(items, ipb)
+    if grid_x * grid_y > MAX_BLOCKS:
+        raise ValueError(f"{grid_x} × {grid_y} blocks exceed the grid's {MAX_BLOCKS}")
+    return DwconvMmaLaunch(ks, ipr, items, ipb, depth, 112 + 16 * ks, (grid_x, grid_y),
+                           MMA_THREADS, mma_smem(ks, depth))
+
+
+def dwconv_plan(b: int, t: int, c: int, k: int, lo: int, hi: int, dil: int, m: int, *,
+                vector: bool = True, esize: int = 4) -> DwconvLaunch | DwconvMmaLaunch:
+    """The wrappers' plan: the tensor-core kernel's where :func:`mma_route`
+    says so, else :func:`dwconv_launch`'s."""
+    if mma_route(m, esize, vector, k):
+        return dwconv_mma_launch(b, t, c, k, lo, hi, dil)
+    return dwconv_launch(b, t, c, k, lo, hi, dil, m, vector=vector, esize=esize)
+
+
 # ── the library ────────────────────────────────────────────────────────────
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     return _bind(_build.load("dwconv"))
+
+
+@functools.cache
+def _mma_lib() -> ctypes.CDLL:
+    lib = _build.load("dwconv_bf16")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ajt_dwconv1d_mma_bf16.argtypes = [p, p, p] + [i] * 7 + [ll] * 2 + [i] * 6 + [ll, p]
+    lib.ajt_dwconv1d_mma_bf16.restype = i
+    lib.ajt_dwconv_bf16_error_string.argtypes = [i]
+    lib.ajt_dwconv_bf16_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -274,11 +382,23 @@ def _launch(lib: ctypes.CDLL, fn: str, x: torch.Tensor, w: torch.Tensor, y: torc
 
 
 def launch_dwconv1d(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, pads, dilation: int,
-                    plan: DwconvLaunch) -> None:
+                    plan: DwconvLaunch | DwconvMmaLaunch) -> None:
     """Launch B4 on checked x (B, T, C), w (k, C) (any strides) into y at
-    ``plan``'s geometry, in x's dtype; counts nothing (``dwconv1d_cuda``
-    counts its launch)."""
-    _launch(_lib(), f"ajt_dwconv1d_{_build.DTYPES[x.dtype]}", x, w, y, pads, dilation, plan)
+    ``plan``'s geometry, in x's dtype: the FFMA kernel at a ``DwconvLaunch``,
+    the bf16 tensor-core kernel at a ``DwconvMmaLaunch``; counts nothing
+    (``dwconv1d_cuda`` counts its launch)."""
+    if not isinstance(plan, DwconvMmaLaunch):
+        _launch(_lib(), f"ajt_dwconv1d_{_build.DTYPES[x.dtype]}", x, w, y, pads, dilation, plan)
+        return
+    lib = _mma_lib()
+    b, t, c = x.shape
+    rc = lib.ajt_dwconv1d_mma_bf16(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, t, c,
+                                   w.shape[0], pads[0], pads[1], dilation, *w.stride(), plan.ks,
+                                   plan.ipr, plan.ipb, plan.depth, *plan.grid, plan.smem,
+                                   _stream(x.device))
+    if rc != 0:
+        raise RuntimeError(f"ajt_dwconv1d_mma_bf16 launch failed: "
+                           f"{lib.ajt_dwconv_bf16_error_string(rc).decode()} ({rc})")
 
 
 def launch_dwconv1d_grouped(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, pads,
@@ -335,12 +455,13 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError("x must be contiguous")
 
 
-def _plan_for(x: torch.Tensor, w: torch.Tensor, pads, dilation: int, m: int) -> DwconvLaunch:
+def _plan_for(x: torch.Tensor, w: torch.Tensor, pads, dilation: int,
+              m: int) -> DwconvLaunch | DwconvMmaLaunch:
     b, t, c = x.shape
     esize = x.element_size()
     vector = c % (16 // esize) == 0 and x.data_ptr() % 16 == 0
-    return dwconv_launch(b, t, c, w.shape[0], pads[0], pads[1], dilation, m, vector=vector,
-                         esize=esize)
+    return dwconv_plan(b, t, c, w.shape[0], pads[0], pads[1], dilation, m, vector=vector,
+                       esize=esize)
 
 
 def dwconv1d_cuda(x: torch.Tensor, w: torch.Tensor, *, pads=(0, 0),

@@ -1048,11 +1048,13 @@ def hold_b6(gen, dev, label: str, n: int, s: int, mask: bool, dk: int = 128, dv:
         _f64_rows(n, f64_rows, dev), out_dtype)
     _time(row, timed, run, plain)
     es, eo = q.element_size(), torch.tensor([], dtype=out_dtype).element_size()
-    # bf16: the scores' bf16 products at the bf16 rate, the PV product in f32
-    qk, pv = 2.0 * n * s * s * dk, 2.0 * n * s * s * dv
+    # bf16: every product of the function once, at the bf16 rate (any
+    # implementation does at least those; a kernel's extra products, as the
+    # split of the f32 scores into three bf16 terms, are its design's cost)
+    ops = 2.0 * n * s * s * (dk + dv)
     row["bound_ms"], row["bound_by"] = bound(
-        pv + (qk if dtype == torch.float32 else 0.0), es * n * s * (2 * dk + dv) + eo * n * s * dv,
-        bf16_flops=0.0 if dtype == torch.float32 else qk)
+        ops if dtype == torch.float32 else 0.0, es * n * s * (2 * dk + dv) + eo * n * s * dv,
+        bf16_flops=0.0 if dtype == torch.float32 else ops)
     shape = f"({n}, {s}, {dk})" if dk == dv else f"({n}, {s}, K{dk}, V{dv})"
     out = " → f32" if out_dtype != dtype else ""
     _report(tag, label, shape + (" mask" if mask else "") + out, row)
@@ -3343,9 +3345,14 @@ def main() -> int:
         "relpos_scores": ("audiojax_torch/csrc/relpos_scores.cu",
                           "audiojax/ops/attention_pallas.py:195"),
     }
-    # the bf16 instances (the bf16 plans' path), beside the float32 ones
+    # the bf16 instances (the bf16 plans' path), beside the float32 ones; B4's
+    # and B6's served bf16 shapes run on their tensor-core kernels
     sources.update({f"{k}_bf16": v for k, v in list(sources.items())
                     if k not in ("stft_packed", "istft_packed")})
+    sources["dwconv1d_bf16"] = ("audiojax_torch/csrc/dwconv_bf16.cu",
+                                "audiojax/ops/dwconv_pallas.py:52")
+    sources["quad_attention_bf16"] = ("audiojax_torch/csrc/quad_attention_bf16.cu",
+                                      "audiojax/ops/attention_pallas.py:61")
     kernels = []
     for name, (source, replaces) in sources.items():
         row = rows[name]

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the depthwise (B4) and grouped (B5) conv kernels at each plan choice, on one card.
 
-    python3 dwconv_geometry_sweep.py
+    python3 dwconv_geometry_sweep.py [--parent DIR] [--bf16-only]
 
 At every B4 and B5 serving shape of ``chip_smoke.py`` (MossFormerGAN's eight,
 ZipEnhancer's six, MossFormer2-SS's six B4 and two B5 shapes) this prints the
@@ -18,7 +18,19 @@ The wrapper's result is held against the plain version (1e-5 × max|ref|)
 and every other choice against the wrapper's bit for bit: no choice changes
 the order of any sum.  Then each shape says how far the wrapper's pick is
 from the best, and what the pick takes with the weight as that view and
-as a contiguous copy (the strided read's cost).  Without CUDA it exits 1.
+as a contiguous copy (the strided read's cost).
+
+B4 bf16 (the tensor-core kernel, ``csrc/dwconv_bf16.cu``) at every bf16
+serving shape of ``chip_smoke.py`` (6 s: B4_CASES, B4_SS_CASES, B4_SE_CASES,
+B4_SR_CASES): the wrapper's plan (``dwconv_mma_launch``), the kernel at 1,
+2, 4, 8, 16 and 32 items a block and each ring depth it takes (and at the
+wrapper's pick), each result equal to the wrapper's bit for bit and the
+wrapper's within one bf16 ulp of the plain version; beside it the plain version, cuDNN's bf16 conv and the float32
+instance at the same shape.  With ``--parent DIR`` (an unpacked earlier tree
+of this repository), the same shapes' times of that tree's B4 bf16 kernel,
+measured by its own code in a process of its own, before and after
+(parent, change, parent).  ``--bf16-only`` skips the float32 and B5 sweeps.
+Without CUDA it exits 1.
 """
 from __future__ import annotations
 
@@ -28,6 +40,24 @@ import sys
 import torch
 
 import chip_smoke as c
+from attention_geometry_sweep import parent_times
+
+# (label, (B, T, C), k, pads, dilation): every bf16 B4 serving shape (6 s)
+B4_BF16 = c.six_s(c.B4_CASES + c.B4_SS_CASES + c.B4_SE_CASES + c.B4_SR_CASES)
+# an earlier tree's B4 bf16 at the shapes in argv[1], run from that tree's
+# root by its own code (the model's weight view, as nn/core.py passes it)
+OLD_B4 = r"""
+import json, sys, torch
+import chip_smoke as c
+from audiojax_torch.ops import dwconv_cuda as D
+dev = torch.device("cuda")
+times = []
+for (b, t, ch), k, pads, dil in json.loads(sys.argv[1]):
+    x = torch.randn((b, t, ch), device=dev).to(torch.bfloat16)
+    w = (torch.randn((ch, 1, k), device=dev) / k ** 0.5).to(torch.bfloat16)[:, 0, :].t()
+    times.append(c.device_ms(lambda: D.dwconv1d_cuda(x, w, pads=tuple(pads), dilation=dil)) * 1e3)
+print(json.dumps(times))
+"""
 
 
 def _time(times: dict, label: str, m: int, b: int, t: int, ch: int, k: int, pads: tuple,
@@ -103,21 +133,87 @@ def _sweep(label: str, m: int, b: int, t: int, ch: int, k: int, pads: tuple, dil
           f"contiguous {contig_us:.2f} us ({view_us / contig_us - 1.0:+.1%})", flush=True)
 
 
+def sweep_b4_bf16(dev, parent: str | None) -> None:
+    import torch.nn.functional as F
+
+    from audiojax_torch.ops import dwconv_cuda as D
+
+    shapes = [[list(shape), k, list(pads), dil] for _, shape, k, pads, dil in B4_BF16]
+    old = [parent_times(parent, OLD_B4, shapes)] if parent else []
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    for label, (b, t, ch), k, pads, dil in B4_BF16:
+        x32 = torch.randn((b, t, ch), generator=gen, device=dev)
+        w32 = (torch.randn((ch, 1, k), generator=gen, device=dev) / k ** 0.5)[:, 0, :].t()
+        x, w = x32.to(torch.bfloat16), w32.to(torch.bfloat16)
+        ref = D.dwconv1d_cuda(x, w, pads=pads, dilation=dil)
+        want = D.dwconv1d_plain(x, w, pads=pads, dilation=dil).float()
+        if not bool(((ref.float() - want).abs() <= c.BF16_ULP * want.abs() + 1e-6).all()):
+            c.fail(f"B4 bf16 {label}: the wrapper parts from plain by more than one bf16 ulp")
+        pick = D.dwconv_plan(b, t, ch, k, *pads, dil, 1, esize=2)
+        if not isinstance(pick, D.DwconvMmaLaunch):
+            c.fail(f"B4 bf16 {label}: a served shape off the tensor-core route")
+        out = torch.empty_like(ref)
+        xt = F.pad(x.transpose(1, 2), pads).contiguous()
+        wt = w.t().contiguous()[:, None, :]
+        others = {
+            "plain": c.device_ms(lambda: D.dwconv1d_plain(x, w, pads=pads, dilation=dil)) * 1e3,
+            "cuDNN bf16": c.device_ms(lambda: F.conv1d(xt, wt, dilation=dil, groups=ch)) * 1e3,
+            "float32 kernel": c.device_ms(lambda: D.dwconv1d_cuda(x32, w32, pads=pads,
+                                                                  dilation=dil)) * 1e3,
+        }
+        bound_us = c.bound(0.0, 2.0 * (b * t * ch + k * ch + ref.numel()),
+                           bf16_flops=2.0 * ref.numel() * k)[0] * 1e3
+        print(f"== B4 bf16 {label} ({b}, {t}, {ch}) k{k} pads {pads} d{dil}: bound "
+              f"{bound_us:.2f} us; " + ", ".join(f"{n} {us:.2f} us" for n, us in others.items())
+              + f"; wrapper {pick}", flush=True)
+        times = {}
+        tried = itertools.product((1, 2, 4, 8, 16, 32), D.MMA_DEPTHS)
+        for ipb, depth in [(pick.ipb, pick.depth), *tried]:
+            plan = D.dwconv_mma_launch(b, t, ch, k, *pads, dil, ipb=ipb, depth=depth)
+            key = (plan.ipb, plan.depth)
+            if key in times or plan.smem > D.SMEM_MAX:
+                continue
+            times[key] = c.device_ms(lambda: D.launch_dwconv1d(x, w, out, pads, dil, plan)) * 1e3
+            if not torch.equal(out, ref):
+                c.fail(f"B4 bf16 {label} {key}: differs from the wrapper's result")
+        ranked = sorted(times, key=times.get)
+        print("  ipb/depth: us  " + "  ".join(
+            f"{'/'.join(map(str, key))}: {times[key]:.2f}" for key in ranked), flush=True)
+        mine = (pick.ipb, pick.depth)
+        best = ranked[0]
+        print(f"B4 bf16 {label}: wrapper's pick {'/'.join(map(str, mine))} {times[mine]:.2f} us "
+              f"({bound_us / times[mine]:.0%} of bound), best {'/'.join(map(str, best))} "
+              f"{times[best]:.2f} us ({times[mine] / times[best] - 1.0:+.1%})", flush=True)
+        rows.append((label, times[mine], others))
+        del x32, w32, x, w, ref, want, out, xt, wt
+    if parent:
+        old.append(parent_times(parent, OLD_B4, shapes))
+    for i, (label, new_us, others) in enumerate(rows):
+        was = " / ".join(f"{t[i]:.2f}" for t in old) if old else "not measured"
+        print(f"B4 bf16 {label}: new {new_us:.2f} us; parent tree {was} us (before / after); "
+              + ", ".join(f"{n} {us:.2f}" for n, us in others.items()), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("dwconv_geometry_sweep: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     from audiojax_torch.device import resolve_device
 
+    args = sys.argv[1:]
+    parent = args[args.index("--parent") + 1] if "--parent" in args else None
     dev = resolve_device("cuda")
     print(f"card: {c.card_line()}", flush=True)
     c.build_all()
-    gen = torch.Generator(device=dev).manual_seed(3)
-    served = [case for case in c.B4_CASES if case[4] == 1] + c.B4_SS_CASES
-    for label, (b, t, ch), k, pads, dil in served:
-        _sweep(label, 1, b, t, ch, k, pads, dil, gen, dev)
-    for label, (b, t, ch), k, pads, dil in c.B5_SS_CASES:
-        _sweep(label, 2, b, t, ch, k, pads, dil, gen, dev)
+    if "--bf16-only" not in args:
+        gen = torch.Generator(device=dev).manual_seed(3)
+        served = [case for case in c.B4_CASES if case[4] == 1] + c.B4_SS_CASES
+        for label, (b, t, ch), k, pads, dil in served:
+            _sweep(label, 1, b, t, ch, k, pads, dil, gen, dev)
+        for label, (b, t, ch), k, pads, dil in c.B5_SS_CASES:
+            _sweep(label, 2, b, t, ch, k, pads, dil, gen, dev)
+    sweep_b4_bf16(dev, parent)
     return 0
 
 
