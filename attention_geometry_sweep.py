@@ -31,10 +31,20 @@ kernel's float64 error and time beside the plain version's error at two
 shapes, with the k16 steps of its sums chained in the mma accumulator by
 each of ``SUM_CHAINS`` (the source's ``kQkChain`` and ``kPvChain``, text
 edits built by ``_build.load_source``).
+B3 bf16 (the tensor-core kernel, ``csrc/relpos_scores_bf16.cu``) at every
+bf16 serving shape of ``chip_smoke.py`` (6 s B3_CASES of at most 256 keys):
+its bound, the plain version's and the float32 instance's µs at the same
+shape, the wrapper's geometry, and the kernel at row groups a block 1, 2,
+3, 4, 8 and all of a row's, the fewest warps a row group that hold 8 tiles
+of keys and twice as many, and the plan's batch split, half and twice it;
+every geometry within one bf16 ulp of the plain version.  With
+``--parent DIR``, the parent tree's B3 bf16 at the same shapes, before and
+after the new kernel's.
 ``--bf16-only`` skips the float32 B6 and B3 sweeps.  Without CUDA it exits 1.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -48,6 +58,24 @@ TOL_SAME_ORDER = 1e-6
 B6_BF16 = ([(label, n, s, mask, 128, 128) for label, n, s, mask in c.six_s(c.B6_CASES)]
            + [(label, n, s, False, 128, 2048) for label, n, s in
               c.six_s(c.B6_SS_CASES + c.B6_SE_CASES + c.B6_SR_CASES)])
+# (label, N, S): every bf16 B3 serving shape (6 s), H 4, D 32, P 4
+B3_BF16 = [(label, n, s) for label, n, s in c.six_s(c.B3_CASES) if s <= 256]
+# an earlier tree's B3 bf16 at the shapes in argv[1], run from that tree's
+# root by its own code (q, k, pp lane slices of one projection, as the model
+# has them)
+OLD_B3 = r"""
+import json, sys, torch
+import chip_smoke as c
+from audiojax_torch.ops import attention_cuda as A
+dev = torch.device("cuda")
+times = []
+for n, s in json.loads(sys.argv[1]):
+    proj = (0.5 * torch.randn((n, s, 288), device=dev)).to(torch.bfloat16)
+    q, k, pp = proj[..., :128], proj[..., 128:256], proj[..., 256:]
+    pe = (0.5 * torch.randn((4, 4, s, s), device=dev)).to(torch.bfloat16)
+    times.append(c.device_ms(lambda: A.relpos_scores_cuda(q, k, pp, pe, num_heads=4)) * 1e3)
+print(json.dumps(times))
+"""
 # an earlier tree's B6 bf16 (bf16 in, float32 out) at the shapes in argv[1],
 # run from that tree's root by its own code
 OLD_B6 = r"""
@@ -199,6 +227,80 @@ def sweep_b6_bf16(dev, parent: str | None) -> None:
               f"pick; parent tree {was} us (before / after)", flush=True)
 
 
+def sweep_b3_bf16(dev, parent: str | None) -> None:
+    """B3 bf16 (``csrc/relpos_scores_bf16.cu``) at every geometry tried, each
+    within one bf16 ulp of the plain version (the row sums' order follows
+    the key split), beside the plain version, the float32 instance and the
+    parent tree's kernel at the same shape."""
+    from audiojax_torch.ops import attention_cuda as A
+
+    h, d, n_pos = 4, 32, 4
+    shapes = [[n, s] for _, n, s in B3_BF16]
+    old = [parent_times(parent, OLD_B3, shapes)] if parent else []
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = []
+    for label, n, s in B3_BF16:
+        proj32 = 0.5 * torch.randn((n, s, 2 * h * d + h * A.pos_stride(n_pos)), generator=gen,
+                                   device=dev)
+        pe32 = 0.5 * torch.randn((h, n_pos, s, s), generator=gen, device=dev)
+        proj, pe = proj32.to(torch.bfloat16), pe32.to(torch.bfloat16)
+        q, k, pp = proj[..., : h * d], proj[..., h * d : 2 * h * d], proj[..., 2 * h * d :]
+        q32, k32, pp32 = (proj32[..., : h * d], proj32[..., h * d : 2 * h * d],
+                          proj32[..., 2 * h * d :])
+        want = A.relpos_scores_plain(q, k, pp, pe, num_heads=h).float()
+        out = torch.empty((n, h, s, s), dtype=torch.bfloat16, device=dev)
+        pick = A.relpos_bf16_launch(n, s, h, d, n_pos)
+        others = {
+            "plain": c.device_ms(lambda: A.relpos_scores_plain(q, k, pp, pe, num_heads=h)) * 1e3,
+            "float32 kernel": c.device_ms(lambda: A.relpos_scores_cuda(
+                q32, k32, pp32, pe32, num_heads=h)) * 1e3,
+        }
+        es = proj.element_size()
+        # q, k and the P used terms of pp (not its padded slots), pe, probs
+        used = n * s * h * (2 * d + n_pos)
+        bound_us = c.bound(n * h * s * s * 5.0, es * (used + pe.numel() + want.numel()),
+                           bf16_flops=n * h * s * s * (2.0 * d + 2.0 * n_pos))[0] * 1e3
+        print(f"== B3 bf16 {label} ({n}, {s}) H{h} D{d} P{n_pos}: bound {bound_us:.2f} us; "
+              + ", ".join(f"{name} {us:.1f} us" for name, us in others.items())
+              + f"; wrapper {pick}", flush=True)
+        tiles = -(-s // 8)
+        times = {}
+        for kw, wr in itertools.product((-(-tiles // 8), 2 * -(-tiles // 8)),
+                                        sorted({1, 2, 3, 4, 8, -(-s // 16)})):
+            try:
+                base = A.relpos_bf16_launch(n, s, h, d, n_pos, wr=wr, kw=kw)
+            except ValueError:  # more warps or shared memory than the kernel takes
+                continue
+            for nb in sorted({base.nb, max(1, base.nb // 2), 2 * base.nb}):
+                geo = A.relpos_bf16_launch(n, s, h, d, n_pos, wr=wr, kw=kw, nb=nb)
+                key = (geo.wr, geo.kw, geo.nb)
+                if key in times:
+                    continue
+                times[key] = c.device_ms(lambda: A.launch_relpos_scores(
+                    q, k, pp, pe, out, h, geo)) * 1e3
+                over = (out.float() - want).abs() > c.BF16_ULP * want.abs() + 1e-6
+                if bool(over.any()):
+                    c.fail(f"B3 bf16 {label} {geo}: {int(over.sum())} elements part from "
+                           "plain by more than one bf16 ulp")
+        ranked = sorted(times, key=times.get)
+        print("B3 bf16 " + label + ": wr/kw/nb: us  " + "  ".join(
+            f"{'/'.join(map(str, key))}: {times[key]:.1f}" for key in ranked), flush=True)
+        mine = (pick.wr, pick.kw, pick.nb)
+        rows.append((label, n, s, times[mine], others))
+        best = ranked[0]
+        print(f"B3 bf16 {label}: wrapper's pick {'/'.join(map(str, mine))} {times[mine]:.1f} us "
+              f"({bound_us / times[mine]:.0%} of bound), best {'/'.join(map(str, best))} "
+              f"{times[best]:.1f} us ({times[mine] / times[best] - 1.0:+.1%})", flush=True)
+        del proj32, pe32, proj, pe, q, k, pp, want, out
+    if parent:
+        old.append(parent_times(parent, OLD_B3, shapes))
+    for i, (label, n, s, new_us, others) in enumerate(rows):
+        was = " / ".join(f"{t[i]:.1f}" for t in old) if old else "not measured"
+        print(f"B3 bf16 {label} ({n}, {s}): new {new_us:.1f} us at the wrapper's pick; parent "
+              f"tree {was} us (before / after); " + ", ".join(
+                  f"{name} {us:.1f}" for name, us in others.items()), flush=True)
+
+
 SUM_CHAINS = ((1, 1), (1, 2), (2, 2), (8, 2))  # (kQkChain, kPvChain) held against float64
 
 
@@ -270,6 +372,7 @@ def main() -> int:
     if "--bf16-only" not in args:
         sweep_b6(dev)
         sweep_b3(dev)
+    sweep_b3_bf16(dev, parent)
     sweep_b6_bf16(dev, parent)
     sum_order_errors(dev)
     return 0

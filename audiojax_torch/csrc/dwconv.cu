@@ -106,10 +106,11 @@
 // an element), and stay f32 in shared memory.  The sums are the f32 FMA
 // chain above; each output is rounded once to bf16, to nearest even, as
 // astype does.  A bf16 ring row is 64 bytes, so a ring holds twice the rows
-// in the same bytes; the rest of the design is unchanged.  B4's bf16 calls on
-// the vector path with k <= 49 (every served one) run on the tensor cores
-// instead (dwconv_bf16.cu; ops/dwconv_cuda.py:mma_route); this instance
-// serves the rest of B4's bf16 calls and B5's.
+// in the same bytes; the rest of the design is unchanged.  B4's and B5's
+// bf16 calls on the vector path with k <= 49 (every served one) run on the
+// tensor cores instead (dwconv_bf16.cu; ops/dwconv_cuda.py:mma_route); this
+// instance serves the rest of their bf16 calls (C % 8 != 0, an unaligned x,
+// longer kernels).
 //
 // The geometry (copy width, VC, R, time threads, items, ring depth, grid,
 // shared memory) comes from dwconv_launch in ops/dwconv_cuda.py, whose picks

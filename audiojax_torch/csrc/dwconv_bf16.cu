@@ -1,10 +1,22 @@
 // Depthwise 1-D convolution for Hopper (sm_90a) on bfloat16 tensors, on the
-// tensor cores (B4's bf16 instance).
+// tensor cores (B4's bf16 instance), and the grouped 2-in/1-out conv (B5's).
 //
 // Replaces dwconv1d_pallas (audiojax/ops/dwconv_pallas.py:52, its kernel
 // _kernel) as the bf16 serving plan calls it, plus a dilation:
 //
 //   y[b, t, c] = sum_{i<k} xpad[b, t + i*dil, c] * w[i, c]
+//
+// and dwconv1d_pallas_tiled (dwconv_pallas.py:120, its kernel _kernel_tiled)
+// on the one path that reaches it, MossFormer2-SS's dilated FSMN memory,
+// which the TPU deinterleaves into two tiled depthwise calls
+// (audiojax/nn/core.py:235-252); here M = 2 lanes a group, as they lie:
+//
+//   y[b, t, g] = sum_{i<k} sum_{r<2} xpad[b, t + i*dil, 2g + r] * w[i, r, g]
+//
+// with x (B, T, 2G), y (B, T_out, G) and w (k, 2, G) read through its
+// strides (si, sr, sg), the model's (G, 2, k) weight as a view; the contract
+// is dwconv1d_grouped_plain's (_grouped_single_out_conv1d, nn/core.py:171):
+// bf16 products, f32 sums, one rounding.
 //
 // x (B, T, C) and y (B, T_out, C) bfloat16, channel-last and contiguous, C a
 // multiple of 8 and x 16-byte aligned; w (k, C) bfloat16 read through its
@@ -53,6 +65,21 @@
 // 8 elements), so that the 8 rows of every ldmatrix and stmatrix fall on
 // distinct bank groups (the tile windows of step 3: two-way; the 8-byte
 // stores of step 3: four-way).
+// B5 (M = 2, dwconv_grouped_kernel_bf16_mma) is the same body over the
+// block's 16 input lanes, 8 groups:
+// the window staged and transposed as for 16 channels, each lane's Toeplitz
+// fragments from its own taps (w[:, r, g]), the products a group (two lanes)
+// at a time, each lane's KS mma.sync into its own accumulator, the two added
+// in f32 and rounded once, an output row's 8 groups written as two 8-byte
+// stores (G is a multiple of 4).  128 registers a thread, four blocks an SM
+// (at 96, five, the window's fragments spilled).  At MossFormer2-SS's (4,
+// 3999, 512 -> 256) k39 d2 the bytes are 24.6 MB, 0.0073 ms; an item of 128
+// outputs stages 176 decimated rows, so 1.375 times the input passes through
+// the staging, the halo rows from L2 (the input, 16.4 MB, stays there); they
+// are not carried from item to item, since the per-item chain below, not
+// the bytes, holds B5 as it holds B4 (bf16_kernel_probe.py: B5 at 0.0275 ms,
+// each of its parts switched off saves 10 to 15 %).
+//
 // What holds it: not the bytes but the chain of each item (three barriers,
 // the copies' issue, the transposes, the products, the stores), of which
 // the SM overlaps five blocks' worth; bf16_kernel_probe.py times each part
@@ -87,7 +114,7 @@ constexpr int kCW = 4;             // channels a warp, products interleaved 4 at
 constexpr int kWarps = kCT / kCW;
 constexpr int kRS = kCT + 8;     // ring and ys row stride (elements): 16 bytes of padding
 constexpr int kTO = 128;         // outputs a work item: 8 tiles of 16
-constexpr int kMinBlocks = 5;    // blocks an SM the registers are held to
+constexpr int kMinBlocks = 5;    // blocks an SM the registers are held to (M = 2: 4)
 
 __host__ __device__ constexpr int window(int ks) { return 112 + 16 * ks; }
 
@@ -101,8 +128,8 @@ struct Args {
   const bf16* x;
   const bf16* w;
   bf16* y;
-  long long si, sc;  // w's strides, in elements
-  int batch, T, C, k, lo, dil, t_out;
+  long long si, sr, sg;  // w's strides, in elements: tap, lane of a group (M = 2), group
+  int batch, T, C, k, lo, dil, t_out;  // C: input lanes (M per output)
   int ipr;    // items a residue: ceil(ceil(t_out / dil) / 128)
   int items;  // batch * dil * ipr
   int ipb;    // items a block
@@ -185,8 +212,11 @@ __device__ __forceinline__ Item item_of(const Args& a, int idx) {
   return {idx / per_row, rem / a.ipr, rem % a.ipr * kTO};
 }
 
-template <int KS>
-__global__ void __launch_bounds__(32 * kWarps, kMinBlocks) dwconv_kernel_bf16_mma(const Args a) {
+// M input lanes an output: 1 (B4, depthwise) or 2 (B5, the grouped 2-in/1-out
+// conv, its lanes interleaved as they lie: lane 2g + r of x is lane r of
+// group g, w[i, r, g] at i si + r sr + g sg).  The body of both kernels below.
+template <int KS, int M>
+__device__ __forceinline__ void conv_mma(const Args& a) {
   constexpr int W = window(KS), LX = W + 8, kOct = kCT / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);   // [depth][W][kRS], channel-last
@@ -220,14 +250,14 @@ __global__ void __launch_bounds__(32 * kWarps, kMinBlocks) dwconv_kernel_bf16_mm
     cp_commit();
   }
 
-  // The block's taps, zero-padded: tz[ch][16 + i] = w[i, c0 + ch] for i in
-  // [0, k), 0 for i in [-16, 16 KS) outside it; in ys, which the first item
-  // fills only after the loop's first barrier.
+  // The block's taps, zero-padded: tz[ch][16 + i] = the tap i of lane c0 +
+  // ch for i in [0, k), 0 for i in [-16, 16 KS) outside it; in ys, which the
+  // first item fills only after the loop's first barrier.
   constexpr int TZ = 16 * KS + 16;
   unsigned short* tz = reinterpret_cast<unsigned short*>(ys);
   for (int e = tid; e < kCT * TZ; e += blockDim.x) {
-    const int ch = e / TZ, i = e % TZ - 16;
-    tz[e] = i >= 0 && i < a.k && c0 + ch < a.C ? a.w[i * a.si + (c0 + ch) * a.sc].u : 0;
+    const int ch = e / TZ, i = e % TZ - 16, l = c0 + ch;
+    tz[e] = i >= 0 && i < a.k && l < a.C ? a.w[i * a.si + (l % M) * a.sr + (l / M) * a.sg].u : 0;
   }
   __syncthreads();
   // A[r][s] = w[16 ks + s - r] for the warp's 4 channels.  Register q of k16
@@ -267,55 +297,120 @@ __global__ void __launch_bounds__(32 * kWarps, kMinBlocks) dwconv_kernel_bf16_mm
     // (lane >> 3) & 1, k16 step + (lane >> 4)), KS mma.sync a channel
     const unsigned xa = smem_addr(xs + kCW * warp * LX + 16 * (lane & 7) +
                                   8 * ((lane >> 3) & 1) + 16 * (lane >> 4));
-    unsigned short* yc = reinterpret_cast<unsigned short*>(ys) + kCW * warp;
+    unsigned short* yc = reinterpret_cast<unsigned short*>(ys) + kCW / M * warp;
+    if constexpr (M == 1) {
 #pragma unroll
-    for (int j0 = 0; j0 < kCW; j0 += 4) {
-      unsigned bfr[4][KS][2];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int ks = 0; ks + 1 < KS; ks += 2) {
-          unsigned r[4];
-          ldsm_x4(xa + 2 * ((j0 + j) * LX + 16 * ks), r);
-          bfr[j][ks][0] = r[0], bfr[j][ks][1] = r[1], bfr[j][ks + 1][0] = r[2],
-          bfr[j][ks + 1][1] = r[3];
-        }
-        if constexpr (KS % 2) ldsm_x2(xa + 2 * ((j0 + j) * LX + 16 * (KS - 1)), bfr[j][KS - 1]);
-      }
-      float d[4][4] = {};
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
+      for (int j0 = 0; j0 < kCW; j0 += 4) {
+        unsigned bfr[4][KS][2];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const unsigned* p = pr[j0 + j];
-          const unsigned af[4] = {p[2 * ks + 1], p[2 * ks], p[2 * ks + 2], p[2 * ks + 1]};
-          mma(d[j], af, bfr[j][ks][0], bfr[j][ks][1]);
+#pragma unroll
+          for (int ks = 0; ks + 1 < KS; ks += 2) {
+            unsigned r[4];
+            ldsm_x4(xa + 2 * ((j0 + j) * LX + 16 * ks), r);
+            bfr[j][ks][0] = r[0], bfr[j][ks][1] = r[1], bfr[j][ks + 1][0] = r[2],
+            bfr[j][ks + 1][1] = r[3];
+          }
+          if constexpr (KS % 2) ldsm_x2(xa + 2 * ((j0 + j) * LX + 16 * (KS - 1)), bfr[j][KS - 1]);
         }
-      // d[j][e]: output 32 tq + g + {0, 16, 8, 24}[e] of channel j0 + j,
-      // rounded once; the 4 channels of an output into ys, 8 bytes a store
+        float d[4][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const unsigned* p = pr[j0 + j];
+            const unsigned af[4] = {p[2 * ks + 1], p[2 * ks], p[2 * ks + 2], p[2 * ks + 1]};
+            mma(d[j], af, bfr[j][ks][0], bfr[j][ks][1]);
+          }
+        // d[j][e]: output 32 tq + g + {0, 16, 8, 24}[e] of channel j0 + j,
+        // rounded once; the 4 channels of an output into ys, 8 bytes a store
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int o = 32 * tq + g + ((e & 1) << 4) + ((e >> 1) << 3);
+          *reinterpret_cast<uint2*>(yc + o * kRS + j0) =
+              make_uint2(pack_bf16(d[0][e], d[1][e]), pack_bf16(d[2][e], d[3][e]));
+        }
+      }
+    } else {
+      // M = 2: a group (two lanes) at a time, which holds half the B
+      // fragments of four lanes in registers; each lane's KS products into
+      // its own accumulator, the group's two added in f32 and rounded once;
+      // an output's 2 groups into ys, 4 bytes a store
+      float y[2][4];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        unsigned bfr[2][KS][2];
+#pragma unroll
+        for (int r2 = 0; r2 < 2; ++r2) {
+#pragma unroll
+          for (int ks = 0; ks + 1 < KS; ks += 2) {
+            unsigned r[4];
+            ldsm_x4(xa + 2 * ((2 * q + r2) * LX + 16 * ks), r);
+            bfr[r2][ks][0] = r[0], bfr[r2][ks][1] = r[1], bfr[r2][ks + 1][0] = r[2],
+            bfr[r2][ks + 1][1] = r[3];
+          }
+          if constexpr (KS % 2)
+            ldsm_x2(xa + 2 * ((2 * q + r2) * LX + 16 * (KS - 1)), bfr[r2][KS - 1]);
+        }
+        float d[2][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+          for (int r2 = 0; r2 < 2; ++r2) {
+            const unsigned* p = pr[2 * q + r2];
+            const unsigned af[4] = {p[2 * ks + 1], p[2 * ks], p[2 * ks + 2], p[2 * ks + 1]};
+            mma(d[r2], af, bfr[r2][ks][0], bfr[r2][ks][1]);
+          }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) y[q][e] = d[0][e] + d[1][e];
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int o = 32 * tq + g + ((e & 1) << 4) + ((e >> 1) << 3);
-        *reinterpret_cast<uint2*>(yc + o * kRS + j0) =
-            make_uint2(pack_bf16(d[0][e], d[1][e]), pack_bf16(d[2][e], d[3][e]));
+        *reinterpret_cast<unsigned*>(yc + o * kRS) = pack_bf16(y[0][e], y[1][e]);
       }
     }
     __syncthreads();
-    // 4. write: 16 bytes (8 channels) a thread, a row's kCT channels by kOct threads
-    bf16* yb = a.y + (size_t)it.b * a.t_out * a.C + c0;
-    for (int e = tid; e < kTO * kOct; e += blockDim.x) {
-      const int r = e / kOct, part = e % kOct;
-      const int t = it.rho + a.dil * (it.u0 + r);
-      if (t < a.t_out && c0 + 8 * part < a.C)
-        *reinterpret_cast<uint4*>(yb + (size_t)t * a.C + 8 * part) =
-            *reinterpret_cast<const uint4*>(ys + r * kRS + 8 * part);
+    if constexpr (M == 1) {
+      // 4. write: 16 bytes (8 channels) a thread, a row's kCT channels by kOct threads
+      bf16* yb = a.y + (size_t)it.b * a.t_out * a.C + c0;
+      for (int e = tid; e < kTO * kOct; e += blockDim.x) {
+        const int r = e / kOct, part = e % kOct;
+        const int t = it.rho + a.dil * (it.u0 + r);
+        if (t < a.t_out && c0 + 8 * part < a.C)
+          *reinterpret_cast<uint4*>(yb + (size_t)t * a.C + 8 * part) =
+              *reinterpret_cast<const uint4*>(ys + r * kRS + 8 * part);
+      }
+    } else {
+      // 4. write: 8 bytes (4 groups) a thread, a row's kCT / 2 groups by two
+      // threads (the output's G = C / 2 is a multiple of 4, not always of 8)
+      const int G = a.C / 2, q0 = c0 / 2;
+      bf16* yb = a.y + (size_t)it.b * a.t_out * G + q0;
+      for (int e = tid; e < kTO * 2; e += blockDim.x) {
+        const int r = e >> 1, part = e & 1;
+        const int t = it.rho + a.dil * (it.u0 + r);
+        if (t < a.t_out && q0 + 4 * part < G)
+          *reinterpret_cast<uint2*>(yb + (size_t)t * G + 4 * part) =
+              *reinterpret_cast<const uint2*>(ys + r * kRS + 4 * part);
+      }
     }
   }
 }
 
 template <int KS>
+__global__ void __launch_bounds__(32 * kWarps, kMinBlocks) dwconv_kernel_bf16_mma(const Args a) {
+  conv_mma<KS, 1>(a);
+}
+// B5's own kernel (its own name in a trace, 128 registers: four blocks an SM)
+template <int KS>
+__global__ void __launch_bounds__(32 * kWarps, kMinBlocks - 1)
+    dwconv_grouped_kernel_bf16_mma(const Args a) {
+  conv_mma<KS, 2>(a);
+}
+
+template <int KS, int M>
 int launch(const Args& a, int grid, long long smem, cudaStream_t stream) {
-  auto kernel = dwconv_kernel_bf16_mma<KS>;
+  auto kernel = M == 1 ? dwconv_kernel_bf16_mma<KS> : dwconv_grouped_kernel_bf16_mma<KS>;
   if (smem != smem_bytes(KS, a.depth) || smem > 232448) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err =
@@ -324,6 +419,49 @@ int launch(const Args& a, int grid, long long smem, cudaStream_t stream) {
   }
   kernel<<<grid, 32 * kWarps, (size_t)smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int M>
+int mma_conv(const void* x, const void* w, void* y, int batch, int T, int C, int k, int lo,
+             int hi, int dil, long long si, long long sr, long long sg, int ks, int ipr, int ipb,
+             int depth, int grid_x, int grid_y, long long smem, void* stream) {
+  const long long t_out = (long long)T + lo + hi - (long long)dil * (k - 1);
+  if (batch <= 0 || T <= 0 || C <= 0 || C % 8 || k <= 0 || lo < 0 || hi < 0 || dil <= 0 ||
+      t_out <= 0 || t_out > 0x7fffffffLL || (uintptr_t)x % 16 || (uintptr_t)y % 16)
+    return (int)cudaErrorInvalidValue;
+  const long long u = (t_out + dil - 1) / dil;
+  const long long items = (long long)batch * dil * ipr;
+  if (ks < 1 || ks > 4 || 16 * ks < 15 + k || ipr != (u + kTO - 1) / kTO || ipb < 1 ||
+      depth < 2 || depth > 4 || items > 0x7fffffffLL || grid_x != (items + ipb - 1) / ipb ||
+      grid_y != (C + kCT - 1) / kCT || (long long)grid_x * grid_y > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.x = static_cast<const bf16*>(x);
+  a.w = static_cast<const bf16*>(w);
+  a.y = static_cast<bf16*>(y);
+  a.si = si;
+  a.sr = sr;
+  a.sg = sg;
+  a.batch = batch;
+  a.T = T;
+  a.C = C;
+  a.k = k;
+  a.lo = lo;
+  a.dil = dil;
+  a.t_out = (int)t_out;
+  a.ipr = ipr;
+  a.items = (int)items;
+  a.ipb = ipb;
+  a.depth = depth;
+  a.n_ct = grid_y;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int grid = grid_x * grid_y;
+  switch (ks) {
+    case 1: return launch<1, M>(a, grid, smem, s);
+    case 2: return launch<2, M>(a, grid, smem, s);
+    case 3: return launch<3, M>(a, grid, smem, s);
+    default: return launch<4, M>(a, grid, smem, s);
+  }
 }
 
 }  // namespace
@@ -342,42 +480,21 @@ int ajt_dwconv1d_mma_bf16(const void* x, const void* w, void* y, int batch, int 
                           int lo, int hi, int dil, long long si, long long sc, int ks, int ipr,
                           int ipb, int depth, int grid_x, int grid_y, long long smem,
                           void* stream) {
-  const long long t_out = (long long)T + lo + hi - (long long)dil * (k - 1);
-  if (batch <= 0 || T <= 0 || C <= 0 || C % 8 || k <= 0 || lo < 0 || hi < 0 || dil <= 0 ||
-      t_out <= 0 || t_out > 0x7fffffffLL || (uintptr_t)x % 16 || (uintptr_t)y % 16)
-    return (int)cudaErrorInvalidValue;
-  const long long u = (t_out + dil - 1) / dil;
-  const long long items = (long long)batch * dil * ipr;
-  if (ks < 1 || ks > 4 || 16 * ks < 15 + k || ipr != (u + kTO - 1) / kTO || ipb < 1 ||
-      depth < 2 || depth > 4 || items > 0x7fffffffLL || grid_x != (items + ipb - 1) / ipb ||
-      grid_y != (C + kCT - 1) / kCT || (long long)grid_x * grid_y > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  Args a;
-  a.x = static_cast<const bf16*>(x);
-  a.w = static_cast<const bf16*>(w);
-  a.y = static_cast<bf16*>(y);
-  a.si = si;
-  a.sc = sc;
-  a.batch = batch;
-  a.T = T;
-  a.C = C;
-  a.k = k;
-  a.lo = lo;
-  a.dil = dil;
-  a.t_out = (int)t_out;
-  a.ipr = ipr;
-  a.items = (int)items;
-  a.ipb = ipb;
-  a.depth = depth;
-  a.n_ct = grid_y;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int grid = grid_x * grid_y;
-  switch (ks) {
-    case 1: return launch<1>(a, grid, smem, s);
-    case 2: return launch<2>(a, grid, smem, s);
-    case 3: return launch<3>(a, grid, smem, s);
-    default: return launch<4>(a, grid, smem, s);
-  }
+  return mma_conv<1>(x, w, y, batch, T, C, k, lo, hi, dil, si, 0, sc, ks, ipr, ipb, depth,
+                     grid_x, grid_y, smem, stream);
+}
+
+// B5 bf16 on the tensor cores, the grouped 2-in/1-out conv: x (batch, T, C =
+// 2G), w (k, 2, G) with strides (si, sr, sg), y (batch, T + lo + hi -
+// dil*(k-1), G), all bfloat16; the plan and its checks as B4's, C the input
+// lanes (channel tiles of 16 lanes, 8 groups).
+int ajt_dwconv1d_grouped2_mma_bf16(const void* x, const void* w, void* y, int batch, int T,
+                                   int C, int k, int lo, int hi, int dil, long long si,
+                                   long long sr, long long sg, int ks, int ipr, int ipb,
+                                   int depth, int grid_x, int grid_y, long long smem,
+                                   void* stream) {
+  return mma_conv<2>(x, w, y, batch, T, C, k, lo, hi, dil, si, sr, sg, ks, ipr, ipb, depth,
+                     grid_x, grid_y, smem, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
 // Zipformer2 rel-pos attention scores for Hopper (sm_90a), float32 (B3), on
-// float32 or bfloat16 tensors.
+// float32 tensors, and the two-pass route of both dtypes.
 //
 // Replaces relpos_scores_pallas (audiojax/ops/attention_pallas.py:195, its
 // kernel _relpos_kernel :161) with the contract of relpos_scores_jnp (:142),
@@ -17,11 +17,12 @@
 // maximum, as jax.nn.softmax does, and scales by one reciprocal of the row sum.
 //
 // What bounds it: bytes, mostly the output.  At ZipEnhancer's (964, 101) the
-// probabilities are 157 MB and q/k/pp ~112 MB, 0.081 ms at 3.35 TB/s; at
-// (404, 241) 375 MB of probabilities, 0.147 ms; the operations, ~2D + 2P + 5 a
-// probability, take less.  The first design read P values of pe from L2 for
-// every probability (~1.5 GB through L2 a call at (404, 241), three times the
-// byte bound's traffic) because no block shared pe rows across n.
+// probabilities are 157 MB and q, k and pp's P used terms 106 MB, 0.079 ms
+// at 3.35 TB/s; at (404, 241) 375 MB of probabilities, 0.145 ms; the
+// operations, ~2D + 2P + 5 a probability, take less.  The first design read
+// P values of pe from L2 for every probability (~1.5 GB through L2 a call at
+// (404, 241), three times the byte bound's traffic) because no block shared
+// pe rows across n.
 //
 // Design (relpos_batched_kernel, rows of at most 256 keys).  A block of R/4
 // warps owns (h, R query rows, a range of nb batch rows n).  It copies
@@ -59,18 +60,13 @@
 //
 // bfloat16 (the bf16 serving plan, the Pallas kernel's own dtypes: its pe is
 // bf16, attention_pallas.py:208, and its probabilities are written in q's
-// dtype by default, :205): q, k, pp, pe and out are bf16.  Everything between
-// is the float32 arithmetic above (the bf16 products exact in f32, the
-// softmax with its row maximum in f32), and each probability is rounded once
-// to bf16, to nearest even.  Keys and query rows stay bf16 in the staging
-// buffers, 4 elements an 8-byte cp.async (the vector route: D, the row
-// strides and the pointers multiples of 4 elements), and are widened as they
-// are read; the positional terms go in pairs by 4-byte cp.async where P, the
-// slot stride and pp's row stride are even, else by ordinary loads; pe's
-// rows are widened into the f32 table as the block stages them (ordinary
-// loads, eight in flight a thread: a row of S = 101 bf16 starts 2-byte
-// aligned).  A bf16 buffer takes half the bytes, which the host's plan counts
-// (relpos_smem in ops/attention_cuda.py).
+// dtype by default, :205): rows of at most 256 keys run on the tensor cores
+// (relpos_scores_bf16.cu); the two-pass route takes the rest (longer rows,
+// and the shapes that kernel does not take: ops/attention_cuda.py:
+// relpos_mma_route), with q, k, pp, pe and out bf16, the float32 arithmetic
+// above between (the bf16 products exact in f32, the softmax with its row
+// maximum in f32), and each probability rounded once to bf16, to nearest
+// even.
 //
 // The launchers take the geometry from the host, check it, and return
 // cudaGetLastError() (or the error of the shared-memory opt-in).
@@ -80,8 +76,6 @@
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "bf16.cuh"
 
@@ -97,9 +91,6 @@ __device__ __forceinline__ float ldg_f(const bf16* p) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(bf16* p, float v) { p->u = (unsigned short)bf16_bits(v); }
 __device__ __forceinline__ void store_cs(float* p, float v) { __stcs(p, v); }
-__device__ __forceinline__ void store_cs(bf16* p, float v) {
-  asm volatile("st.global.cs.b16 [%0], %1;\n" ::"l"(p), "h"((unsigned short)bf16_bits(v)));
-}
 
 // ── the two-pass route (the first design), for rows of more than 256 keys ──
 
@@ -333,7 +324,6 @@ struct Batched {
   int chunks;     // ceil(N / nb)
   int ds;         // row stride of staged q and k rows: round_up(D, 8) + 4
   int vec;        // q and k copied 4 elements at a time (D % 4 == 0, aligned rows)
-  int vec_pp;     // bf16: pp copied in pairs (P, pstride, ldpp even, 4-byte aligned)
 };
 
 __host__ __device__ constexpr int round_up(int a, int b) { return (a + b - 1) / b * b; }
@@ -359,17 +349,9 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
-}
-// 4 consecutive elements (16 bytes of float, 8 of bf16), asynchronously.
+// 4 consecutive floats, or one, asynchronously.
 __device__ __forceinline__ void cp_async_4e(float* dst, const float* src) { cp_async16(dst, src); }
-__device__ __forceinline__ void cp_async_4e(bf16* dst, const bf16* src) { cp_async8(dst, src); }
-// One element: a 4-byte cp.async, or for bf16 an ordinary load and shared
-// store (cp.async has no 2-byte copy), which the loop's barrier publishes.
 __device__ __forceinline__ void copy1(float* dst, const float* src) { cp_async4(dst, src); }
-__device__ __forceinline__ void copy1(bf16* dst, const bf16* src) { *dst = *src; }
 
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
@@ -418,49 +400,18 @@ __device__ __forceinline__ void stage_batch_row(const Batched<E>& a, int n, int 
     grid_for(a.S, a.D, [&](int r, int c) { copy1(ks + r * a.ds + c, kn + r * a.ldk + c); });
     grid_for(rows, a.D, [&](int r, int c) { copy1(qs + r * a.ds + c, qn + r * a.ldq + c); });
   }
-  if (std::is_same_v<E, bf16> && a.vec_pp) {
-    grid_for(rows, a.P / 2, [&](int r, int c) {
-      cp_async4(ps + r * a.P + 2 * c, pn + r * a.ldpp + 2 * c);
-    });
-  } else {
-    grid_for(rows, a.P, [&](int r, int c) { copy1(ps + r * a.P + c, pn + r * a.ldpp + c); });
-  }
+  grid_for(rows, a.P, [&](int r, int c) { copy1(ps + r * a.P + c, pn + r * a.ldpp + c); });
 }
 
-// pe[h, :, rows, :] into the f32 table pes[P][R][kSP]: by 4-byte cp.async in
-// f32; in bf16 by ordinary loads, eight in flight a thread, then widened.
+// pe[h, :, rows, :] into the f32 table pes[P][R][kSP], by 4-byte cp.async.
 template <int NJ, class E>
 __device__ __forceinline__ void stage_pe(const Batched<E>& a, const E* peh, int nrows,
                                          float* pes) {
   constexpr int kSP = 32 * NJ;
-  if constexpr (std::is_same_v<E, float>) {
-    grid_for(a.P * nrows, a.S, [&](int pr, int j) {
-      const int p = pr / nrows, r = pr - p * nrows;
-      cp_async4(pes + ((size_t)p * a.R + r) * kSP + j, peh + ((size_t)p * a.S + r) * a.S + j);
-    });
-  } else {
-    constexpr int kU = 8;
-    const int total = a.P * nrows * a.S, step = blockDim.x;
-    for (int e0 = threadIdx.x; e0 < total; e0 += kU * step) {
-      float v[kU];
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        const int e = e0 + u * step;
-        if (e < total) {
-          const int pr = e / a.S, j = e - pr * a.S, p = pr / nrows, r = pr - p * nrows;
-          v[u] = ldg_f(peh + ((size_t)p * a.S + r) * a.S + j);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        const int e = e0 + u * step;
-        if (e < total) {
-          const int pr = e / a.S, j = e - pr * a.S, p = pr / nrows, r = pr - p * nrows;
-          pes[((size_t)p * a.R + r) * kSP + j] = v[u];
-        }
-      }
-    }
-  }
+  grid_for(a.P * nrows, a.S, [&](int pr, int j) {
+    const int p = pr / nrows, r = pr - p * nrows;
+    cp_async4(pes + ((size_t)p * a.R + r) * kSP + j, peh + ((size_t)p * a.S + r) * a.S + j);
+  });
 }
 
 template <int NJ, class E>
@@ -627,10 +578,9 @@ int relpos_batched(const void* q, const void* k, const void* pp, const void* pe,
   Batched<E> a{static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(pp),
                static_cast<const E*>(pe), static_cast<E*>(out), ldq, ldk, ldpp, n, s, h, d, p,
                pstride, rows, (s + rows - 1) / rows, nb, (n + nb - 1) / nb,
-               round_up(d, 8) + 4, 0, 0};
+               round_up(d, 8) + 4, 0};
   a.vec = d % 4 == 0 && ldq % 4 == 0 && ldk % 4 == 0 &&
           ((uintptr_t)q | (uintptr_t)k) % (4 * sizeof(E)) == 0;
-  a.vec_pp = p % 2 == 0 && pstride % 2 == 0 && ldpp % 2 == 0 && (uintptr_t)pp % 4 == 0;
   const long long blocks = (long long)h * a.row_tiles * a.chunks;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -669,10 +619,10 @@ extern "C" {
 
 // q, k (n, s, h*d) with row strides ldq, ldk; pp (n, s, h*pstride) with row
 // stride ldpp, p <= pstride terms a head; pe (h, p, s, s) and out
-// (n, h, s, s) contiguous; all float32 (_f32) or all bfloat16 (_bf16).  Rows
-// of s <= 32 nj <= 256 keys; rows query rows a block (a multiple of 4, at
-// most 32; rows / 4 warps), nb batch rows a block, smem bytes at least
-// batched_bytes(nj, rows, d, p, element size).
+// (n, h, s, s) contiguous; all float32 (_f32) or all bfloat16 (_bf16).
+// The batched route, float32: rows of s <= 32 nj <= 256 keys; rows query
+// rows a block (a multiple of 4, at most 32; rows / 4 warps), nb batch rows
+// a block, smem bytes at least batched_bytes(nj, rows, d, p, 4).
 #define AJT_RELPOS_ARGS                                                                   \
   const void *q, const void *k, const void *pp, const void *pe, void *out, int n, int s, \
       int h, int d, int p, int pstride, long long ldq, long long ldk, long long ldpp
@@ -680,11 +630,6 @@ int ajt_relpos_batched_f32(AJT_RELPOS_ARGS, int nj, int rows, int nb, long long 
                            void* stream) {
   return relpos_batched<float>(q, k, pp, pe, out, n, s, h, d, p, pstride, ldq, ldk, ldpp, nj,
                                rows, nb, smem, stream);
-}
-int ajt_relpos_batched_bf16(AJT_RELPOS_ARGS, int nj, int rows, int nb, long long smem,
-                            void* stream) {
-  return relpos_batched<bf16>(q, k, pp, pe, out, n, s, h, d, p, pstride, ldq, ldk, ldpp, nj,
-                              rows, nb, smem, stream);
 }
 
 // The two-pass route, for any s: groups_per_chunk 32-row groups a block,

@@ -2,11 +2,12 @@
 with their launch plans and launch counters.
 
 Counterpart of ``audiojax.ops.attention_pallas``.  The kernels are CUDA C++
-in ``csrc/quad_attention.cu`` and ``csrc/relpos_scores.cu``, built for sm_90a
-by :mod:`._build` at first use and called through ctypes on PyTorch's current
-stream.  Their geometry (tile sizes, grid, shared memory) comes from the
-plain functions ``quad_launch`` and ``relpos_launch`` here; the C launchers
-only check it.
+in ``csrc/quad_attention.cu``, ``csrc/quad_attention_bf16.cu``,
+``csrc/relpos_scores.cu`` and ``csrc/relpos_scores_bf16.cu``, built for
+sm_90a by :mod:`._build` at first use and called through ctypes on PyTorch's
+current stream.  Their geometry (tile sizes, grid, shared memory) comes from
+the plain functions ``quad_launch``, ``quad_bf16_launch``, ``relpos_launch``
+and ``relpos_bf16_launch`` here; the C launchers only check it.
 
 B6, ``quad_attention_cuda`` — replaces ``quad_attention_pallas``
 (``audiojax/ops/attention_pallas.py:61``, kernel ``_kernel``).  Contract
@@ -65,8 +66,17 @@ fragments, each f32 score split into three bf16 terms (hi, mid, lo: exactly
 the score) so that the PV product's bf16 products stay exact; B3
 takes a bf16 ``pe`` (the Pallas kernel rounds its table to bf16) and writes
 bf16 probabilities (the Pallas kernel's default ``out_dtype``, q's dtype),
-the softmax in f32.  Each dtype has its own launch counter (``quad_attention_bf16``,
-``relpos_scores_bf16``); a call's tensors all have one dtype.
+the softmax in f32.  B3 bf16 runs on the tensor cores too
+(``csrc/relpos_scores_bf16.cu``, ``relpos_bf16_launch``) where
+:func:`relpos_mma_route` says so (rows of at most 256 keys, D a multiple of
+8 up to 64, at most 4 terms, aligned rows: every ZipEnhancer shape): q·kᵀ by
+``mma.sync.m16n8k16``, the bias Σ_p pp·pe by the same instruction with a
+block-diagonal A of each query row's terms, the softmax in the fragment
+layout, the probabilities staged and written as 16-byte stores; the other
+bf16 calls take the two-pass kernel.  :func:`relpos_plan` is the wrapper's
+plan, by that rule.  Each dtype has its own launch counter
+(``quad_attention_bf16``, ``relpos_scores_bf16``); a call's tensors all have
+one dtype.
 
 ``fast_quad_attention`` and ``fast_relpos_scores`` take the plain versions
 (``quad_attention_plain``, ``relpos_scores_plain``) only for a tensor on the
@@ -90,7 +100,9 @@ from . import _build
 __all__ = ["launches", "reset_launches", "QuadLaunch", "quad_launch", "QuadBf16Launch",
            "quad_bf16_smem", "quad_bf16_launch", "quad_plan", "launch_quad_attention",
            "quad_attention_cuda", "quad_attention_plain", "fast_quad_attention", "pos_stride",
-           "RelposLaunch", "relpos_launch", "launch_relpos_scores", "relpos_scores_plain",
+           "RelposLaunch", "relpos_launch", "relpos_two_pass_launch", "RelposBf16Launch",
+           "relpos_bf16_smem", "relpos_mma_route", "relpos_bf16_launch", "relpos_plan",
+           "launch_relpos_scores", "relpos_scores_plain",
            "relpos_scores_cuda", "fast_relpos_scores", "quad_attention_op", "relpos_scores_op"]
 
 # Kernel launches since the last reset.  The wrapper adds one where it
@@ -427,14 +439,14 @@ class RelposLaunch:
     smem: int  # bytes
 
 
-def relpos_smem(nj: int, rows: int, d: int, n_pos: int, esize: int = 4) -> int:
+def relpos_smem(nj: int, rows: int, d: int, n_pos: int) -> int:
     """Shared-memory bytes of B3's batched route (``batched_bytes`` in
     ``csrc/relpos_scores.cu``): pe[h, :, rows, :] in f32 at row stride 32·nj,
-    and two buffers of ``esize``-byte elements (4: float32, 2: bfloat16),
-    each 32·nj keys and ``rows`` query rows (row stride round_up(D, 8) + 4)
-    and rows × P positional terms, rounded up to 16 bytes."""
+    and two buffers of floats, each 32·nj keys and ``rows`` query rows (row
+    stride round_up(D, 8) + 4) and rows × P positional terms, rounded up to
+    16 bytes."""
     ds = _cdiv(d, 8) * 8 + 4
-    buf = _cdiv(((32 * nj + rows) * ds + rows * n_pos) * esize, 16) * 16
+    buf = _cdiv(((32 * nj + rows) * ds + rows * n_pos) * 4, 16) * 16
     return 4 * n_pos * rows * 32 * nj + 2 * buf
 
 
@@ -444,9 +456,8 @@ def _two_pass_smem(d: int, n_pos: int) -> int:
 
 
 def relpos_launch(n: int, s: int, h: int, d: int, n_pos: int, *, rows: int | None = None,
-                  nb: int | None = None, esize: int = 4) -> RelposLaunch:
-    """B3's geometry for q, k (n, s, h·d) and pe (h, P, s, s) of
-    ``esize``-byte elements (4: float32, 2: bfloat16).
+                  nb: int | None = None) -> RelposLaunch:
+    """B3's float32 geometry for q, k (n, s, h·d) and pe (h, P, s, s).
 
     Rows of at most 256 keys take the batched route: row tiles of at most 32
     rows, balanced (S = 51 → 2 tiles of 28), of 16 rows at 65–128 keys (three
@@ -461,9 +472,9 @@ def relpos_launch(n: int, s: int, h: int, d: int, n_pos: int, *, rows: int | Non
         r = rows if rows is not None else 16 if nj == 4 else _cdiv(_cdiv(s, _cdiv(s, 32)), 4) * 4
         if r % 4 or not 4 <= r <= 32:
             raise ValueError(f"rows {r}: a multiple of 4 from 4 to 32")
-        while rows is None and r > 4 and relpos_smem(nj, r, d, n_pos, esize) > SMEM_MAX:
+        while rows is None and r > 4 and relpos_smem(nj, r, d, n_pos) > SMEM_MAX:
             r -= 4
-        smem = relpos_smem(nj, r, d, n_pos, esize)
+        smem = relpos_smem(nj, r, d, n_pos)
         if smem <= SMEM_MAX:
             row_tiles = _cdiv(s, r)
             per_sm = max(1, min(SMEM_SM // (smem + 1024), 2048 // (8 * r)))
@@ -474,8 +485,13 @@ def relpos_launch(n: int, s: int, h: int, d: int, n_pos: int, *, rows: int | Non
                                 h * row_tiles * chunks, smem)
         if rows is not None:
             raise ValueError(f"rows {rows}: {smem} bytes of shared memory, more than {SMEM_MAX}")
-    # the first design's route: a row's 32-row groups split over several
-    # blocks only while there are too few (n, h) pairs to fill the card
+    return relpos_two_pass_launch(n, s, h, d, n_pos)
+
+
+def relpos_two_pass_launch(n: int, s: int, h: int, d: int, n_pos: int) -> RelposLaunch:
+    """The first design's route (``relpos_tiled_kernel``, any S, float32 or
+    bfloat16): a row's 32-row groups split over several blocks only while
+    there are too few (n, h) pairs to fill the card."""
     groups = _cdiv(s, 32)
     per_chunk = _cdiv(groups, _cdiv(4096, n * h))
     chunks = _cdiv(groups, per_chunk)
@@ -483,18 +499,134 @@ def relpos_launch(n: int, s: int, h: int, d: int, n_pos: int, *, rows: int | Non
                         _two_pass_smem(d, n_pos))
 
 
+# ── B3 bf16: launch plan (the tensor-core kernel) ──────────────────────────
+
+RELPOS_BF16_TILES = 8  # 8-key tiles a warp at most (32 f32 scores a thread)
+RELPOS_BF16_MAX_WARPS = 16
+RELPOS_BF16_MAX_S = 256
+RELPOS_BF16_MAX_D = 64
+RELPOS_BF16_MAX_P = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class RelposBf16Launch:
+    wr: int  # row groups of 16 query rows a block
+    kw: int  # warps a row group, each ceil(ceil(S / 8) / kw) ≤ 8 tiles of 8 of its keys
+    row_tiles: int  # ceil(S / (16·wr))
+    nb: int  # batch rows a block
+    chunks: int  # ceil(N / nb)
+    threads: int  # 32·wr·kw
+    blocks: int  # H · row_tiles · chunks
+    smem: int  # bytes
+
+
+def relpos_bf16_smem(wr: int, kw: int, s: int, d: int) -> int:
+    """Shared-memory bytes of B3 bf16 (``smem_bytes`` in
+    ``csrc/relpos_scores_bf16.cu``): the pe rows (128 bytes a key and row
+    group), two buffers of the keys (S rounded up to 8) and 16·wr query rows
+    at row stride D rounded up to 16 plus 8 and their 4 terms, the output
+    stage (16·wr rows of S and 8 elements of slack, rounded up to 16 bytes),
+    and the row exchange (128 bytes a warp)."""
+    s8, rows = _cdiv(s, 8) * 8, 16 * wr
+    buf = 2 * ((s8 + rows) * (_cdiv(d, 16) * 16 + 8) + rows * 4)
+    out = _cdiv(2 * (rows * s + 8), 16) * 16
+    return 128 * wr * s8 + 2 * buf + out + 128 * wr * kw
+
+
+def relpos_mma_route(s: int, d: int, n_pos: int, pstride: int, ldq: int, ldk: int, ldpp: int,
+                     aligned: bool) -> bool:
+    """The route rule of a bf16 call: the tensor-core kernel
+    (``csrc/relpos_scores_bf16.cu``) takes rows of at most 256 keys, D a
+    multiple of 8 up to 64, at most 4 terms in a slot whose stride is a
+    multiple of 4, q and k rows on 16 bytes and pp rows on 8 (``ldq``,
+    ``ldk`` multiples of 8, ``ldpp`` of 4, ``aligned``: q and k 16-byte and
+    pp 8-byte aligned): every ZipEnhancer shape.  Every other bf16 call takes
+    the two-pass kernel (``relpos_tiled_kernel``)."""
+    return (s <= RELPOS_BF16_MAX_S and d % 8 == 0 and d <= RELPOS_BF16_MAX_D
+            and n_pos <= RELPOS_BF16_MAX_P and pstride % 4 == 0 and ldq % 8 == 0
+            and ldk % 8 == 0 and ldpp % 4 == 0 and aligned)
+
+
+def relpos_bf16_launch(n: int, s: int, h: int, d: int, n_pos: int, *, wr: int | None = None,
+                       kw: int | None = None, nb: int | None = None) -> RelposBf16Launch:
+    """B3 bf16's geometry for q, k (n, s, h·d) and pe (h, P, s, s).
+
+    A row group's keys split over the fewest warps that hold at most 8 tiles
+    of 8 keys each (S = 101: 2, S = 241: 4).  All of a row's 16-row groups
+    in one block where they fit 16 warps and the shared memory (S = 101: 7
+    row groups, 14 warps), else the fewest row tiles that fit, balanced.
+    The batch split so that the blocks fill one wave of the SMs at the
+    blocks an SM that the shared memory allows, at least two batch rows a
+    block, each block staging its pe rows once for its nb batch rows (the
+    fastest or within 11 % of it at every served shape in
+    ``attention_geometry_sweep.py``'s tables)."""
+    if not (s <= RELPOS_BF16_MAX_S and d % 8 == 0 and d <= RELPOS_BF16_MAX_D
+            and 1 <= n_pos <= RELPOS_BF16_MAX_P):
+        raise ValueError(f"no B3 bf16 tensor-core plan for S {s}, D {d}, P {n_pos}")
+    tiles = _cdiv(s, 8)
+    kw = _cdiv(tiles, RELPOS_BF16_TILES) if kw is None else kw
+    if kw < 1 or _cdiv(tiles, kw) > RELPOS_BF16_TILES:
+        raise ValueError(f"{kw} warps a row group hold more than {RELPOS_BF16_TILES} tiles of "
+                         f"8 keys at S = {s}")
+    if wr is None:
+        groups = _cdiv(s, 16)
+        wr = max(1, min(groups, RELPOS_BF16_MAX_WARPS // kw))
+        while wr > 1 and relpos_bf16_smem(wr, kw, s, d) > SMEM_MAX:
+            wr -= 1
+        wr = _cdiv(groups, _cdiv(groups, wr))  # balanced row tiles
+    if not 1 <= wr * kw <= RELPOS_BF16_MAX_WARPS:
+        raise ValueError(f"B3 bf16 takes 1 to {RELPOS_BF16_MAX_WARPS} warps a block, got "
+                         f"{wr} row groups × {kw}")
+    smem = relpos_bf16_smem(wr, kw, s, d)
+    if smem > SMEM_MAX:
+        raise ValueError(f"B3 bf16 at S = {s}, D = {d}, {wr} row groups needs {smem} bytes of "
+                         f"shared memory (> {SMEM_MAX})")
+    row_tiles, threads = _cdiv(s, 16 * wr), 32 * wr * kw
+    per_sm = max(1, min(SMEM_SM // (smem + 1024), 2048 // threads))
+    if nb is None:
+        nb = max(min(n, 2), _cdiv(n, max(1, min(n, SM_COUNT * per_sm // (h * row_tiles)))))
+    if nb < 1:
+        raise ValueError(f"batch rows a block must be >= 1, got {nb}")
+    chunks = _cdiv(n, nb)
+    return RelposBf16Launch(wr, kw, row_tiles, nb, chunks, threads, h * row_tiles * chunks,
+                            smem)
+
+
+def relpos_plan(n: int, s: int, h: int, d: int, n_pos: int, dtype: torch.dtype, *,
+                mma: bool = True) -> RelposLaunch | RelposBf16Launch:
+    """The wrappers' plan: float32 takes :func:`relpos_launch`'s; bfloat16
+    the tensor-core kernel's where the route rule (``mma``, from
+    :func:`relpos_mma_route`) allows, else the two-pass kernel's."""
+    if dtype == torch.float32:
+        return relpos_launch(n, s, h, d, n_pos)
+    if mma:
+        return relpos_bf16_launch(n, s, h, d, n_pos)
+    return relpos_two_pass_launch(n, s, h, d, n_pos)
+
+
 @functools.cache
 def _relpos_lib() -> ctypes.CDLL:
     lib = _build.load("relpos_scores")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ajt_relpos_batched_f32.argtypes = [p, p, p, p, p] + [i] * 6 + [ll] * 3 + [i] * 3 + [ll, p]
+    lib.ajt_relpos_batched_f32.restype = i
     for dt in _build.DTYPES.values():
-        batched, two_pass = (getattr(lib, f"ajt_relpos_{r}_{dt}") for r in ("batched", "two_pass"))
-        batched.argtypes = [p, p, p, p, p] + [i] * 6 + [ll] * 3 + [i] * 3 + [ll, p]
-        batched.restype = i
+        two_pass = getattr(lib, f"ajt_relpos_two_pass_{dt}")
         two_pass.argtypes = [p, p, p, p, p] + [i] * 6 + [ll] * 3 + [i, ll, p]
         two_pass.restype = i
     lib.ajt_relpos_error_string.argtypes = [i]
     lib.ajt_relpos_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _relpos_bf16_lib() -> ctypes.CDLL:
+    lib = _build.load("relpos_scores_bf16")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ajt_relpos_mma_bf16.argtypes = [p, p, p, p, p] + [i] * 6 + [ll] * 3 + [i] * 5 + [ll, p]
+    lib.ajt_relpos_mma_bf16.restype = i
+    lib.ajt_relpos_bf16_error_string.argtypes = [i]
+    lib.ajt_relpos_bf16_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -542,10 +674,12 @@ def _rows(t: torch.Tensor, name: str, n: int, s: int, width: int, dtype: torch.d
 
 
 def launch_relpos_scores(q: torch.Tensor, k: torch.Tensor, pp: torch.Tensor, pe: torch.Tensor,
-                         out: torch.Tensor, num_heads: int, plan: RelposLaunch) -> None:
-    """Launch B3 on checked tensors into ``out`` at ``plan``'s geometry;
-    counts nothing (``relpos_scores_cuda`` counts its launch)."""
-    lib = _relpos_lib()
+                         out: torch.Tensor, num_heads: int,
+                         plan: RelposLaunch | RelposBf16Launch) -> None:
+    """Launch B3 on checked tensors into ``out`` at ``plan``'s geometry: the
+    bf16 tensor-core kernel at a ``RelposBf16Launch``, else the float32
+    batched kernel or the two-pass kernel of q's dtype; counts nothing
+    (``relpos_scores_cuda`` counts its launch)."""
     n, s, _ = q.shape
     h, d, n_pos, stride = _relpos_heads(q, pp, pe, num_heads)
     args = (q.data_ptr(), k.data_ptr(), pp.data_ptr(), pe.data_ptr(), out.data_ptr(), n, s, h, d,
@@ -553,14 +687,21 @@ def launch_relpos_scores(q: torch.Tensor, k: torch.Tensor, pp: torch.Tensor, pe:
     dt = _build.DTYPES[q.dtype]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if plan.route == "batched":
-            rc = getattr(lib, f"ajt_relpos_batched_{dt}")(*args, plan.nj, plan.rows, plan.nb,
-                                                          plan.smem, stream)
+        if isinstance(plan, RelposBf16Launch):
+            lib, err = _relpos_bf16_lib(), "ajt_relpos_bf16_error_string"
+            rc = lib.ajt_relpos_mma_bf16(*args, plan.wr, plan.kw, plan.row_tiles, plan.nb,
+                                         plan.chunks, plan.smem, stream)
         else:
-            rc = getattr(lib, f"ajt_relpos_two_pass_{dt}")(*args, plan.rows, plan.smem, stream)
+            lib, err = _relpos_lib(), "ajt_relpos_error_string"
+            if plan.route == "batched":
+                rc = lib.ajt_relpos_batched_f32(*args, plan.nj, plan.rows, plan.nb, plan.smem,
+                                                stream)
+            else:
+                rc = getattr(lib, f"ajt_relpos_two_pass_{dt}")(*args, plan.rows, plan.smem,
+                                                               stream)
     if rc != 0:
         raise RuntimeError(f"relpos_scores launch failed: "
-                           f"{lib.ajt_relpos_error_string(rc).decode()} ({rc})")
+                           f"{getattr(lib, err)(rc).decode()} ({rc})")
 
 
 def relpos_scores_cuda(q: torch.Tensor, k: torch.Tensor, pp: torch.Tensor, pe: torch.Tensor, *,
@@ -568,9 +709,11 @@ def relpos_scores_cuda(q: torch.Tensor, k: torch.Tensor, pp: torch.Tensor, pe: t
     """Rel-pos attention scores on the card; contract of :func:`relpos_scores_plain`,
     q, k, pp and pe all float32 or all bfloat16.
 
-    The kernel copies 4 elements at a time where the rows of q and k allow
-    it, else 1, so a tensor's own alignment is all it needs; shapes, dtypes,
-    devices and row strides are checked here."""
+    The float32 kernel copies 4 elements at a time where the rows of q and
+    k allow it, else 1, so a tensor's own alignment is all it needs; a
+    bfloat16 call takes the tensor-core kernel or the two-pass kernel by
+    :func:`relpos_mma_route`, from its shape, strides and alignment.
+    Shapes, dtypes, devices and row strides are checked here."""
     if q.ndim != 3 or pp.ndim != 3 or pe.ndim != 4:
         raise ValueError(f"q {tuple(q.shape)}, pp {tuple(pp.shape)} and pe {tuple(pe.shape)} "
                          "must have ranks 3, 3 and 4")
@@ -585,7 +728,9 @@ def relpos_scores_cuda(q: torch.Tensor, k: torch.Tensor, pp: torch.Tensor, pe: t
     if tuple(pe.shape[2:]) != (s, s) or not q.device == k.device == pp.device == pe.device:
         raise ValueError(f"pe {tuple(pe.shape)} on {pe.device} does not fit q {tuple(q.shape)} "
                          f"on {q.device}")
-    plan = relpos_launch(n, s, h, d, n_pos, esize=q.element_size())
+    aligned = q.data_ptr() % 16 == 0 and k.data_ptr() % 16 == 0 and pp.data_ptr() % 8 == 0
+    mma = relpos_mma_route(s, d, n_pos, stride, q.stride(1), k.stride(1), pp.stride(1), aligned)
+    plan = relpos_plan(n, s, h, d, n_pos, q.dtype, mma=mma)
     out = torch.empty((n, h, s, s), dtype=q.dtype, device=q.device)
     launch_relpos_scores(q, k, pp, pe, out, h, plan)
     _build.count(launches, "relpos_scores", q.dtype)

@@ -2,8 +2,9 @@
 Hopper, with their launch counters.
 
 Counterpart of ``audiojax.ops.dwconv_pallas``.  Both kernels are CUDA C++ in
-``csrc/dwconv.cu``, built for sm_90a by :mod:`._build` at first use and
-called through ctypes on PyTorch's current stream.
+``csrc/dwconv.cu`` (FFMA, float32 and bf16) and ``csrc/dwconv_bf16.cu``
+(bf16 on the tensor cores), built for sm_90a by :mod:`._build` at first use
+and called through ctypes on PyTorch's current stream.
 
 B4, ``dwconv1d_cuda`` — replaces ``dwconv1d_pallas``
 (``audiojax/ops/dwconv_pallas.py:52``, kernel ``_kernel``), without the TPU's
@@ -28,17 +29,18 @@ memory, which the TPU deinterleaves into two tiled depthwise calls
 The lanes of group g are interleaved, [2g, 2g+1], as torch's ``groups=``
 reads them.
 
-B4 bf16 on the tensor cores (``csrc/dwconv_bf16.cu``, ``dwconv_mma_launch``)
-— the bf16 serving plan's depthwise convs: where :func:`mma_route` says so
-(bf16, C % 8 == 0 and x 16-byte aligned, k ≤ 49: every served shape), a
-channel's 16 consecutive outputs are a Toeplitz matrix of its taps times a
-column of its input, one ``mma.sync.m16n8k16`` a 16-position step of the
-window, 8 output tiles of 16 its 8 columns; the window is staged
-channel-last by cp.async and turned time-contiguous by ldmatrix.trans and
-stmatrix.  Same contract, same launch counter (``dwconv1d_bf16``); the other
-bf16 calls (C % 8 != 0, an unaligned x, longer kernels) keep the FFMA
-kernel's bf16 instance.  :func:`dwconv_plan` is the wrappers' plan, by that
-rule.
+B4 and B5 bf16 on the tensor cores (``csrc/dwconv_bf16.cu``,
+``dwconv_mma_launch``) — the bf16 serving plan's depthwise and grouped
+convs: where :func:`mma_route` says so (bf16, C % 8 == 0 input lanes and x
+16-byte aligned, k ≤ 49: every served shape), a channel's (B5: a lane's) 16
+consecutive outputs are a Toeplitz matrix of its taps times a column of its
+input, one ``mma.sync.m16n8k16`` a 16-position step of the window, 8 output
+tiles of 16 its 8 columns; the window is staged channel-last by cp.async
+and turned time-contiguous by ldmatrix.trans and stmatrix; B5 adds a
+group's two lanes in f32 before the one rounding.  Same contracts, same
+launch counters (``dwconv1d_bf16``, ``dwconv1d_tiled_bf16``); the other bf16
+calls (C % 8 != 0, an unaligned x, longer kernels) keep the FFMA kernel's
+bf16 instances.  :func:`dwconv_plan` is the wrappers' plan, by that rule.
 
 Both FFMA kernels take float32 or bfloat16 (the bf16 serving plan; the dtype
 ``dwconv1d_pallas_tiled`` is only ever called with), x and w of one dtype
@@ -248,30 +250,32 @@ MMA_CT = 16  # channels a block (32-byte rows): 4 warps, 4 channels each
 MMA_TO = 128  # outputs a work item: 8 tiles of 16
 MMA_THREADS = 128
 MMA_BLOCKS_SM = 5  # blocks an SM (the kernel's __launch_bounds__)
+MMA_BLOCKS_SM_GROUPED = 4  # the same for B5 (two lanes a group: 128 registers a thread)
 MMA_DEPTHS = (2, 3, 4)  # items in the ring: depth - 1 in flight while one computes
 MMA_MAX_KS = 4  # k16 steps of the Toeplitz product the kernel is built for: k ≤ 49
 
 
 @dataclasses.dataclass(frozen=True)
 class DwconvMmaLaunch:
+    m: int  # input lanes an output: 1 (B4) or 2 (B5)
     ks: int  # k16 steps: 16·ks ≥ 15 + k
     ipr: int  # work items of 128 outputs a residue mod the dilation
     items: int  # batch · dilation · ipr
     ipb: int  # work items a block
     depth: int  # item slots in the ring: depth - 1 in flight while one computes
     window: int  # decimated input rows an item stages: 112 + 16·ks
-    grid: tuple[int, int]  # (item groups, channel tiles): block i is tile i % n of group i // n
+    grid: tuple[int, int]  # (item groups, lane tiles of 16): block i is tile i % n of group i // n
     threads: int
     smem: int  # bytes: each warp's ring, its transposed window and its outputs
 
 
 def mma_route(m: int, esize: int, vector: bool, k: int) -> bool:
-    """The route rule: a bf16 depthwise conv (m = 1) on the vector path (C %
-    8 == 0, x 16-byte aligned) with k ≤ 49 goes to the tensor-core kernel
-    (``csrc/dwconv_bf16.cu``); every other call to the FFMA kernels
-    (``csrc/dwconv.cu``): float32, B5, C % 8 != 0, an unaligned x, longer
-    kernels."""
-    return m == 1 and esize == 2 and vector and 15 + k <= 16 * MMA_MAX_KS
+    """The route rule: a bf16 depthwise (m = 1) or grouped 2-in/1-out (m = 2)
+    conv on the vector path (C % 8 == 0 input lanes, x 16-byte aligned) with
+    k ≤ 49 goes to the tensor-core kernel (``csrc/dwconv_bf16.cu``); every
+    other call to the FFMA kernels (``csrc/dwconv.cu``): float32, C % 8 != 0,
+    an unaligned x, longer kernels."""
+    return m in (1, 2) and esize == 2 and vector and 15 + k <= 16 * MMA_MAX_KS
 
 
 def mma_smem(ks: int, depth: int) -> int:
@@ -284,18 +288,19 @@ def mma_smem(ks: int, depth: int) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def dwconv_mma_launch(b: int, t: int, c: int, k: int, lo: int, hi: int, dil: int, *,
+def dwconv_mma_launch(b: int, t: int, c: int, k: int, lo: int, hi: int, dil: int, m: int = 1, *,
                       ipb: int | None = None, depth: int | None = None) -> DwconvMmaLaunch:
-    """The tensor-core kernel's plan for a bf16 x (b, t, c), k taps, pads (lo,
+    """The tensor-core kernel's plan for a bf16 x (b, t, c) of ``m`` input
+    lanes an output (1: B4, 2: B5; c counts input lanes), k taps, pads (lo,
     hi), dilation ``dil``.  Work items of 128 outputs of one residue mod the
-    dilation; one wave of blocks (five an SM: the kernel's registers and
-    shared memory allow five), each channel tile's items split evenly over
-    its share of them; three ring slots where a block has three items or
-    more, else two.  Memoised."""
+    dilation; one wave of blocks (five an SM, B5 four: the kernel's
+    registers and shared memory allow that many), each lane tile's items
+    split evenly over its share of them; three ring slots where a block has three items or more,
+    else two.  Memoised."""
     t_out = t + lo + hi - dil * (k - 1)
-    if min(b, t, c, k, dil) < 1 or min(lo, hi) < 0 or t_out < 1 or c % 8:
-        raise ValueError(f"no B4 tensor-core plan for x ({b}, {t}, {c}), k {k}, pads ({lo}, "
-                         f"{hi}), dilation {dil}")
+    if min(b, t, c, k, dil) < 1 or min(lo, hi) < 0 or t_out < 1 or c % 8 or m not in (1, 2):
+        raise ValueError(f"no B{4 if m == 1 else 5} tensor-core plan for x ({b}, {t}, {c}), "
+                         f"k {k}, pads ({lo}, {hi}), dilation {dil}")
     ks = _cdiv(15 + k, 16)
     if ks > MMA_MAX_KS:
         raise ValueError(f"the tensor-core kernel takes k ≤ {16 * MMA_MAX_KS - 15}, got {k}")
@@ -303,7 +308,8 @@ def dwconv_mma_launch(b: int, t: int, c: int, k: int, lo: int, hi: int, dil: int
     items = b * dil * ipr
     grid_y = _cdiv(c, MMA_CT)
     if ipb is None:  # one wave: each channel tile's items split over its share of the slots
-        ipb = _cdiv(items, max(1, MMA_BLOCKS_SM * SM_COUNT // grid_y))
+        slots = MMA_BLOCKS_SM if m == 1 else MMA_BLOCKS_SM_GROUPED
+        ipb = _cdiv(items, max(1, slots * SM_COUNT // grid_y))
     if ipb < 1:
         raise ValueError(f"items a block must be >= 1, got {ipb}")
     ipb = min(ipb, items)
@@ -313,7 +319,7 @@ def dwconv_mma_launch(b: int, t: int, c: int, k: int, lo: int, hi: int, dil: int
     grid_x = _cdiv(items, ipb)
     if grid_x * grid_y > MAX_BLOCKS:
         raise ValueError(f"{grid_x} × {grid_y} blocks exceed the grid's {MAX_BLOCKS}")
-    return DwconvMmaLaunch(ks, ipr, items, ipb, depth, 112 + 16 * ks, (grid_x, grid_y),
+    return DwconvMmaLaunch(m, ks, ipr, items, ipb, depth, 112 + 16 * ks, (grid_x, grid_y),
                            MMA_THREADS, mma_smem(ks, depth))
 
 
@@ -322,7 +328,7 @@ def dwconv_plan(b: int, t: int, c: int, k: int, lo: int, hi: int, dil: int, m: i
     """The wrappers' plan: the tensor-core kernel's where :func:`mma_route`
     says so, else :func:`dwconv_launch`'s."""
     if mma_route(m, esize, vector, k):
-        return dwconv_mma_launch(b, t, c, k, lo, hi, dil)
+        return dwconv_mma_launch(b, t, c, k, lo, hi, dil, m)
     return dwconv_launch(b, t, c, k, lo, hi, dil, m, vector=vector, esize=esize)
 
 
@@ -340,6 +346,9 @@ def _mma_lib() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ajt_dwconv1d_mma_bf16.argtypes = [p, p, p] + [i] * 7 + [ll] * 2 + [i] * 6 + [ll, p]
     lib.ajt_dwconv1d_mma_bf16.restype = i
+    lib.ajt_dwconv1d_grouped2_mma_bf16.argtypes = ([p, p, p] + [i] * 7 + [ll] * 3 + [i] * 6
+                                                   + [ll, p])
+    lib.ajt_dwconv1d_grouped2_mma_bf16.restype = i
     lib.ajt_dwconv_bf16_error_string.argtypes = [i]
     lib.ajt_dwconv_bf16_error_string.restype = ctypes.c_char_p
     return lib
@@ -402,12 +411,24 @@ def launch_dwconv1d(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, pads, dil
 
 
 def launch_dwconv1d_grouped(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, pads,
-                            dilation: int, plan: DwconvLaunch) -> None:
+                            dilation: int, plan: DwconvLaunch | DwconvMmaLaunch) -> None:
     """Launch B5 on checked x (B, T, 2G), w (k, 2, G) (any strides) into y at
-    ``plan``'s geometry, in x's dtype; counts nothing
+    ``plan``'s geometry, in x's dtype: the FFMA kernel at a ``DwconvLaunch``,
+    the bf16 tensor-core kernel at a ``DwconvMmaLaunch``; counts nothing
     (``dwconv1d_grouped_cuda`` counts)."""
-    _launch(_lib(), f"ajt_dwconv1d_grouped2_{_build.DTYPES[x.dtype]}", x, w, y, pads, dilation,
-            plan)
+    if not isinstance(plan, DwconvMmaLaunch):
+        _launch(_lib(), f"ajt_dwconv1d_grouped2_{_build.DTYPES[x.dtype]}", x, w, y, pads,
+                dilation, plan)
+        return
+    lib = _mma_lib()
+    b, t, c = x.shape
+    rc = lib.ajt_dwconv1d_grouped2_mma_bf16(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, t, c,
+                                            w.shape[0], pads[0], pads[1], dilation, *w.stride(),
+                                            plan.ks, plan.ipr, plan.ipb, plan.depth, *plan.grid,
+                                            plan.smem, _stream(x.device))
+    if rc != 0:
+        raise RuntimeError(f"ajt_dwconv1d_grouped2_mma_bf16 launch failed: "
+                           f"{lib.ajt_dwconv_bf16_error_string(rc).decode()} ({rc})")
 
 
 # ── B4: depthwise conv1d ───────────────────────────────────────────────────

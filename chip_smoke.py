@@ -178,9 +178,9 @@ Phases, each of which raises (non-zero exit) on failure:
    two source energies' relative gap on the card and on the CPU.
 24. Kernels in bf16: B3, B4, B5 and B6 in bfloat16 (the bf16 plans' kernel
    instances) at every shape of the three bf16 paths (their float32 shapes)
-   and B4's off-path routes, each within one bf16 ulp of its plain version
-   on every element (the count that differ printed) and within 2 × the plain
-   version's float64 error; the 6 s request's shapes timed beside cuDNN's
+   and B4's and B5's off-path routes, each within one bf16 ulp of its plain
+   version on every element (the count that differ printed) and within 2 ×
+   the plain version's float64 error; the 6 s request's shapes timed beside cuDNN's
    bf16 conv (B4, B5), the bound from bf16 bytes and operations.
 25. Serving the bf16 plans: ``mossformergan_se``, ``zipenhancer`` and
    ``mossformer2_ss`` with ``compute_dtype="bfloat16"`` on the requests of
@@ -1546,13 +1546,14 @@ def hold_b3(gen, dev, label: str, n: int, s: int, dtype=torch.float32) -> dict:
     _time(row, True, run, plain)
     # per probability: D-term dot product, P-term bias, max, subtract, exp,
     # sum, divide (bf16: the dot products' bf16 operands at the bf16 rate);
-    # bytes: q, k, pp and pe read once, probs written once
+    # bytes: q, k, the P used terms of pp (not its padded slots) and pe read
+    # once, probs written once
     es = proj.element_size()
     dots = n * h * s * s * (2.0 * d + 2.0 * n_pos)
     rest = n * h * s * s * 5.0
     row["bound_ms"], row["bound_by"] = bound(
         rest + (dots if dtype == torch.float32 else 0.0),
-        es * (n * s * proj.shape[-1] + h * n_pos * s * s + n * h * s * s),
+        es * (n * s * h * (2 * d + n_pos) + h * n_pos * s * s + n * h * s * s),
         bf16_flops=0.0 if dtype == torch.float32 else dots)
     _report(tag, label, f"({n}, {s}) H{h} D{d} P{n_pos}", row)
     return row
@@ -1595,6 +1596,11 @@ B4_SS_CASES = [
     ("ss 30 s mem_stack[0]", (16, 3999, 256), 39, (19, 19), 1),
 ]
 B6_SS_CASES = [("ss flash group", 64, 256), ("ss 30 s flash group", 256, 256)]  # K 128, V 2048
+# (label, (B, T, 2G), k, (lo, hi), dilation, offset): B5 bf16 off its served
+# route: an x 2 bytes past a 16-byte boundary takes the FFMA kernel's bf16
+# instance (ops/dwconv_cuda.py:mma_route)
+B5_OFFPATH_CASES = [("ss mem_stack[1], x at a 1-element offset", (4, 3999, 512), 39, (38, 38), 2,
+                     1)]
 SS_F64_ROWS = 4  # float64 on the host is slow at T = 3999 and V = 2048
 
 
@@ -1634,16 +1640,18 @@ def check_se_kernels(dev) -> None:
 
 
 def hold_b5(gen, dev, label: str, shape: tuple, k: int, pads: tuple, dil: int,
-            dtype=torch.float32) -> dict:
+            dtype=torch.float32, offset: int = 0, timed: bool = True) -> dict:
     """B5 against plain and float64 at one MossFormer2-SS shape, timed beside
-    cuDNN's grouped conv, in ``dtype``."""
+    cuDNN's grouped conv, in ``dtype``; x starts ``offset`` elements into a
+    larger buffer."""
     import torch.nn.functional as F
 
     from audiojax_torch.ops import dwconv_cuda as D
 
     b, t, c = shape
     g = c // 2
-    x = torch.randn((b, t, c), generator=gen, device=dev).to(dtype)
+    x = torch.randn((b * t * c + offset,), generator=gen, device=dev).to(dtype)[offset:]
+    x = x.view(b, t, c)
     # the model's (G, 2, k) weight seen as (k, 2, G), as nn/core.py passes it
     w = (torch.randn((g, 2, k), generator=gen, device=dev) / (2 * k) ** 0.5).to(dtype)
     w = w.permute(2, 1, 0)
@@ -1657,7 +1665,7 @@ def hold_b5(gen, dev, label: str, shape: tuple, k: int, pads: tuple, dil: int,
     # contiguous (B, 2G, T) tensor, the layout change left out of the timing
     xt = F.pad(x.transpose(1, 2), pads).contiguous()
     wt = w.permute(2, 1, 0).contiguous()
-    _time(row, True, run, plain, lambda: F.conv1d(xt, wt, dilation=dil, groups=g))
+    _time(row, timed, run, plain, lambda: F.conv1d(xt, wt, dilation=dil, groups=g))
     t_out = t + sum(pads) - dil * (k - 1)
     es = x.element_size()
     macs = 2.0 * b * t_out * g * 2 * k
@@ -1694,8 +1702,9 @@ def check_bf16_kernels(dev) -> dict:
     """Phase 24: B3, B4, B5 and B6 in bfloat16 at every shape of the bf16
     serving paths (ZipEnhancer, MossFormerGAN-SE and MossFormer2-SS: their
     float32 shapes of a 6 s request, B3_CASES, B4_CASES, B5_SS_CASES,
-    B4_SS_CASES, B6_CASES, B6_SS_CASES; B4's off-path routes too), each within one bf16 ulp of its
-    plain version (B6 as the layers take it, float32 out: within TOL_B4_B6)
+    B4_SS_CASES, B6_CASES, B6_SS_CASES; B4's and B5's off-path routes too),
+    each within one bf16 ulp of its plain version (B6 as the layers take it,
+    float32 out: within TOL_B4_B6)
     and within 2× its float64 error; timed at the serving shapes (cuDNN's
     bf16 conv beside B4 and B5), the off-path ones held only; returns each
     bf16 instance's row at its first serving shape."""
@@ -1712,6 +1721,8 @@ def check_bf16_kernels(dev) -> dict:
     for label, shape, k, pads, dil in six_s(B5_SS_CASES):
         serving.setdefault("dwconv1d_tiled_bf16", hold_b5(gen, dev, label, shape, k, pads, dil,
                                                           dtype=bf))
+    for label, shape, k, pads, dil, offset in B5_OFFPATH_CASES:  # the FFMA kernel's route
+        hold_b5(gen, dev, label, shape, k, pads, dil, dtype=bf, offset=offset, timed=False)
     # B6 as the bf16 layers take it, its f32 sums out in f32; the Pallas
     # contract's bf16 output (one rounding of the same sums) at one shape
     for label, n, s, mask in six_s(B6_CASES):
@@ -3345,14 +3356,17 @@ def main() -> int:
         "relpos_scores": ("audiojax_torch/csrc/relpos_scores.cu",
                           "audiojax/ops/attention_pallas.py:195"),
     }
-    # the bf16 instances (the bf16 plans' path), beside the float32 ones; B4's
-    # and B6's served bf16 shapes run on their tensor-core kernels
-    sources.update({f"{k}_bf16": v for k, v in list(sources.items())
-                    if k not in ("stft_packed", "istft_packed")})
-    sources["dwconv1d_bf16"] = ("audiojax_torch/csrc/dwconv_bf16.cu",
-                                "audiojax/ops/dwconv_pallas.py:52")
-    sources["quad_attention_bf16"] = ("audiojax_torch/csrc/quad_attention_bf16.cu",
-                                      "audiojax/ops/attention_pallas.py:61")
+    # the bf16 instances (the bf16 plans' path), beside the float32 ones: the
+    # served bf16 shapes of B3, B4, B5 and B6 run on their tensor-core kernels
+    sources.update({
+        "dwconv1d_bf16": ("audiojax_torch/csrc/dwconv_bf16.cu", "audiojax/ops/dwconv_pallas.py:52"),
+        "dwconv1d_tiled_bf16": ("audiojax_torch/csrc/dwconv_bf16.cu",
+                                "audiojax/ops/dwconv_pallas.py:120"),
+        "quad_attention_bf16": ("audiojax_torch/csrc/quad_attention_bf16.cu",
+                                "audiojax/ops/attention_pallas.py:61"),
+        "relpos_scores_bf16": ("audiojax_torch/csrc/relpos_scores_bf16.cu",
+                               "audiojax/ops/attention_pallas.py:195"),
+    })
     kernels = []
     for name, (source, replaces) in sources.items():
         row = rows[name]

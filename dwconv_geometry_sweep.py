@@ -29,8 +29,10 @@ wrapper's within one bf16 ulp of the plain version; beside it the plain version,
 instance at the same shape.  With ``--parent DIR`` (an unpacked earlier tree
 of this repository), the same shapes' times of that tree's B4 bf16 kernel,
 measured by its own code in a process of its own, before and after
-(parent, change, parent).  ``--bf16-only`` skips the float32 and B5 sweeps.
-Without CUDA it exits 1.
+(parent, change, parent).  B5 bf16 (the same kernel, two lanes a group) at
+MossFormer2-SS's 6 s shape likewise, beside the plain version, cuDNN's bf16
+grouped conv, the float32 instance and the parent tree's B5 bf16.
+``--bf16-only`` skips the float32 sweeps.  Without CUDA it exits 1.
 """
 from __future__ import annotations
 
@@ -195,6 +197,96 @@ def sweep_b4_bf16(dev, parent: str | None) -> None:
               + ", ".join(f"{n} {us:.2f}" for n, us in others.items()), flush=True)
 
 
+# an earlier tree's B5 bf16 at the shapes in argv[1] (the model's (G, 2, k)
+# weight seen as (k, 2, G), as nn/core.py passes it)
+OLD_B5 = r"""
+import json, sys, torch
+import chip_smoke as c
+from audiojax_torch.ops import dwconv_cuda as D
+dev = torch.device("cuda")
+times = []
+for (b, t, ch), k, pads, dil in json.loads(sys.argv[1]):
+    x = torch.randn((b, t, ch), device=dev).to(torch.bfloat16)
+    w = (torch.randn((ch // 2, 2, k), device=dev) / (2 * k) ** 0.5).to(torch.bfloat16)
+    w = w.permute(2, 1, 0)
+    times.append(c.device_ms(lambda: D.dwconv1d_grouped_cuda(x, w, pads=tuple(pads),
+                                                             dilation=dil)) * 1e3)
+print(json.dumps(times))
+"""
+
+
+def sweep_b5_bf16(dev, parent: str | None) -> None:
+    """B5 bf16 on the tensor cores (``csrc/dwconv_bf16.cu``, two lanes a
+    group) at MossFormer2-SS's 6 s shape: the plan at 1 to 32 items a block
+    and each ring depth, every result equal to the wrapper's bit for bit and
+    the wrapper's within one bf16 ulp of the plain version; beside it the
+    plain version, cuDNN's bf16 grouped conv, the float32 instance and the
+    parent tree's kernel."""
+    import torch.nn.functional as F
+
+    from audiojax_torch.ops import dwconv_cuda as D
+
+    cases = c.six_s(c.B5_SS_CASES)
+    shapes = [[list(shape), k, list(pads), dil] for _, shape, k, pads, dil in cases]
+    old = [parent_times(parent, OLD_B5, shapes)] if parent else []
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for label, (b, t, ch), k, pads, dil in cases:
+        g = ch // 2
+        x32 = torch.randn((b, t, ch), generator=gen, device=dev)
+        w32 = (torch.randn((g, 2, k), generator=gen, device=dev) / (2 * k) ** 0.5).permute(2, 1, 0)
+        x, w = x32.to(torch.bfloat16), w32.to(torch.bfloat16)
+        ref = D.dwconv1d_grouped_cuda(x, w, pads=pads, dilation=dil)
+        want = D.dwconv1d_grouped_plain(x, w, pads=pads, dilation=dil).float()
+        if not bool(((ref.float() - want).abs() <= c.BF16_ULP * want.abs() + 1e-6).all()):
+            c.fail(f"B5 bf16 {label}: the wrapper parts from plain by more than one bf16 ulp")
+        pick = D.dwconv_plan(b, t, ch, k, *pads, dil, 2, esize=2)
+        if not isinstance(pick, D.DwconvMmaLaunch):
+            c.fail(f"B5 bf16 {label}: a served shape off the tensor-core route")
+        out = torch.empty_like(ref)
+        xt = F.pad(x.transpose(1, 2), pads).contiguous()
+        wt = w.permute(2, 1, 0).contiguous()
+        others = {
+            "plain": c.device_ms(lambda: D.dwconv1d_grouped_plain(x, w, pads=pads,
+                                                                  dilation=dil)) * 1e3,
+            "cuDNN bf16": c.device_ms(lambda: F.conv1d(xt, wt, dilation=dil, groups=g)) * 1e3,
+            "float32 kernel": c.device_ms(lambda: D.dwconv1d_grouped_cuda(
+                x32, w32, pads=pads, dilation=dil)) * 1e3,
+        }
+        bound_us = c.bound(0.0, 2.0 * (b * t * ch + k * ch + ref.numel()),
+                           bf16_flops=2.0 * ref.numel() * 2 * k)[0] * 1e3
+        print(f"== B5 bf16 {label} ({b}, {t}, {ch}→{g}) k{k} pads {pads} d{dil}: bound "
+              f"{bound_us:.2f} us; " + ", ".join(f"{n} {us:.2f} us" for n, us in others.items())
+              + f"; wrapper {pick}", flush=True)
+        times = {}
+        tried = itertools.product((1, 2, 4, 8, 16, 32), D.MMA_DEPTHS)
+        for ipb, depth in [(pick.ipb, pick.depth), *tried]:
+            plan = D.dwconv_mma_launch(b, t, ch, k, *pads, dil, 2, ipb=ipb, depth=depth)
+            key = (plan.ipb, plan.depth)
+            if key in times or plan.smem > D.SMEM_MAX:
+                continue
+            times[key] = c.device_ms(lambda: D.launch_dwconv1d_grouped(x, w, out, pads, dil,
+                                                                       plan)) * 1e3
+            if not torch.equal(out, ref):
+                c.fail(f"B5 bf16 {label} {key}: differs from the wrapper's result")
+        ranked = sorted(times, key=times.get)
+        print("  ipb/depth: us  " + "  ".join(
+            f"{'/'.join(map(str, key))}: {times[key]:.2f}" for key in ranked), flush=True)
+        mine = (pick.ipb, pick.depth)
+        best = ranked[0]
+        print(f"B5 bf16 {label}: wrapper's pick {'/'.join(map(str, mine))} {times[mine]:.2f} us "
+              f"({bound_us / times[mine]:.0%} of bound), best {'/'.join(map(str, best))} "
+              f"{times[best]:.2f} us ({times[mine] / times[best] - 1.0:+.1%})", flush=True)
+        rows.append((label, times[mine], others))
+        del x32, w32, x, w, ref, want, out, xt, wt
+    if parent:
+        old.append(parent_times(parent, OLD_B5, shapes))
+    for i, (label, new_us, others) in enumerate(rows):
+        was = " / ".join(f"{t[i]:.2f}" for t in old) if old else "not measured"
+        print(f"B5 bf16 {label}: new {new_us:.2f} us; parent tree {was} us (before / after); "
+              + ", ".join(f"{n} {us:.2f}" for n, us in others.items()), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("dwconv_geometry_sweep: no CUDA device; nothing was run", file=sys.stderr)
@@ -214,6 +306,7 @@ def main() -> int:
         for label, (b, t, ch), k, pads, dil in c.B5_SS_CASES:
             _sweep(label, 2, b, t, ch, k, pads, dil, gen, dev)
     sweep_b4_bf16(dev, parent)
+    sweep_b5_bf16(dev, parent)
     return 0
 
 

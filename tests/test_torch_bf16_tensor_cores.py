@@ -246,9 +246,9 @@ def test_mma_plan_owns_each_output_once_and_fits(b, t, c, k, lo, hi, dil):
 
 def test_route_rule():
     """bf16 depthwise convs on the vector path with k ≤ 49 take the tensor
-    cores, dilation 3 too; C % 8 != 0, an x off 16 bytes, k past 49, B5 and
-    every float32 conv take the FFMA kernels, whose plans are
-    ``dwconv_launch``'s as they were."""
+    cores, dilation 3 too, and so does B5's grouped conv in bf16; C % 8 !=
+    0, an x off 16 bytes, k past 49 and every float32 conv take the FFMA
+    kernels, whose plans are ``dwconv_launch``'s as they were."""
     for _, (b, t, c), k, pads, dil, offset in chip_smoke.B4_OFFPATH_CASES:
         vector = c % 8 == 0 and offset == 0  # the wrapper's test, in bf16
         plan = D.dwconv_plan(b, t, c, k, *pads, dil, 1, vector=vector, esize=2)
@@ -256,7 +256,8 @@ def test_route_rule():
         if not vector:
             assert plan == D.dwconv_launch(b, t, c, k, *pads, dil, 1, vector=False, esize=2)
     assert D.mma_route(1, 2, True, 49) and not D.mma_route(1, 2, True, 50)
-    assert not D.mma_route(2, 2, True, 39) and not D.mma_route(1, 4, True, 31)
+    assert D.mma_route(2, 2, True, 39) and not D.mma_route(1, 4, True, 31)
+    assert not D.mma_route(2, 4, True, 39) and not D.mma_route(2, 2, False, 39)
     served = (chip_smoke.B4_CASES + chip_smoke.B4_SS_CASES + chip_smoke.B4_SE_CASES
               + chip_smoke.B4_SR_CASES + chip_smoke.B4_DFSMN_CASES)
     for _, (b, t, c), k, pads, dil in served:
@@ -264,7 +265,9 @@ def test_route_rule():
                                                                          dil, 1)
     for _, (b, t, c), k, pads, dil in chip_smoke.B5_SS_CASES:
         plan = D.dwconv_plan(b, t, c, k, *pads, dil, 2, esize=2)
-        assert plan == D.dwconv_launch(b, t, c, k, *pads, dil, 2, esize=2)
+        assert plan == D.dwconv_mma_launch(b, t, c, k, *pads, dil, 2)
+        assert D.dwconv_plan(b, t, c, k, *pads, dil, 2) == D.dwconv_launch(b, t, c, k, *pads,
+                                                                         dil, 2)
 
 
 def test_mma_plan_picks_and_refusals():
