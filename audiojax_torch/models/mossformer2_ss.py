@@ -34,6 +34,7 @@ from ..dsp.pcm import pcm_in, resample_linear
 from ..nn import core
 from ..nn.mossformer import flash_layer, gated_fsmn_block_dilated, sinusoid_positions
 from ..params import params_from_numpy
+from ..utils.profiling import span
 from .base import ParamModule, conv_np, dense_np
 
 __all__ = [
@@ -104,29 +105,50 @@ def norm_audio(x: torch.Tensor, norm_factor: float, eps: float = 1e-6):
 def mossformer2_ss_net(p, audio_normed: torch.Tensor, cfg: MossFormer2SsConfig) -> torch.Tensor:
     """normalised audio (B, L) → separated waves (B, spks, L_out), float32; in
     between in ``cfg.compute_dtype``."""
+    x_enc, h = _encode(p, audio_normed, cfg)
+    return _decode(p, x_enc, _masks(p, x_enc, h, cfg), cfg)
+
+
+def _encode(p, audio_normed: torch.Tensor, cfg: MossFormer2SsConfig):
+    """The encoder conv, the front and the positions: (encoding, the
+    MossFormer stack's input), (B, n, dim) each."""
     dtype = core.compute_dtype(cfg.compute_dtype)
     core.expect_cast(p["encoder"]["w"], dtype)
     audio_normed = audio_normed.to(dtype)
-    b = audio_normed.shape[0]
     x_enc = torch.relu(core.conv1d(p["encoder"], audio_normed[..., None], stride=cfg.enc_stride))
     n = x_enc.shape[1]  # (B, n, dim)
 
     h = core.dense(p["front"], group_norm_all(p["front_norm"], x_enc))
     h = h + sinusoid_positions(n, cfg.dim, h.device).to(h.dtype)[None] * p["pos_scale"]
+    return x_enc, h
+
+
+def _masks(p, x_enc: torch.Tensor, h: torch.Tensor, cfg: MossFormer2SsConfig) -> torch.Tensor:
+    """The FLASH and FSMN layers (a stage span each) and the per-speaker
+    gated tail: masks (B, n, spks, dim)."""
+    b, n = x_enc.shape[:2]
     mdl_input = h
     for i in range(cfg.depth):
-        h = flash_layer(p[f"flash{i}"], h, group_size=cfg.group_size, qk_dim=cfg.qk_dim,
-                        rot_dim=cfg.rot_dim)
-        h = gated_fsmn_block_dilated(p[f"fsmn{i}"], h, lorder=cfg.lorder)
-    h = group_norm_all(p["intra_norm"], core.layer_norm(p["mm_norm"], h))
-    mask = h + mdl_input
+        with span("model.ss.flash"):
+            h = flash_layer(p[f"flash{i}"], h, group_size=cfg.group_size, qk_dim=cfg.qk_dim,
+                            rot_dim=cfg.rot_dim)
+        with span("model.ss.fsmn"):
+            h = gated_fsmn_block_dilated(p[f"fsmn{i}"], h, lorder=cfg.lorder)
+    with span("model.ss.mask"):
+        h = group_norm_all(p["intra_norm"], core.layer_norm(p["mm_norm"], h))
+        mask = h + mdl_input
 
-    # tail: scalar PReLU → per-speaker gates (speakers fold into the batch)
-    mask = torch.where(mask >= 0, mask, p["tail_alpha"] * mask)
-    gate = core.dense(p["tail_gate"], mask).reshape(b, n, cfg.num_spks, 2 * cfg.dim)
-    m = torch.tanh(gate[..., : cfg.dim]) * torch.sigmoid(gate[..., cfg.dim :])
-    m = torch.relu(core.dense(p["mask_decoder"], m))  # (B, n, spks, dim)
+        # tail: scalar PReLU → per-speaker gates (speakers fold into the batch)
+        mask = torch.where(mask >= 0, mask, p["tail_alpha"] * mask)
+        gate = core.dense(p["tail_gate"], mask).reshape(b, n, cfg.num_spks, 2 * cfg.dim)
+        m = torch.tanh(gate[..., : cfg.dim]) * torch.sigmoid(gate[..., cfg.dim :])
+        return torch.relu(core.dense(p["mask_decoder"], m))  # (B, n, spks, dim)
 
+
+def _decode(p, x_enc: torch.Tensor, m: torch.Tensor, cfg: MossFormer2SsConfig) -> torch.Tensor:
+    """Masks × encoding through the transposed-conv decoder: (B, spks, L'),
+    float32."""
+    b, n = x_enc.shape[:2]
     sep = x_enc[:, :, None, :] * m
     sep = sep.movedim(2, 1).reshape(b * cfg.num_spks, n, cfg.dim)
     wav = core.conv1d_transpose(p["decoder"], sep, stride=cfg.enc_stride)  # (B·spks, L', 1)
@@ -135,26 +157,36 @@ def mossformer2_ss_net(p, audio_normed: torch.Tensor, cfg: MossFormer2SsConfig) 
 
 def mossformer2_ss_forward(params, audio: torch.Tensor,
                            cfg: MossFormer2SsConfig = MossFormer2SsConfig()):
-    """int16 mix (B, L) → (separated_0, separated_1), int16 (B, L) each."""
-    x = pcm_in(audio)
-    if cfg.in_sample_rate != cfg.sample_rate:
-        x = resample_linear(x, x.shape[-1] * cfg.sample_rate // cfg.in_sample_rate)
-    model_len = x.shape[-1]
-    # align so that the transposed-conv decoder gives the length back exactly
-    pad_to = -(-(model_len - cfg.enc_kernel) // cfg.enc_stride) * cfg.enc_stride + cfg.enc_kernel
-    if pad_to != model_len:
-        x = F.pad(x, (0, pad_to - model_len))
+    """int16 mix (B, L) → (separated_0, separated_1), int16 (B, L) each.
 
-    normed, rms_in = norm_audio(x, cfg.norm_factor)
-    wav = mossformer2_ss_net(params, normed, cfg)  # (B, spks, L')
+    Under ``torch.profiler`` each stage is a host span (``model.ss.encoder``,
+    ``.flash`` and ``.fsmn`` a layer, ``.mask``, ``.decoder``)."""
+    with span("model.ss.encoder"):
+        x = pcm_in(audio)
+        if cfg.in_sample_rate != cfg.sample_rate:
+            x = resample_linear(x, x.shape[-1] * cfg.sample_rate // cfg.in_sample_rate)
+        model_len = x.shape[-1]
+        # align so that the transposed-conv decoder gives the length back exactly
+        pad_to = (-(-(model_len - cfg.enc_kernel) // cfg.enc_stride) * cfg.enc_stride
+                  + cfg.enc_kernel)
+        if pad_to != model_len:
+            x = F.pad(x, (0, pad_to - model_len))
 
-    rms_out = torch.sqrt(torch.mean(wav * wav, dim=-1, keepdim=True))
-    gain = torch.where(rms_out > 0.0, rms_in[:, None, :] / rms_out, torch.zeros_like(rms_out))
-    out = (wav * gain)[..., :model_len]  # already int16-domain through rms_in
-    if cfg.out_sample_rate != cfg.sample_rate:
-        out = resample_linear(out, model_len * cfg.out_sample_rate // cfg.sample_rate)
-    out = torch.clamp(out, -32768.0, 32767.0).to(torch.int32).to(torch.int16)
-    return tuple(out[:, s] for s in range(cfg.num_spks))
+        normed, rms_in = norm_audio(x, cfg.norm_factor)
+        x_enc, h = _encode(params, normed, cfg)
+
+    m = _masks(params, x_enc, h, cfg)
+
+    with span("model.ss.decoder"):
+        wav = _decode(params, x_enc, m, cfg)  # (B, spks, L')
+        rms_out = torch.sqrt(torch.mean(wav * wav, dim=-1, keepdim=True))
+        gain = torch.where(rms_out > 0.0, rms_in[:, None, :] / rms_out,
+                           torch.zeros_like(rms_out))
+        out = (wav * gain)[..., :model_len]  # already int16-domain through rms_in
+        if cfg.out_sample_rate != cfg.sample_rate:
+            out = resample_linear(out, model_len * cfg.out_sample_rate // cfg.sample_rate)
+        out = torch.clamp(out, -32768.0, 32767.0).to(torch.int32).to(torch.int16)
+        return tuple(out[:, s] for s in range(cfg.num_spks))
 
 
 def make_mossformer2_ss(cfg: MossFormer2SsConfig = MossFormer2SsConfig()):

@@ -43,6 +43,7 @@ from ..nn.mossformer import rope_mm_tables
 from ..ops.attention_cuda import fast_quad_attention
 from ..ops.stft_cuda import fast_istft_packed, fast_stft_packed
 from ..params import params_from_numpy
+from ..utils.profiling import span
 from .base import ParamModule, conv_np, dense_np
 from .zipenhancer import instance_norm_tf
 
@@ -276,34 +277,51 @@ def mossformergan_net(p, mag_c: torch.Tensor, spec_c: torch.Tensor,
                       cfg: MossFormerGanConfig) -> torch.Tensor:
     """compressed mag (B,T,F) + compressed complex (B,T,F,2) → enhanced packed
     (B,T,2F), float32; in between in ``cfg.compute_dtype``."""
+    return _decompress(*_heads(p, mag_c, spec_c, cfg), cfg)
+
+
+def _heads(p, mag_c: torch.Tensor, spec_c: torch.Tensor, cfg: MossFormerGanConfig):
+    """The encoder, the SyncANet blocks and the two decoders, each a stage
+    span: (mask (B,T,F), complex residual (B,T,F,2), ``spec_c``), all in
+    ``cfg.compute_dtype``."""
     dtype = core.compute_dtype(cfg.compute_dtype)
-    core.expect_cast(p["enc_conv1"]["w"], dtype)
-    mag_c, spec_c = mag_c.to(dtype), spec_c.to(dtype)
-    x = torch.cat([mag_c[..., None], spec_c], dim=-1)  # (B,T,F,3)
-    x = core.conv2d(p["enc_conv1"], x)
-    x = core.prelu(p["enc_act1"], instance_norm_tf(p["enc_norm1"], x))
-    x = _dense_fsmn_block(p["enc_dense"], x, cfg.dense_depth, cfg.lorder)
-    x = core.conv2d(p["enc_conv2"], x, stride=(1, 2), padding=(0, 1))
-    x = core.prelu(p["enc_act2"], instance_norm_tf(p["enc_norm2"], x))
+    with span("model.gan.encoder"):
+        core.expect_cast(p["enc_conv1"]["w"], dtype)
+        mag_c, spec_c = mag_c.to(dtype), spec_c.to(dtype)
+        x = torch.cat([mag_c[..., None], spec_c], dim=-1)  # (B,T,F,3)
+        x = core.conv2d(p["enc_conv1"], x)
+        x = core.prelu(p["enc_act1"], instance_norm_tf(p["enc_norm1"], x))
+        x = _dense_fsmn_block(p["enc_dense"], x, cfg.dense_depth, cfg.lorder)
+        x = core.conv2d(p["enc_conv2"], x, stride=(1, 2), padding=(0, 1))
+        x = core.prelu(p["enc_act2"], instance_norm_tf(p["enc_norm2"], x))
 
     for i in range(cfg.n_blocks):
         blk = p[f"block{i}"]
-        x = _sync_path(blk["intra"], x, cfg, axis="f")
-        x = _sync_path(blk["inter"], x, cfg, axis="t")
-        x = triple_attention(blk["attn"], x, cfg)
+        with span("model.gan.intra"):
+            x = _sync_path(blk["intra"], x, cfg, axis="f")
+        with span("model.gan.inter"):
+            x = _sync_path(blk["inter"], x, cfg, axis="t")
+        with span("model.gan.attention"):
+            x = triple_attention(blk["attn"], x, cfg)
 
-    # mask decoder → (B, T, F) mask
-    m = _decoder(p["mask_dec"], x, cfg)
-    m = core.conv2d(p["mask_conv1"], m)
-    m = core.prelu(p["mask_act"], instance_norm_tf(p["mask_norm"], m))
-    m = core.conv2d(p["mask_final"], m)[..., 0]  # kernel (1, 2): 202 → 201 bins
-    mask = torch.where(m >= 0, m, p["mask_out_alpha"] * m)
+    with span("model.gan.mask_decoder"):  # → (B, T, F) mask
+        m = _decoder(p["mask_dec"], x, cfg)
+        m = core.conv2d(p["mask_conv1"], m)
+        m = core.prelu(p["mask_act"], instance_norm_tf(p["mask_norm"], m))
+        m = core.conv2d(p["mask_final"], m)[..., 0]  # kernel (1, 2): 202 → 201 bins
+        mask = torch.where(m >= 0, m, p["mask_out_alpha"] * m)
 
-    # complex decoder → (B, T, F, 2)
-    cx = _decoder(p["cplx_dec"], x, cfg)
-    cx = core.prelu(p["cplx_act"], instance_norm_tf(p["cplx_norm"], cx))
-    cplx = core.conv2d(p["cplx_final"], cx)  # (B, T, 201, 2)
+    with span("model.gan.complex_decoder"):  # → (B, T, F, 2)
+        cx = _decoder(p["cplx_dec"], x, cfg)
+        cx = core.prelu(p["cplx_act"], instance_norm_tf(p["cplx_norm"], cx))
+        cplx = core.conv2d(p["cplx_final"], cx)  # (B, T, 201, 2)
+    return mask, cplx, spec_c
 
+
+def _decompress(mask: torch.Tensor, cplx: torch.Tensor, spec_c: torch.Tensor,
+                cfg: MossFormerGanConfig) -> torch.Tensor:
+    """The masked spectrum plus the complex residual, decompressed in
+    float32: packed (B,T,2F)."""
     final = (mask[..., None] * spec_c + cplx).float()  # the f32 decompress island
     power = torch.sum(final * final, dim=-1)
     # decompress: |final|^(1/c) unit-phase ≡ final · |final|²^((1/c − 1)/2)
@@ -318,41 +336,48 @@ def mossformergan_forward(params, audio: torch.Tensor,
 
     The network takes int16-scale values (no 1/32768 scale): each fold window
     is divided by its RMS before the STFT and multiplied by it after the
-    ISTFT; NaN becomes 0, then the output is clipped and truncated to int16."""
-    x = audio.to(torch.float32)
-    if cfg.in_sample_rate != cfg.sample_rate:
-        x = resample_linear(x, x.shape[-1] * cfg.sample_rate // cfg.in_sample_rate)
+    ISTFT; NaN becomes 0, then the output is clipped and truncated to int16.
+    Under ``torch.profiler`` each stage is a host span (``model.gan.stft``,
+    ``.encoder``, ``.intra``, ``.inter`` and ``.attention`` a block,
+    ``.mask_decoder``, ``.complex_decoder``, ``.istft``)."""
+    with span("model.gan.stft"):
+        x = audio.to(torch.float32)
+        if cfg.in_sample_rate != cfg.sample_rate:
+            x = resample_linear(x, x.shape[-1] * cfg.sample_rate // cfg.in_sample_rate)
 
-    batch = x.shape[0]
-    model_len = x.shape[-1]
-    align = cfg.fold_window if cfg.fold_window else cfg.hop
-    padded = -(-model_len // align) * align
-    if padded != model_len:
-        x = F.pad(x, (0, padded - model_len))
-    if cfg.fold_window:
-        x = fold_windows(x, cfg.fold_window)
+        batch = x.shape[0]
+        model_len = x.shape[-1]
+        align = cfg.fold_window if cfg.fold_window else cfg.hop
+        padded = -(-model_len // align) * align
+        if padded != model_len:
+            x = F.pad(x, (0, padded - model_len))
+        if cfg.fold_window:
+            x = fold_windows(x, cfg.fold_window)
 
-    norm = torch.sqrt(torch.mean(x * x, dim=-1, keepdim=True) + 1e-6)
-    x = x / norm
+        norm = torch.sqrt(torch.mean(x * x, dim=-1, keepdim=True) + 1e-6)
+        x = x / norm
 
-    pk = fast_stft_packed(x.contiguous(), cfg.stft)
-    re, im = pk[..., : cfg.f_bins], pk[..., cfg.f_bins :]
-    power = re * re + im * im
-    mag_c = torch.pow(power, cfg.compress * 0.5)
-    phase_scale = torch.pow(torch.clamp(power, min=float(np.finfo(np.float32).tiny)),
-                            cfg.compress * 0.5 - 0.5)
-    spec_c = torch.stack([re, im], dim=-1) * phase_scale[..., None]
+        pk = fast_stft_packed(x.contiguous(), cfg.stft)
+        re, im = pk[..., : cfg.f_bins], pk[..., cfg.f_bins :]
+        power = re * re + im * im
+        mag_c = torch.pow(power, cfg.compress * 0.5)
+        phase_scale = torch.pow(torch.clamp(power, min=float(np.finfo(np.float32).tiny)),
+                                cfg.compress * 0.5 - 0.5)
+        spec_c = torch.stack([re, im], dim=-1) * phase_scale[..., None]
 
-    out = mossformergan_net(params, mag_c, spec_c, cfg)
-    y = fast_istft_packed(out.contiguous(), cfg.stft) * norm
+    mask, cplx, spec_c = _heads(params, mag_c, spec_c, cfg)
 
-    if cfg.fold_window:
-        y = unfold_windows(y, batch)
-    y = y[..., :model_len]
-    if cfg.out_sample_rate != cfg.sample_rate:
-        y = resample_linear(y, model_len * cfg.out_sample_rate // cfg.sample_rate)
-    y = torch.where(torch.isnan(y), 0.0, y)
-    return torch.clamp(y, -32768.0, 32767.0).to(torch.int32).to(torch.int16)
+    with span("model.gan.istft"):
+        out = _decompress(mask, cplx, spec_c, cfg)
+        y = fast_istft_packed(out.contiguous(), cfg.stft) * norm
+
+        if cfg.fold_window:
+            y = unfold_windows(y, batch)
+        y = y[..., :model_len]
+        if cfg.out_sample_rate != cfg.sample_rate:
+            y = resample_linear(y, model_len * cfg.out_sample_rate // cfg.sample_rate)
+        y = torch.where(torch.isnan(y), 0.0, y)
+        return torch.clamp(y, -32768.0, 32767.0).to(torch.int32).to(torch.int16)
 
 
 def make_mossformergan(cfg: MossFormerGanConfig = MossFormerGanConfig()):

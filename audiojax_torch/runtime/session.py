@@ -27,6 +27,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..parallel import replicate, shard_batch, sharded_model_fn
+from ..utils.profiling import span
 from .audio_io import normalise_rms
 from .manifest import Manifest
 
@@ -106,47 +107,69 @@ class Session:
     # ── main entry ───────────────────────────────────────────────────────
 
     def process(self, *audios: np.ndarray) -> SessionResult:
-        """Enhance one clip (AEC passes two clips: near_end, far_end)."""
+        """Enhance one clip (AEC passes two clips: near_end, far_end).
+
+        Under ``torch.profiler`` the call is a ``session.process`` span of
+        six back-to-back phases (``utils.profiling.span``):
+        ``session.condition``, ``session.slice``, ``session.to_device``,
+        ``model.forward`` (the host's enqueue of the forward; the models
+        mark their stages inside it), ``session.to_host`` (the copy back and
+        the synchronisation) and ``session.stitch``; the middle three are
+        the interval ``elapsed_s`` times."""
+        with span("session.process"):
+            return self._process(audios)
+
+    def _process(self, audios) -> SessionResult:
         if len(audios) != self.cfg["NUM_AUDIO_INPUTS"]:
             raise ValueError(
                 f"model expects {self.cfg['NUM_AUDIO_INPUTS']} audio inputs, got {len(audios)}"
             )
-        conditioned = [self._condition(a) for a in audios]
-        n = max(a.shape[-1] for a in conditioned)
-        pad_head = self.cfg["PAD_HEAD"]
-        total = n + pad_head
-        w, stride, num, num_padded = self._window_geometry(total)
-        need = (num_padded - 1) * stride + w
+        with span("session.condition"):
+            conditioned = [self._condition(a) for a in audios]
+        with span("session.slice"):
+            n = max(a.shape[-1] for a in conditioned)
+            pad_head = self.cfg["PAD_HEAD"]
+            total = n + pad_head
+            w, stride, num, num_padded = self._window_geometry(total)
+            need = (num_padded - 1) * stride + w
 
-        batches = []
-        for a in conditioned:
-            a = np.pad(a, [(0, 0)] * (a.ndim - 1) + [(pad_head, max(0, need - pad_head - a.shape[-1]))])
-            wins = np.stack([a[..., s : s + w] for s in range(0, num_padded * stride, stride)])
-            # (num, channels, w) → model contract is (batch, w) for mono
-            batches.append(wins[:, 0] if wins.shape[1] == 1 else wins)
+            batches = []
+            for a in conditioned:
+                a = np.pad(a, [(0, 0)] * (a.ndim - 1)
+                           + [(pad_head, max(0, need - pad_head - a.shape[-1]))])
+                wins = np.stack([a[..., s : s + w] for s in range(0, num_padded * stride, stride)])
+                # (num, channels, w) → model contract is (batch, w) for mono
+                batches.append(wins[:, 0] if wins.shape[1] == 1 else wins)
 
         start = time.perf_counter()
         with torch.inference_mode():
-            if self.mesh is None:
-                out = self.model(*[torch.from_numpy(np.ascontiguousarray(b)).to(self.device)
-                                   for b in batches])
-            else:
-                out = self._sharded(self._replicas,
-                                    *(shard_batch(self.mesh, b) for b in batches))
-            outs = tuple(out) if isinstance(out, (tuple, list)) else (out,)
-            outs = tuple(o[:num].cpu().numpy() for o in outs)  # drop the pad windows
-        for dev in ([self.device] if self.mesh is None else self.mesh.distinct()):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            with span("session.to_device"):
+                if self.mesh is None:
+                    inputs = [torch.from_numpy(np.ascontiguousarray(b)).to(self.device)
+                              for b in batches]
+                else:
+                    inputs = [shard_batch(self.mesh, b) for b in batches]
+            with span("model.forward"):
+                if self.mesh is None:
+                    out = self.model(*inputs)
+                else:
+                    out = self._sharded(self._replicas, *inputs)
+            with span("session.to_host"):
+                outs = tuple(out) if isinstance(out, (tuple, list)) else (out,)
+                outs = tuple(o[:num].cpu().numpy() for o in outs)  # drop the pad windows
+                for dev in ([self.device] if self.mesh is None else self.mesh.distinct()):
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
         elapsed = time.perf_counter() - start
 
-        scale = self.cfg["INPUT_TO_OUTPUT_SCALE"]
-        out_total = int(round(n * scale))
-        head_out = int(round(pad_head * scale))
-        # trim on the TIME axis — outputs may be (num, w) or (num, ch, w)
-        stitched = tuple(
-            self._stitch(o, stride, scale)[..., head_out : head_out + out_total] for o in outs
-        )
+        with span("session.stitch"):
+            scale = self.cfg["INPUT_TO_OUTPUT_SCALE"]
+            out_total = int(round(n * scale))
+            head_out = int(round(pad_head * scale))
+            # trim on the TIME axis — outputs may be (num, w) or (num, ch, w)
+            stitched = tuple(
+                self._stitch(o, stride, scale)[..., head_out : head_out + out_total] for o in outs
+            )
 
         duration = out_total / self.cfg["OUT_SAMPLE_RATE"]
         return SessionResult(

@@ -11,14 +11,39 @@ after a synchronize, so the time runs from the loop's first launch to its
 last kernel's end, host gaps included; the JAX package syncs by a host
 transfer, which the card does not need.  On the CPU a loop is timed by the
 host clock.
+
+:func:`span` names a stretch of host time on ``torch.profiler``'s clock:
+``Session.process`` marks its phases with it, and the served models their
+stages.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
 
-__all__ = ["measure_rtf"]
+__all__ = ["measure_rtf", "span"]
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records a host span ``name`` while a ``torch.profiler``
+    session runs, and does nothing otherwise (one flag read, the same shared
+    no-op context each time).
+
+    The span is a host-only event (``cpu_op``), on the profiler's clock
+    beside the device's kernels, so an idle stretch of the device can be put
+    down to the innermost span the host was in.  It is made by
+    ``_RecordFunctionFast`` and not ``record_function``: the latter is a user
+    annotation, which the CUDA trace mirrors by a device-side mark covering
+    every kernel it launched and the gaps between them, so it would read as
+    device work.  While ``torch.export`` (or ``torch.compile``) traces, the
+    span is the no-op: a graph holds no profiler node."""
+    if torch._C._autograd._profiler_enabled() and not torch.compiler.is_compiling():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
 
 
 def _chain(y):

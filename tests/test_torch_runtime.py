@@ -75,13 +75,12 @@ def test_import_pulls_in_no_jax():
 
 def test_sources_import_no_jax():
     """A scan of every import statement in the port, chip_smoke.py, the
-    three geometry sweeps, the dwconv probe, serve_latency.py and the
-    checkpoint builders chip_smoke.py imports."""
+    three geometry sweeps, the dwconv probe and the checkpoint builders
+    chip_smoke.py imports."""
     files = [p for p in PORT.rglob("*.py") if "_build" not in p.parts] + [
         REPO / "chip_smoke.py", REPO / "stft_geometry_sweep.py",
         REPO / "attention_geometry_sweep.py", REPO / "dwconv_geometry_sweep.py",
-        REPO / "dwconv_probe.py", REPO / "serve_latency.py",
-        REPO / "tests" / "test_torch_ckpt_builders.py"]
+        REPO / "dwconv_probe.py", REPO / "tests" / "test_torch_ckpt_builders.py"]
     assert len(files) > 15
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
